@@ -1,0 +1,27 @@
+"""plate_inverse_problem_tpu_torch — the PyTorch / CUDA port of
+``plate_inverse_problem_tpu`` for NVIDIA Hopper (H100).
+
+This slice runs the band tier of the mixed engine end to end: the 3-field
+plate operator in the RCM block-tridiagonal layout, the f64 FGMRES sweep
+with a two-grid f32 preconditioner whose band matvec is a hand-written
+CUDA kernel (``csrc/band_mv.cu``), and the accelerometer readout.  The
+package imports torch, numpy and scipy, never jax.
+"""
+from . import config
+from .convert import opdata_from_jax
+from .models.accelerometer import Accelerometer
+from .models.geometry import Geometry, GeometryParams
+from .models.materials import get_material
+from .models.problem import Problem
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Accelerometer",
+    "Geometry",
+    "GeometryParams",
+    "Problem",
+    "config",
+    "get_material",
+    "opdata_from_jax",
+]

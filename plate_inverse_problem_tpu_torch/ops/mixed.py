@@ -1,0 +1,507 @@
+"""Mixed-precision frequency sweep: f64-grade FRFs with an f32 preconditioner.
+
+Port of the JAX package's ``ops/mixed.py`` for the band tier: the RCM
+block-tridiagonal exact f64 operator and the two-grid f32 preconditioner.
+
+1. **Band basis** (host, init-time): the lowest ``m`` M-orthonormal modes of
+   the equilibrated reference pencil, from ARPACK shift-invert in f64.
+2. **Per-theta Rayleigh-Ritz in f64** on the device: band eigenpairs with a
+   Rayleigh-quotient refinement, and the exactly projected m x m pencil.
+3. **Per-frequency solve**: exact band-resolvent start, then restarted
+   flexible GMRES in split-complex f64 preconditioned by the band resolvent
+   plus the deflated two-grid cycle, then final band corrections through a
+   residual-grade (entrywise-combined) operator apply.
+
+The JAX side vmaps the per-frequency solve; here the frequency lanes are a
+written-out leading axis of every (lanes, 2, n) re/im stack.  Its batched
+``while_loop``s freeze each lane once the lane's own condition fails; the
+port keeps one step counter and a per-lane ``active`` mask, applies every
+state update through ``torch.where`` and ends a loop when no lane is active
+(one host sync per step).  Each lane therefore follows exactly the
+iteration it would follow alone.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .band import band_mv, flat_to_band
+from .band_kernel import band_mv_f32
+from .mg import twogrid_apply
+
+# f32 refinement rounds around the two-grid cycle (each round costs one
+# extra f32 band matvec + cycle and squares the cycle's error)
+_MG_REFINE = 1
+# true-residual band corrections after the Krylov loop on the two-grid
+# tier: each contracts the Ritz-pair defect ~100x (1.6e-5 -> 1.6e-7 FRF
+# error at 21k with the second pass)
+_BAND_CORRECT_N = 2
+
+
+# ---------------------------------------------------------------------------
+# host-side band basis (init time)
+# ---------------------------------------------------------------------------
+
+def band_basis_host(K_flat_ref: np.ndarray, M_flat: np.ndarray,
+                    rows: np.ndarray, cols: np.ndarray, n: int,
+                    omega_max: float, margin: float = 2.5,
+                    m_min: int = 16, m_max: int = 256):
+    """Lowest-band M-orthonormal modes of the (equilibrated) reference pencil.
+
+    Returns (W (n, m) f64, lam_ref (m,)).  Computed once per Problem with
+    ARPACK shift-invert on the host.
+    """
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    K = sp.csc_matrix((K_flat_ref, (rows, cols)), shape=(n, n))
+    M = sp.csc_matrix((M_flat, (rows, cols)), shape=(n, n))
+    K = 0.5 * (K + K.T)
+    M = 0.5 * (M + M.T)
+
+    target = (margin * omega_max) ** 2
+    m = min(m_max, max(m_min, 8), n - 2)
+    lam = W = None
+    while True:
+        lam, W = spla.eigsh(K, k=m, M=M, sigma=0, which="LM")
+        order = np.argsort(lam)
+        lam, W = lam[order], W[:, order]
+        if lam[-1] >= target or m >= min(m_max, n - 2):
+            break
+        m = min(m * 2, m_max, n - 2)
+
+    # keep modes up to the margin (but at least m_min)
+    keep = max(int(np.searchsorted(lam, target)) + 1, m_min)
+    keep = min(keep, lam.size)
+    lam, W = lam[:keep], W[:, :keep]
+
+    # M-orthonormalize exactly (ARPACK returns M-orthonormal up to tol)
+    G = W.T @ (M @ W)
+    L = np.linalg.cholesky(0.5 * (G + G.T))
+    W = np.linalg.solve(L, W.T).T
+    return np.ascontiguousarray(W), lam
+
+
+# ---------------------------------------------------------------------------
+# batched split-complex flexible GMRES
+# ---------------------------------------------------------------------------
+
+def _cmul(a, b):
+    return (a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0])
+
+
+def _sel(mask, new, old):
+    """Per-lane select: ``mask`` (L,) broadcast over the trailing dims."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)),
+                       new, old)
+
+
+def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
+            r0, final_correct, final_correct_n: int, A_final):
+    """Restarted flexible (right-preconditioned) GMRES on split-complex f64
+    lanes (JAX ``_pgmres`` with ``anchor=True``, ``tol_abs2=0``, an f64
+    basis, a given start residual and final band corrections).
+
+    ``bb``/``x0``/``r0``: (L, 2, n).  ``tol_rel``: (L,).  ``A_apply``/
+    ``P_apply``/``A_final``/``final_correct``: (L', 2, n) -> (L', 2, n)
+    maps taking a lane index (L',) as their second argument.  Up to
+    ``n_cycles`` cycles of ``k_max`` iterations; between cycles the TRUE
+    f64 residual decides whether a lane goes on.  FLEXIBLE because the f32
+    preconditioner is linear only to ~1e-7: the preconditioned vectors
+    Z_j = P(v_j) are stored and x = x0 + Z y is exact for any P.
+    """
+    L = bb.shape[0]
+    lanes = torch.arange(L, device=bb.device)
+    tol2 = (tol_rel * torch.sqrt((r0 * r0).sum((1, 2)))) ** 2
+    active = torch.ones(L, dtype=torch.bool, device=bb.device)
+    x, r, rn2, tol2 = _pgmres_cycle(A_apply, P_apply, bb, x0, r0, tol2,
+                                    tol_rel, k_max, True, active, lanes)
+    c = 1
+    while c < n_cycles:
+        active = rn2 > tol2
+        if not bool(active.any()):
+            break
+        xn, rnew, rn2n, tol2n = _pgmres_cycle(
+            A_apply, P_apply, bb, x, r, tol2, tol_rel, k_max, False, active,
+            lanes)
+        x, r = _sel(active, xn, x), _sel(active, rnew, r)
+        rn2, tol2 = _sel(active, rn2n, rn2), _sel(active, tol2n, tol2)
+        c += 1
+
+    # final defect corrections through the exact band resolvent, on the
+    # residual-grade apply (see A_res_apply in mixed_sweep)
+    for _ in range(final_correct_n):
+        r = bb - A_final(x, lanes)
+        x = x + final_correct(r, lanes)
+    return x
+
+
+def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
+                  k_max: int, anchor: bool, run, lanes):
+    """One FGMRES cycle over the lanes where ``run`` holds: Arnoldi with
+    CGS2 orthogonalisation, incremental complex Givens rotations,
+    back-substitution and reconstruction, then the TRUE f64 residual.
+
+    Returns (x_new, r_new, rn2, tol2) for every lane; lanes outside ``run``
+    come back unusable and the caller keeps their old state."""
+    f64 = bb.dtype
+    dev = bb.device
+    L, _, n = bb.shape
+    tiny = 1e-300
+    floor = 1e-15   # relative residual gain one f64-basis cycle can certify
+
+    beta0 = torch.sqrt((r0 * r0).sum((1, 2)))                    # (L,)
+    V = torch.zeros(L, k_max + 1, 2, n, dtype=f64, device=dev)
+    V[:, 0] = r0 / torch.clamp(beta0, min=tiny)[:, None, None]
+    Z = torch.zeros(L, k_max, 2, n, dtype=f64, device=dev)
+    R = torch.zeros(L, k_max, k_max, 2, dtype=f64, device=dev)
+    R[:, :, :, 0] = torch.eye(k_max, dtype=f64, device=dev)
+    g = torch.zeros(L, k_max + 1, 2, dtype=f64, device=dev)
+    g[:, 0, 0] = beta0
+    cs = torch.ones(L, k_max, dtype=f64, device=dev)
+    sn = torch.zeros(L, k_max, 2, dtype=f64, device=dev)
+    floor2 = (floor * beta0) ** 2
+    rn2 = beta0 * beta0
+    tol2 = tol2_in.clone()
+    j_fin = torch.zeros(L, dtype=torch.long, device=dev)
+
+    def cdots(V, w):
+        """Complex dots <V_k, w> for every basis row: (L, k+1) re, im."""
+        t = torch.einsum("lkcn,ldn->lkcd", V, w)
+        return t[..., 0, 0] + t[..., 1, 1], t[..., 0, 1] - t[..., 1, 0]
+
+    def csaxpy(V, hre, him, w):
+        """w - sum_k h_k V_k with complex coefficients h."""
+        coef = torch.stack([torch.stack([hre, -him], dim=2),
+                            torch.stack([him, hre], dim=2)], dim=2)
+        return w - torch.einsum("lkcd,lkdn->lcn", coef, V)
+
+    j = 0
+    while j < k_max:
+        active = run & (rn2 > torch.maximum(tol2, floor2))
+        if not bool(active.any()):
+            break
+        j_fin = j_fin + active.long()
+        idx = torch.nonzero(active).squeeze(1)
+        # the operator and preconditioner run on the active lanes only
+        z_a = P_apply(V[idx, j], lanes[idx])
+        w_a = A_apply(z_a, lanes[idx])
+        z = torch.zeros(L, 2, n, dtype=f64, device=dev)
+        w = torch.zeros(L, 2, n, dtype=f64, device=dev)
+        z[idx] = z_a
+        w[idx] = w_a
+        Z[:, j] = _sel(active, z, Z[:, j])
+        h1re, h1im = cdots(V, w)
+        w = csaxpy(V, h1re, h1im, w)
+        h2re, h2im = cdots(V, w)          # CGS2 reorthogonalisation
+        w = csaxpy(V, h2re, h2im, w)
+        hre = h1re + h2re
+        him = h1im + h2im
+        hlast = torch.sqrt((w * w).sum((1, 2)))
+        V[:, j + 1] = _sel(active, w / torch.clamp(hlast, min=tiny)[:, None, None],
+                           V[:, j + 1])
+
+        # apply the accumulated rotations to the new column (rotations
+        # beyond the current step are the identity)
+        zero = torch.zeros(L, 1, dtype=f64, device=dev)
+        hre = torch.cat([hre, zero], dim=1)
+        him = torch.cat([him, zero], dim=1)
+        hre[:, j + 1] = hlast
+        for i in range(k_max):
+            a = (hre[:, i], him[:, i])
+            b = (hre[:, i + 1], him[:, i + 1])
+            s = (sn[:, i, 0], sn[:, i, 1])
+            c_ = cs[:, i]
+            top = _cmul((c_, 0.0 * c_), a)
+            top = (top[0] + s[0] * b[0] - s[1] * b[1],
+                   top[1] + s[0] * b[1] + s[1] * b[0])
+            bot = _cmul((c_, 0.0 * c_), b)
+            bot = (bot[0] - s[0] * a[0] - s[1] * a[1],
+                   bot[1] - s[0] * a[1] + s[1] * a[0])
+            hre[:, i], hre[:, i + 1] = top[0], bot[0]
+            him[:, i], him[:, i + 1] = top[1], bot[1]
+
+        # new rotation [[c, s], [-conj(s), c]] (c real) annihilating slot
+        # j+1; degenerate a -> c = 0, s = phase of conj(b); both zero ->
+        # identity
+        a = (hre[:, j], him[:, j])
+        b = (hre[:, j + 1], him[:, j + 1])
+        amag = torch.sqrt(a[0] * a[0] + a[1] * a[1])
+        bmag = torch.sqrt(b[0] * b[0] + b[1] * b[1])
+        rho = torch.sqrt(amag * amag + bmag * bmag)
+        a_ok = amag > tiny
+        b_ok = bmag > tiny
+        one = torch.ones_like(amag)
+        zr = torch.zeros_like(amag)
+        c = torch.where(a_ok, amag / torch.clamp(rho, min=tiny),
+                        torch.where(b_ok, zr, one))
+        phase = (torch.where(a_ok, a[0] / torch.clamp(amag, min=tiny), one),
+                 torch.where(a_ok, a[1] / torch.clamp(amag, min=tiny), zr))
+        denom = torch.where(a_ok, torch.clamp(rho, min=tiny),
+                            torch.clamp(bmag, min=tiny))
+        s = _cmul(phase, (b[0] / denom, -b[1] / denom))
+        s = (torch.where(b_ok, s[0], zr), torch.where(b_ok, s[1], zr))
+        cs[:, j] = torch.where(active, c, cs[:, j])
+        sn[:, j] = _sel(active, torch.stack([s[0], s[1]], dim=1), sn[:, j])
+
+        top = _cmul((c, 0.0 * c), a)
+        top = (top[0] + s[0] * b[0] - s[1] * b[1],
+               top[1] + s[0] * b[1] + s[1] * b[0])
+        hre[:, j] = top[0]
+        him[:, j] = top[1]
+        R[:, :, j] = _sel(active, torch.stack([hre[:, :k_max],
+                                               him[:, :k_max]], dim=2),
+                          R[:, :, j])
+
+        gj = (g[:, j, 0], g[:, j, 1])
+        g_top = _cmul((c, 0.0 * c), gj)
+        g_bot = (-(s[0] * gj[0] + s[1] * gj[1]),
+                 -(s[0] * gj[1] - s[1] * gj[0]))
+        g_new = g.clone()
+        g_new[:, j, 0], g_new[:, j, 1] = g_top
+        g_new[:, j + 1, 0], g_new[:, j + 1, 1] = g_bot
+        g = _sel(active, g_new, g)
+        rn2_new = g_bot[0] ** 2 + g_bot[1] ** 2
+        rn2 = torch.where(active, rn2_new, rn2)
+        # the first step resolves the stiffness-lift components of the
+        # residual; the target is re-anchored at what is left after it
+        if anchor and j == 0:
+            anc = torch.maximum(torch.sqrt(rn2), 1e-13 * beta0)
+            tol2 = torch.where(active, (tol_rel * anc) ** 2, tol2)
+        j += 1
+
+    # rows past a lane's last step: R is the identity there, g is masked to
+    # zero so the back-substitution returns y = 0
+    rows_on = torch.arange(k_max, device=dev)[None, :] < j_fin[:, None]
+    g = torch.where(rows_on[..., None], g[:, :k_max], 0.0)
+    y = torch.zeros(L, k_max, 2, dtype=f64, device=dev)
+    for t in range(k_max):
+        l = k_max - 1 - t
+        acc_re = (R[:, l, :, 0] * y[..., 0]).sum(1) \
+            - (R[:, l, :, 1] * y[..., 1]).sum(1)
+        acc_im = (R[:, l, :, 0] * y[..., 1]).sum(1) \
+            + (R[:, l, :, 1] * y[..., 0]).sum(1)
+        num = (g[:, l, 0] - acc_re, g[:, l, 1] - acc_im)
+        den = R[:, l, l, 0] ** 2 + R[:, l, l, 1] ** 2
+        yl = _cmul(num, (R[:, l, l, 0] / torch.clamp(den, min=tiny),
+                         -R[:, l, l, 1] / torch.clamp(den, min=tiny)))
+        y[:, l, 0] = yl[0]
+        y[:, l, 1] = yl[1]
+
+    xc0 = torch.einsum("lk,lkn->ln", y[..., 0], Z[:, :, 0]) \
+        - torch.einsum("lk,lkn->ln", y[..., 1], Z[:, :, 1])
+    xc1 = torch.einsum("lk,lkn->ln", y[..., 0], Z[:, :, 1]) \
+        + torch.einsum("lk,lkn->ln", y[..., 1], Z[:, :, 0])
+    x = x_in + torch.stack([xc0, xc1], dim=1)
+    idx = torch.nonzero(run).squeeze(1)
+    r_new = torch.zeros_like(bb)
+    r_new[idx] = bb[idx] - A_apply(x[idx], lanes[idx])
+    return x, r_new, (r_new * r_new).sum((1, 2)), tol2
+
+
+# ---------------------------------------------------------------------------
+# the mixed sweep
+# ---------------------------------------------------------------------------
+
+def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
+                W64, *, band, mg, n_refine: int = 16,
+                refine_tol: float = 3e-7, freq_chunk: int | None = None,
+                ki_proportional: bool = True, k_cycle: int | None = None):
+    """f64-grade frequency sweep on the band tier, split-complex interface.
+
+    K_re/K_im/M_flat (nnz,) f64 flat operator data on the pattern
+    (rows, cols); B_re/B_im (F, n) f64 right-hand sides; omegas (F,) f64;
+    W64 (n, m) f64 M-orthonormal band basis.  ``band``: {"layout":
+    BandLayout, "lin": (nnz,) int64 device scatter targets}.  ``mg``: the
+    two-grid data {"tg_band0", "dinv", "Pt", "Kc_inv", "slots", "lmax",
+    "rl", "layout"}.  ``freq_chunk``: lanes per batch; the frequencies are
+    sorted by their band-computable resonance amplification first, so
+    smooth chunks exit after few iterations.
+
+    Returns (U_re, U_im), each (F, n) f64.
+    """
+    if not ki_proportional:
+        raise NotImplementedError(
+            "Per-modulus loss factors (ki_proportional=False) are not "
+            "ported yet (ROADMAP Queue 1, item 2: material transforms).")
+    if band is None or mg is None or "tg_band0" not in mg:
+        raise NotImplementedError(
+            "Only the band layout with the two-grid preconditioner is "
+            "ported (ROADMAP Queue 1, items 5-6: the dense tier).")
+    f64 = torch.float64
+    dev = K_re.device
+    # beta is only the preconditioner's model of K_im; the residuals use
+    # K_im = beta K_re exactly (scalar-loss families)
+    beta = torch.dot(K_re, K_im) / torch.dot(K_re, K_re)
+    Kr64 = K_re.to(f64)
+    Ms64 = M_flat.to(f64)
+
+    lay = band["layout"]
+    Kband = flat_to_band(Kr64, lay, band["lin"])
+    Mband = flat_to_band(Ms64, lay, band["lin"])
+
+    def K_mv(x):
+        return band_mv(Kband, x, lay)
+
+    def M_mv(x):
+        return band_mv(Mband, x, lay)
+
+    # ---- per-theta band Rayleigh-Ritz, all f64 --------------------------
+    KW = K_mv(W64.T.contiguous())                      # (m, n) rows = K w_i
+    MW = M_mv(W64.T.contiguous())
+    Kw = KW @ W64
+    Mw = MW @ W64
+    Kw = 0.5 * (Kw + Kw.T)
+    Mw = 0.5 * (Mw + Mw.T)
+    # first-order congruence correction for Mw = I + E:
+    # C = K - (K E + E K)/2
+    E = Mw - torch.eye(Mw.shape[0], dtype=f64, device=dev)
+    Cw = Kw - 0.5 * (Kw @ E + E @ Kw)
+    Cw_sym = 0.5 * (Cw + Cw.T)
+    lam_w, Qw = torch.linalg.eigh(Cw_sym)
+    # Rayleigh-quotient refinement of the Ritz values (one (m, m) GEMM)
+    CQ = Cw_sym @ Qw
+    lam_w = (Qw * CQ).sum(0) / (Qw * Qw).sum(0)
+    Zw64 = W64 @ Qw                                    # (n, m) band modes
+    MZ64 = M_mv(Zw64.T.contiguous()).T                 # (n, m) M-weighted
+    KZw64 = KW.T @ Qw                                  # (n, m) = K Zw
+    # exact Galerkin projections for the resolvent start and the final
+    # band corrections
+    Kp64 = Zw64.T @ KZw64
+    Mp64 = Zw64.T @ MZ64
+    Kp64 = 0.5 * (Kp64 + Kp64.T)
+    Mp64 = 0.5 * (Mp64 + Mp64.T)
+
+    # ---- FGMRES shape knobs ---------------------------------------------
+    # the band tier keeps an f64 Krylov basis; n_refine is the total budget
+    # spent as restarted cycles of k_cycle iterations
+    if k_cycle is None:
+        k_cycle = 8
+    k_cycle = max(1, min(int(k_cycle), int(n_refine)))
+    n_cycles = -(-int(n_refine) // k_cycle)
+
+    # ---- f32 two-grid preconditioner ------------------------------------
+    def cycle(x32):
+        return twogrid_apply(mg["tg_band0"], mg["dinv"], mg["lmax"],
+                             mg["Pt"], mg["Kc_inv"], x32, mg["layout"],
+                             mg["rl"], mg["slots"])
+
+    def precond32(x32):
+        # f32 refinement rounds around the cycle
+        y32 = cycle(x32)
+        for _ in range(_MG_REFINE):
+            r32 = x32 - band_mv_f32(mg["tg_band0"], y32, mg["layout"])
+            y32 = y32 + cycle(r32)
+        return y32
+
+    def precond(x64):
+        return precond32(x64.to(torch.float32)).to(f64)
+
+    rows_l = rows.long()
+    cols_l = cols.long()
+
+    def solve_chunk(om):
+        """Band-resolvent start + FGMRES + final band corrections for the
+        frequency lanes ``om`` (L,); right-hand sides (L, 2, n)."""
+        om2 = om * om                                   # (L,)
+        sb = beta                                       # sign = +1
+        dre = lam_w[None, :] - om2[:, None]             # (L, m)
+        dim = sb * lam_w                                # (m,)
+        den_d = dre * dre + dim * dim
+
+        def rsolve_diag(q_re, q_im, li):
+            """Diagonal-resolvent model of the projected pencil."""
+            d_re, d_den = dre[li], den_d[li]
+            return ((q_re * d_re + q_im * dim) / d_den,
+                    (q_im * d_re - q_re * dim) / d_den)
+
+        def proj_apply(y_re, y_im, li):
+            """Exact projected operator Z^T A Z on (L', m) coefficients."""
+            o2 = om2[li][:, None]
+            Ky_re, Ky_im = y_re @ Kp64.T, y_im @ Kp64.T
+            My_re, My_im = y_re @ Mp64.T, y_im @ Mp64.T
+            return (Ky_re - sb * Ky_im - o2 * My_re,
+                    Ky_im + sb * Ky_re - o2 * My_im)
+
+        def band_coeffs(rr, li):
+            """Galerkin solve of the projected system: diagonal resolvent
+            start + 2 refinement passes against the exact m x m pencil."""
+            q_re, q_im = rr[:, 0] @ Zw64, rr[:, 1] @ Zw64
+            y_re, y_im = rsolve_diag(q_re, q_im, li)
+            for _ in range(2):
+                Ay_re, Ay_im = proj_apply(y_re, y_im, li)
+                d_re, d_im = rsolve_diag(q_re - Ay_re, q_im - Ay_im, li)
+                y_re = y_re + d_re
+                y_im = y_im + d_im
+            return y_re, y_im
+
+        def band_stack(rr, li):
+            y_re, y_im = band_coeffs(rr, li)
+            return torch.stack([y_re @ Zw64.T, y_im @ Zw64.T], dim=1)
+
+        def A_apply(uu, li):
+            """Exact f64 operator on (L', 2, n): two band DGEMMs."""
+            o2 = om2[li][:, None]
+            Ku, Mu = K_mv(uu), M_mv(uu)
+            return torch.stack([Ku[:, 0] - sb * Ku[:, 1] - o2 * Mu[:, 0],
+                                Ku[:, 1] + sb * Ku[:, 0] - o2 * Mu[:, 1]],
+                               dim=1)
+
+        def A_res_apply(uu, li):
+            """Residual-grade exact apply: combine the flat operator values
+            ENTRYWISE per lane (A_jk = K_jk - om^2 M_jk cancels at the
+            entry level near a resonance), then one scatter pass."""
+            are = Kr64[None, :] - om2[li][:, None] * Ms64[None, :]
+            aim = sb * Kr64
+            g_re = uu[:, 0][:, cols_l]
+            g_im = uu[:, 1][:, cols_l]
+            contrib = torch.stack([are * g_re - aim * g_im,
+                                   aim * g_re + are * g_im], dim=1)
+            out = torch.zeros_like(uu)
+            return out.index_add_(-1, rows_l, contrib)
+
+        def P_apply(rr, li):
+            """Band resolvent + M-deflated two-grid complement cycle."""
+            db = band_stack(rr, li)
+            rc = rr - (rr @ Zw64) @ MZ64.T
+            dc = precond(rc)
+            dc = dc - (dc @ MZ64) @ Zw64.T
+            return db + dc
+
+        # amplification-aware residual target (forward error ~ kappa(A) x
+        # relative residual, kappa ~ 1/beta near a resonance)
+        amp = torch.clamp((lam_w[None, :] / torch.sqrt(den_d)).max(1).values,
+                          min=1.0)
+        tol_eff = torch.clamp(refine_tol / amp, min=3e-12)
+
+        def solve(bbs):
+            lanes = torch.arange(bbs.shape[0], device=dev)
+            y_re, y_im = band_coeffs(bbs, lanes)
+            x0 = torch.stack([y_re @ Zw64.T, y_im @ Zw64.T], dim=1)
+            KZy = torch.stack([y_re @ KZw64.T, y_im @ KZw64.T], dim=1)
+            MZy = torch.stack([y_re @ MZ64.T, y_im @ MZ64.T], dim=1)
+            o2 = om2[:, None]
+            Ax0 = torch.stack([KZy[:, 0] - sb * KZy[:, 1] - o2 * MZy[:, 0],
+                               KZy[:, 1] + sb * KZy[:, 0] - o2 * MZy[:, 1]],
+                              dim=1)
+            return _pgmres(A_apply, P_apply, bbs, x0, tol_eff, k_cycle,
+                           n_cycles, bbs - Ax0, band_stack, _BAND_CORRECT_N,
+                           A_res_apply)
+
+        return solve
+
+    om64 = omegas.to(f64)
+    F = om64.shape[0]
+    bb = torch.stack([B_re.to(f64), B_im.to(f64)], dim=1)        # (F, 2, n)
+    chunk = F if freq_chunk is None else max(1, min(int(freq_chunk), F))
+    # difficulty sort: every lane of a chunk pays the chunk's worst
+    # iteration count, so group frequencies by resonance amplification
+    den_f = torch.sqrt((lam_w[None, :] - (om64 ** 2)[:, None]) ** 2
+                       + (beta * lam_w[None, :]) ** 2)
+    amp_f = (lam_w[None, :] / den_f).max(1).values
+    order = torch.argsort(amp_f, stable=True)
+    U = torch.empty_like(bb)
+    for lo in range(0, F, chunk):
+        sel = order[lo:lo + chunk]
+        U[sel] = solve_chunk(om64[sel])(bb[sel])
+    return U[:, 0], U[:, 1]

@@ -1,0 +1,140 @@
+"""The port's hand-written CUDA band kernel on the card.
+
+These tests need an NVIDIA GPU and nvcc; without one they skip.  They import
+no jax, so they run on a machine that has only the port's dependencies:
+
+    python -m pytest --noconftest tests/test_torch_kernel.py -q
+
+Tolerances: the kernel against its plain torch version to 1e-5 of max |y|
+(the f32 sums of 3b products run in another order); the FRF against the
+host f64 splu oracle to 1e-6 relative (the repo's gate; f64 atomics in the
+residual scatter add run-to-run last-bit noise far below it).
+"""
+import numpy as np
+import pytest
+import torch
+
+import plate_inverse_problem_tpu_torch as pt
+from plate_inverse_problem_tpu_torch.ops import band as tband
+from plate_inverse_problem_tpu_torch.ops import band_kernel
+from plate_inverse_problem_tpu_torch.oracle import splu_frf
+
+GP = (100e-3, 20e-3, 2e-3, None, None)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernel)")
+    return torch.device("cuda")
+
+
+def _parts():
+    acc = pt.Accelerometer("AP1030")
+    mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
+    geom = pt.Geometry("sh_i", acc, pt.GeometryParams(*GP), refine=1.0)
+    return geom, mat, acc
+
+
+def _patterns():
+    """The n = 1466 plate pattern (b = 256) and a b = 64 synthetic one."""
+    p = pt.Problem(*_parts(), device="cpu", precond="mg",
+                   operator_layout="band")
+    n, w = 400, 9
+    rows = np.concatenate([np.full(min(n, i + w + 1) - max(0, i - w), i)
+                           for i in range(n)])
+    cols = np.concatenate([np.arange(max(0, i - w), min(n, i + w + 1))
+                           for i in range(n)])
+    return [(p.op.pattern.rows, p.op.pattern.cols, p.n_free, {}),
+            (rows, cols, n, {"block_multiple": 64, "min_block": 64})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 128, 200])
+def test_band_kernel_matches_plain(cuda_device, B):
+    for rows, cols, n, kw in _patterns():
+        lt = tband.build_band_layout(rows, cols, n, **kw)
+        rng = np.random.default_rng(B)
+        vals = torch.as_tensor(rng.standard_normal(rows.size),
+                               dtype=torch.float32, device=cuda_device)
+        lin = torch.as_tensor(lt.lin, dtype=torch.int64, device=cuda_device)
+        band = tband.flat_to_band(vals, lt, lin)
+        x = torch.as_tensor(rng.standard_normal((B, n)),
+                            dtype=torch.float32, device=cuda_device)
+        n0 = band_kernel.band_mv_f32_cuda.launches
+        y = band_kernel.band_mv_f32(band, x, lt)
+        y_ref = band_kernel.band_mv_f32_reference(band, x, lt)
+        torch.cuda.synchronize()
+        assert band_kernel.band_mv_f32_cuda.launches == n0 + 1
+        assert float((y - y_ref).abs().max()) <= 1e-5 * float(
+            y_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_band_kernel_masks_out_of_range_windows(cuda_device):
+    """A band with garbage in the slots outside the operator (edge windows,
+    padded tail) still gives the masked product."""
+    rows, cols, n, _ = _patterns()[0]
+    lt = tband.build_band_layout(rows, cols, n)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    band = torch.randn(lt.nb, lt.b, 3 * lt.b, generator=g).to(cuda_device)
+    x = torch.randn(5, n, generator=g).to(cuda_device)
+    y = band_kernel.band_mv_f32_cuda(band, x, lt)
+    y_ref = band_kernel.band_mv_f32_reference(band, x, lt)
+    torch.cuda.synchronize()
+    assert float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_band_kernel_non_finite_x_stays_in_its_lane(cuda_device):
+    """An inf or NaN in x makes its own lane non-finite at its row (it
+    always meets the nonzero diagonal) and leaves the other lanes alone;
+    wherever the plain version is finite the kernel agrees with it."""
+    rows, cols, n, _ = _patterns()[0]
+    lt = tband.build_band_layout(rows, cols, n)
+    rng = np.random.default_rng(11)
+    vals = torch.as_tensor(rng.standard_normal(rows.size),
+                           dtype=torch.float32, device=cuda_device)
+    lin = torch.as_tensor(lt.lin, dtype=torch.int64, device=cuda_device)
+    band = tband.flat_to_band(vals, lt, lin)
+    x = torch.as_tensor(rng.standard_normal((4, n)), dtype=torch.float32,
+                        device=cuda_device)
+    j, k = n // 3, n - 5
+    x[1, j] = float("nan")
+    x[2, k] = float("inf")
+    y = band_kernel.band_mv_f32_cuda(band, x, lt).cpu()
+    y_ref = band_kernel.band_mv_f32_reference(band, x, lt).cpu()
+    assert torch.isnan(y[1, j]) and not torch.isfinite(y[2, k])
+    assert torch.isfinite(y[[0, 3]]).all()
+    ok = torch.isfinite(y_ref)
+    tol = 1e-5 * float(y_ref[ok].abs().max())
+    assert float((y[ok] - y_ref[ok]).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_band_kernel_empty_input_launches_nothing(cuda_device):
+    rows, cols, n, _ = _patterns()[0]
+    lt = tband.build_band_layout(rows, cols, n)
+    band = torch.zeros(lt.nb, lt.b, 3 * lt.b, device=cuda_device)
+    n0 = band_kernel.band_mv_f32_cuda.launches
+    y = band_kernel.band_mv_f32_cuda(band, torch.zeros(0, n,
+                                                       device=cuda_device), lt)
+    assert y.shape == (0, n)
+    assert band_kernel.band_mv_f32_cuda.launches == n0
+
+
+@pytest.mark.cuda
+def test_sweep_on_card_matches_oracle(cuda_device):
+    """The small band + two-grid sweep on the card goes through the kernel
+    and holds the 1e-6 gate against the host f64 splu oracle."""
+    p = pt.Problem(*_parts(), device=cuda_device, precond="mg",
+                   operator_layout="band")
+    freqs = np.linspace(60.0, 420.0, 8)
+    band_kernel.band_mv_f32_cuda.launches = 0
+    y = p.solveForward(freqs)
+    torch.cuda.synchronize()
+    assert band_kernel.band_mv_f32_cuda.launches > 0
+    assert y.is_cuda and y.dtype == torch.float64
+    y = y.cpu().numpy()
+    ref = splu_frf(p, freqs)
+    assert np.all(np.abs(y - ref) <= 1e-6 * ref)
