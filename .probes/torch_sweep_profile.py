@@ -8,12 +8,23 @@ isotropic steel, AP1030, 512 frequencies over 40-600 Hz) on ``cuda`` and:
 2. runs one more steady sweep under ``torch.profiler`` with counting
    wrappers around the sweep's layers: FGMRES chunks and cycles, two-grid
    cycles (preconditioner applies = cycles / 2), f64 band applies, K1
-   launches; and reports the device time (sum of the CUDA kernels' self
-   time), the device time by kernel kind, the idle share of the mean
-   steady sweep, and the count and host time of ``cudaLaunchKernel``;
+   launches and a histogram of their lane counts B; and reports the device
+   time (sum of the CUDA kernels' self time), the device time by kernel
+   kind, the idle share of the mean steady sweep, and the count and host
+   time of ``cudaLaunchKernel``;
 3. builds two more Problems (two more ARPACK start vectors, so two more
    band bases) and, for all three, the worst relative FRF error against
-   the host f64 splu oracle at 4 points including the |FRF| peak.
+   the host f64 splu oracle at 4 points including the |FRF| peak;
+4. with ``--k1-floors``: what sets K1's time.  It builds three variants of
+   ``csrc/band_mv.cu`` by editing its text (no FMAs; no FMAs and the x
+   slices of only the first half of the lanes; no FMAs and no x slices;
+   their results are wrong on purpose) and times them beside K1 at the
+   slice shape, B = 128, 16 and 2, in turns.
+
+``--tile-count`` instead counts, on the host and without a GPU, how the
+slice's f32 K_ref band splits into tiles of several shapes (the count
+behind K1's 16 x 8 tile): tiles holding a nonzero, packed MB, FLOP at
+B = 128 and the x slices pulled per apply.
 
 Prints the JSON record as its last line and writes it, with the
 profiler's kernel table, under ``--out`` (default build/profile/).
@@ -52,7 +63,7 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def build(dev):
+def build(dev, construct: bool = True):
     import plate_inverse_problem_tpu_torch as pt
 
     acc = pt.Accelerometer("AP1030")
@@ -61,7 +72,8 @@ def build(dev):
                        pt.GeometryParams(100e-3, 20e-3, 2e-3, None, None),
                        refine=4.0)
     p = pt.Problem(geom, mat, acc, device=dev)
-    p.getFRCore()
+    if construct:
+        p.getFRCore()
     return p
 
 
@@ -86,16 +98,124 @@ def count_calls(module, name, counts):
     return lambda: setattr(module, name, fn)
 
 
+def record_lanes(module, hist):
+    """Wrap ``module.band_mv_f32`` to count its calls by lane count B."""
+    fn = module.band_mv_f32
+
+    def wrapped(pack, x, layout):
+        B = x.numel() // layout.n
+        hist[B] = hist.get(B, 0) + 1
+        return fn(pack, x, layout)
+
+    module.band_mv_f32 = wrapped
+    return lambda: setattr(module, "band_mv_f32", fn)
+
+
+# text edits of csrc/band_mv.cu for the K1 floors: each (old, new) must
+# match the source exactly once
+_NO_FMA = ("        const float* T = Ts[t % STAGES] + w * RPT * TK;",
+           "        acc[0][0] += Ts[t % STAGES][tid] + Xs[t % STAGES][tid];\n"
+           "        continue;\n"
+           "        const float* T = Ts[t % STAGES] + w * RPT * TK;")
+_X_LOOP = "            for (int e = tid; e < nl * (TK / 4); e += NT) {"
+_HALF_X = (_X_LOOP, _X_LOOP.replace("nl * (TK / 4)", "(nl / 2) * (TK / 4)"))
+_NO_X = (_X_LOOP, _X_LOOP.replace("nl * (TK / 4)", "0"))
+
+
+def k1_floors(p, out_dir):
+    """Device us of K1 and of its no-FMA / half-x / no-x variants at the
+    slice shape, B = 128, 16 and 2, timed in turns (chip_smoke.time_ms)."""
+    import torch
+
+    import chip_smoke as cs
+    from plate_inverse_problem_tpu_torch.ops import band_kernel
+
+    with open(band_kernel.SOURCE) as fh:
+        src = fh.read()
+    variants = {"no_fma": [_NO_FMA], "no_fma_half_x": [_NO_FMA, _HALF_X],
+                "no_fma_no_x": [_NO_FMA, _NO_X]}
+    runs = []
+    os.makedirs(out_dir, exist_ok=True)
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: edit target not found once in "
+                                   f"{band_kernel.SOURCE}: {old!r}")
+            text = text.replace(old, new)
+        path = os.path.join(out_dir, f"k1_{name}.cu")
+        with open(path, "w") as fh:
+            fh.write(text)
+        runs.append(cs.load_ab_kernel(path))
+    pack, band, lay = p._band_pack, p.getFRCore()[1]["mg_band0"], \
+        p._band_layout
+    rng = np.random.default_rng(0)
+    res = {}
+    for B in (128, 16, 2):
+        x = torch.as_tensor(rng.standard_normal((B, lay.n)),
+                            dtype=torch.float32, device="cuda")
+        fns = {"k1": lambda: band_kernel.band_mv_f32_cuda(pack, x, lay)}
+        for name, run in runs:
+            fns[name] = (lambda run=run: run(pack, band, x, lay))
+        times = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            times[k].append(1e3 * cs.time_ms(fns[k])[0])
+        res[B] = {k: float(np.mean(v)) for k, v in times.items()}
+        print(f"[k1 floors] B={B}: " + "  ".join(
+            f"{k} {v:.1f} us" for k, v in res[B].items()), flush=True)
+    return res
+
+
+def tile_count(B: int = 128):
+    """Host count of the slice's f32 K_ref band (no GPU): for each tile
+    shape, the tiles holding a nonzero, packed MB, tile-dense FLOP and x
+    slices pulled at B lanes, tiles per row tile."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops.band import (
+        build_band_layout, flat_to_band)
+    from plate_inverse_problem_tpu_torch.ops.band_kernel import (
+        pack_band_tiles)
+
+    p = build("cpu", construct=False)
+    op = p.op
+    lay = build_band_layout(op.pattern.rows, op.pattern.cols, op.n_free)
+    band = flat_to_band(
+        torch.as_tensor(p._reference_stiffness_flat(), dtype=torch.float32),
+        lay, torch.as_tensor(lay.lin, dtype=torch.int64))
+    nnz = int((pack_band_tiles(band, lay, (1, 1)).vals != 0).sum())
+    print(f"[tiles] n={lay.n} b={lay.b} nb={lay.nb}: {nnz} numeric "
+          f"nonzeros ({nnz / lay.n:.1f} a row)", flush=True)
+    for tm, tk in ((32, 16), (16, 16), (16, 8), (8, 8), (32, 8), (64, 8)):
+        pk = pack_band_tiles(band, lay, (tm, tk))
+        t = pk.vals.shape[0]
+        per = pk.row_ptr.diff().float()
+        print(f"[tiles] {tm:2d} x {tk:2d}: {t:6d} tiles "
+              f"({100 * t / (lay.nb * lay.b * 3 * lay.b / (tm * tk)):.1f} %), "
+              f"{4e-6 * t * tm * tk:.1f} MB packed, "
+              f"{2e-6 * t * tm * tk * B:.0f} MFLOP and "
+              f"{4e-6 * t * tk * B:.1f} MB of x slices at B = {B}; "
+              f"{per.mean():.1f} / {int(per.max())} tiles a row tile",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    ap.add_argument("--k1-floors", action="store_true",
+                    help="also time K1 without its FMAs and copies")
+    ap.add_argument("--tile-count", action="store_true",
+                    help="only count the band's tile occupancy (host, CPU)")
     args = ap.parse_args()
+    if args.tile_count:
+        tile_count()
+        return 0
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from plate_inverse_problem_tpu_torch.ops import band_kernel, mixed
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, mg, mixed
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -111,6 +231,8 @@ def main() -> int:
     p = build(dev)
     torch.cuda.synchronize()
     rec["ctor_s"] = time.perf_counter() - t0
+    rec["pack_build_ms"] = 1e3 * p._pack_build_s
+    rec["pack_tiles"] = p._band_pack.vals.shape[0]
     freqs = np.linspace(40.0, 600.0, N_FREQ)
 
     def sweep():
@@ -132,9 +254,10 @@ def main() -> int:
           f"{', '.join(f'{s:.3f}' for s in steady)} s", flush=True)
 
     # ---- one profiled steady sweep with counting wrappers -----------------
-    counts = {}
+    counts, lanes = {}, {}
     undo = [count_calls(mixed, nm, counts) for nm in
             ("_pgmres", "_pgmres_cycle", "twogrid_apply", "band_mv")]
+    undo += [record_lanes(m, lanes) for m in (mg, mixed)]
     band_kernel.band_mv_f32_cuda.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -150,6 +273,10 @@ def main() -> int:
         "f64_band_applies": counts.get("band_mv", 0),
         "k1_launches": band_kernel.band_mv_f32_cuda.launches,
     }
+    rec["k1_launches_by_B"] = dict(sorted(lanes.items()))
+    if sum(lanes.values()) != rec["counts"]["k1_launches"]:
+        raise AssertionError(f"K1 lane histogram {lanes} does not add up to "
+                             f"{rec['counts']['k1_launches']} launches")
 
     events = prof.key_averages()
     sort_key = ("self_device_time_total"
@@ -180,8 +307,8 @@ def main() -> int:
                           for ms, c, nm in kernels[:12]]
     print(f"[profile] device busy {busy_ms:.1f} ms of a {mean_steady * 1e3:.1f}"
           f" ms mean steady sweep; {launch['count']} kernel launches "
-          f"({launch['host_ms']:.1f} ms host); counts {rec['counts']}",
-          flush=True)
+          f"({launch['host_ms']:.1f} ms host); counts {rec['counts']}; K1 "
+          f"launches by B {rec['k1_launches_by_B']}", flush=True)
     for kind, ms in rec["device_ms_by_kind"].items():
         print(f"[profile]   {kind:26s} {ms:9.3f} ms "
               f"({100 * ms / busy_ms:.1f} %)", flush=True)
@@ -197,6 +324,9 @@ def main() -> int:
     rec["worst_at_hz"] = [f for _, f in errs]
     print(f"[oracle] worst rel err vs f64 splu per basis: "
           f"{', '.join(f'{e:.3e} at {f:.3f} Hz' for e, f in errs)}", flush=True)
+
+    if args.k1_floors:
+        rec["k1_floors_us"] = k1_floors(p, args.out)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "torch_sweep_profile.json"), "w") as fh:

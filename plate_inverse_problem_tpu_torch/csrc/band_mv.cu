@@ -1,167 +1,270 @@
-// f32 block-tridiagonal band matvec for Hopper (sm_90a): y = A x.
+// f32 block-tridiagonal band matvec for Hopper (sm_90a): y = A x, read from
+// a packed list of the band's nonzero 16 x 8 tiles.
 //
 // Replaces the Pallas TPU kernel plate_inverse_problem_tpu/ops/pallas_band.py
-// (_kernel l.35, _band_mv_pallas l.46, band_mv_pallas l.99), dispatched there
-// through ops/band.py band_mv_f32.  It is the f32 operator of the two-grid
-// preconditioner: every Chebyshev smoothing step, the two-grid residual and
-// the refinement residual of the mixed sweep.
+// (_kernel l.35, _band_mv_pallas l.46 with pl.pallas_call l.75,
+// band_mv_pallas l.99), dispatched there through ops/band.py band_mv_f32.
+// It is the f32 operator of the two-grid preconditioner: every Chebyshev
+// smoothing step, the two-grid residual and the refinement residual of the
+// mixed sweep (17 launches per preconditioner apply).
 //
-// Layout.  The RCM-reordered operator is stored as band (nb, b, 3b): block
-// row q holds [A_{q,q-1} | A_{q,q} | A_{q,q+1}].  For every lane B and block
-// row q,  y[B, q*b + i] = sum_{c < 3b} band[q, i, c] * x[B, (q-1)*b + c].
-// x and y are (B, n) row-major; n <= nb*b.
+// What it computes.  The RCM-reordered operator is a band (nb, b, 3b): block
+// row q holds [A_{q,q-1} | A_{q,q} | A_{q,q+1}], and for every lane B
+//     y[B, q*b + i] = sum_c band[q, i, c] * x[B, (q-1)*b + c].
+// The band never changes during a sweep, so ops/band_kernel.py packs it once
+// per geometry (pack_band_tiles): the values of every TM x TK tile that holds
+// a nonzero, contiguous as (n_tiles, TM, TK); each tile's global first column
+// (q-1)*b + c0 (int32); a CSR pointer over row tiles (int32), the tiles of a
+// row tile in column order.  Window slots outside [0, n) and rows >= n never
+// reach the pack.  x and y are (B, n) row-major.
 //
-// What bounds it.  At the 21k-DOF slice (nb = 82, b = 256, B = 128) the dense
-// product is 2*B*nb*b*3b = 4.1 GFLOP over 64.5 MB of band, ~64 FLOP/byte,
-// which would make a dense kernel compute-bound.  But the band of a plate
-// operator is ~2-3 % dense, and only ~24 % of its 32-row x 16-column tiles
-// hold a nonzero at 21k.  A block therefore skips the x load and the FMAs
-// of every all-zero tile, and what is left is bounded by reading the band
-// once (19 us at 3.35 TB/s) and by the latency of the few dependent loads
-// per block.  The design:
-//  * one block per (block row q, 32-row tile, 128-lane tile): for B <= 128
-//    the band is read from device memory exactly once per apply;
-//  * the band is staged through shared memory in super-chunks of 128
-//    columns, 16 independent loads in flight per thread, and each 16-column
-//    tile's "holds a nonzero" flag is OR-ed into a shared mask on the way;
-//  * for each flagged tile the x window (128 lanes x 16 columns, mostly from
-//    L2) is staged and multiplied: IEEE f32 FMA on the CUDA cores, 4 x 4
-//    outputs per thread (the JAX side runs f32 at HIGHEST precision, so no
-//    TF32).  Skipped products are exact zeros unless x holds an inf or NaN
-//    there.
-// wgmma / 3xTF32 and a sparse-row formulation are left to later work.
+// Tile shape (a count of the 21k-DOF slice's f32 K_ref band on the host,
+// nb = 82, b = 256, n = 20916, by `.probes/torch_sweep_profile.py
+// --tile-count`: 252,722 numeric nonzeros, 12.1 a row): 32 x 16 tiles keep
+// 7,561 tiles = 15.5 MB, 16 x 8 keep 17,793 = 9.1 MB with 583 MFLOP at
+// B = 128, 32 x 8 keep 13,221 = 13.5 MB with 866 MFLOP.  Each tile pulls TK
+// columns x B lanes of x from L2: 72.9 MB at 16 x 8 and 54.2 MB at 32 x 8
+// (B = 128).  TK = 8 is the narrowest slice that is one whole 32-byte
+// sector per lane; TM = 16 takes 1.5x fewer FMAs and bytes of band than 32
+// for 1.3x more x from L2, and gives 1308 blocks at the slice.  (A 32-row
+// version measured slower on an H100: its FMAs cost more than the x it
+// saved.)
 //
-// Masking.  A window column (q-1)*b + c outside [0, n) reads zero: that
-// covers the missing neighbours of the first and last block rows and the
-// padded tail of the last block.  The Pallas kernel clamps those windows and
-// relies on the band storing zeros there; masking does not.  Rows
-// q*b + i >= n are not written.  Any b and any B are covered (ragged tiles
-// are masked), including b that the 32-row tile does not divide.
+// What bounds it.  The least work is the nonzeros with a 4-byte index each
+// (2.0 MB), x read once and y written once (10.7 MB each at B = 128):
+// 23.4 MB, 7.0 us at 3.35 TB/s; the 2 x 252,722 x 128 = 64.7 MFLOP take
+// ~1 us at 67 TFLOP/s, so memory bounds it.  The packed form moves 9.1 MB of
+// tiles plus x and y (30.5 MB, 9.1 us) and does 583 MFLOP (8.7 us on the
+// CUDA cores): both about 10x below the dense (nb, b, 3b) box that the
+// earlier dense-walk kernel read.  What sets this kernel's time instead is
+// the x slices it pulls from L2 for every tile (72.9 MB at B = 128, and a
+// lane's 32 bytes straddle two sectors wherever n * 4 is not a multiple of
+// 32): on an H100 SXM the copies alone take ~90 % of the kernel's time at
+// B = 128, and removing half of the x copies removes ~35 % of it.
+//
+// The design.
+//  * One block per (16-row tile, lane tile of 32*S lanes), S = 1, 2 or 4 by
+//    B; it walks its row tile's list with no discovery phase.  It reads the
+//    list's first columns into shared memory once, in parallel, so no copy
+//    waits on a load of its index.  Rows of a row tile with an empty list
+//    are written as 0.
+//  * Every tile and its x slice (TK = 8 columns: 32 contiguous bytes per
+//    lane) are streamed into a ring of shared memory with cp.async (16-byte
+//    copies where n % 4 == 0, 4-byte copies else); STAGES - 1 tiles are in
+//    flight while the FMAs run on the oldest, one barrier per tile.  The
+//    copies hold no registers.  Columns >= n are zero-filled by the copy,
+//    so the tail of x never leaks into a row.
+//  * Warp w owns rows 4w..4w+3 of the tile, lane-in-warp g owns lanes
+//    g + 32 s: a 4 x S accumulator in registers.  Tile values are read as
+//    warp-uniform float4 broadcasts.  A lane's x slice is two 16-byte chunks,
+//    swapped for lanes l with l & 4, so the float4 reads of eight
+//    neighbouring lanes hit 32 distinct banks without padding.
+//  * Narrow lane tiles (small B) are latency-bound: they get a deeper ring
+//    (8 stages at S = 1 and 2, 5 at S = 4) and at S = 1 more resident
+//    blocks (12 an SM at <= 40 registers, else 8 at <= 64); none spills.
+//  * IEEE f32 FMA on the CUDA cores, no tensor cores and no TF32: the JAX
+//    side runs this product in f32 at HIGHEST precision and the FGMRES
+//    iteration counts were tuned with it; 3xTF32 would triple the MMA work;
+//    and the packed work (583 MFLOP at 16 x 8) is already at the memory time.
+//
+// An inf or NaN in x reaches exactly the rows whose packed tiles cover its
+// column, in its own lane only, as in the plain version of the same pack.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TI = 32;    // band rows (outputs) per block
-constexpr int TB = 128;   // lanes per block
-constexpr int TK = 16;    // columns per tile: the unit of zero skipping
-constexpr int SC = 8;     // tiles per staged super-chunk (128 columns)
-constexpr int RI = 4;     // rows per thread
-constexpr int RB = 4;     // lanes per thread
-constexpr int NT = (TI / RI) * (TB / RB);   // 256 threads
-constexpr int PAD = 4;    // keeps rows 16-byte aligned for float4 reads
-constexpr int A_PER_T = TI * SC * TK / NT;  // band loads per thread (16)
-constexpr int X_PER_T = TB * TK / NT;       // x loads per thread (8)
+constexpr int TM = 16;          // rows of a tile
+constexpr int TK = 8;           // columns of a tile
+constexpr int RPT = 4;          // rows a thread accumulates
+constexpr int NT = 32 * TM / RPT;   // 128 threads: one warp per 4 rows
 
-__global__ void __launch_bounds__(NT)
-band_mv_f32_kernel(const float* __restrict__ band, const float* __restrict__ x,
-                   float* __restrict__ y, int B, int n, int b)
+// ring depth, and resident blocks an SM (so registers), for S lanes a thread
+__host__ __device__ constexpr int stages_for(int S) { return S == 4 ? 5 : 8; }
+
+__host__ __device__ constexpr int blocks_for(int S) { return S == 1 ? 12 : 8; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes)
 {
-    __shared__ __align__(16) float As[SC * TK][TI + PAD];  // As[col][row]
-    __shared__ __align__(16) float Xs[TK][TB + PAD];       // Xs[col][lane]
-    __shared__ int mask[2];                                // nonzero tiles
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
 
-    const int q = blockIdx.x;
-    const int i0 = blockIdx.y * TI;
-    const int l0 = blockIdx.z * TB;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes)
+{
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// float offset of 4-column chunk j of lane l's x slice in a ring stage
+__device__ __forceinline__ int xs_at(int l, int j)
+{
+    return l * TK + 4 * (j ^ ((l >> 2) & 1));
+}
+
+template <int S, bool VEC>
+__global__ void __launch_bounds__(NT, blocks_for(S))
+band_mv_f32_kernel(const float* __restrict__ vals,
+                   const int* __restrict__ col0,
+                   const int* __restrict__ row_ptr,
+                   const float* __restrict__ x, float* __restrict__ y,
+                   int B, int n)
+{
+    constexpr int LB = 32 * S;                       // lanes of the block
+    constexpr int STAGES = stages_for(S);
+    __shared__ __align__(16) float Ts[STAGES][TM * TK];
+    __shared__ __align__(16) float Xs[STAGES][LB * TK];
+    extern __shared__ int first_col[];               // the list's col0
+
     const int tid = threadIdx.x;
-    const int tx = tid % (TI / RI);   // rows i0 + tx*RI + r
-    const int ty = tid / (TI / RI);   // lanes l0 + ty*RB + s
-    const int b3 = 3 * b;
-    const long long col0 = (long long)(q - 1) * b;
-    const float* bandq = band + (size_t)q * b * b3;
-
-    float acc[RI][RB];
-#pragma unroll
-    for (int r = 0; r < RI; ++r)
-#pragma unroll
-        for (int s = 0; s < RB; ++s) acc[r][s] = 0.0f;
-
-    if (tid < 2) mask[tid] = 0;
+    const int w = tid / 32;                          // rows 4w .. 4w+3
+    const int g = tid % 32;                          // lanes g + 32 s
+    const int l0 = blockIdx.y * LB;
+    const int nl = min(LB, B - l0);                  // lanes present
+    const int beg = row_ptr[blockIdx.x];
+    const int cnt = row_ptr[blockIdx.x + 1] - beg;
+    for (int i = tid; i < cnt; i += NT) first_col[i] = col0[beg + i];
     __syncthreads();
 
-    int par = 0;
-    for (int s0 = 0; s0 < b3; s0 += SC * TK) {
-        // ---- stage the band super-chunk, flag its nonzero tiles ---------
-        int bits = 0;
-        float v[A_PER_T];
-#pragma unroll
-        for (int j = 0; j < A_PER_T; ++j) {
-            const int e = tid + j * NT;
-            const int r = e / (SC * TK), k = e % (SC * TK);
-            const int i = i0 + r, c = s0 + k;
-            v[j] = (i < b && c < b3) ? bandq[(size_t)i * b3 + c] : 0.0f;
+    // copy tile `t` of the list and its x slice into ring stage `st`
+    auto issue = [&](int t, int st) {
+        if (tid < TM * TK / 4)
+            cp_async16(&Ts[st][4 * tid],
+                       vals + (size_t)(beg + t) * (TM * TK) + 4 * tid, 16);
+        const int c0 = first_col[t];
+        const float* xl = x + (size_t)l0 * n + c0;
+        if (VEC) {   // n % 4 == 0: a 4-column chunk is wholly in or out
+            for (int e = tid; e < nl * (TK / 4); e += NT) {
+                const int l = e / (TK / 4), j = e % (TK / 4);
+                const bool in = c0 + 4 * j < n;
+                cp_async16(&Xs[st][xs_at(l, j)],
+                           in ? xl + (size_t)l * n + 4 * j : x, in ? 16 : 0);
+            }
+        } else {
+            for (int e = tid; e < nl * TK; e += NT) {
+                const int l = e / TK, k = e % TK;
+                const bool in = c0 + k < n;
+                cp_async4(&Xs[st][xs_at(l, k / 4) + k % 4],
+                          in ? xl + (size_t)l * n + k : x, in ? 4 : 0);
+            }
         }
-#pragma unroll
-        for (int j = 0; j < A_PER_T; ++j) {
-            const int e = tid + j * NT;
-            const int r = e / (SC * TK), k = e % (SC * TK);
-            As[k][r] = v[j];
-            if (v[j] != 0.0f) bits |= 1 << (k / TK);
-        }
-        if (bits) atomicOr(&mask[par], bits);
-        __syncthreads();
-        const int m = mask[par];
-        if (tid == 0) mask[par ^ 1] = 0;
+    };
 
-        // ---- multiply the flagged tiles ---------------------------------
-        for (int t = 0; t < SC; ++t) {
-            if (!((m >> t) & 1)) continue;   // uniform across the block
-            const int k0 = s0 + t * TK;
+    float acc[RPT][S];
 #pragma unroll
-            for (int j = 0; j < X_PER_T; ++j) {
-                const int e = tid + j * NT;
-                const int s = e / TK, k = e % TK;
-                const int lane = l0 + s;
-                const long long col = col0 + k0 + k;
-                Xs[k][s] = (lane < B && k0 + k < b3 && col >= 0 && col < n)
-                               ? x[(size_t)lane * n + col] : 0.0f;
-            }
-            __syncthreads();
+    for (int r = 0; r < RPT; ++r)
 #pragma unroll
-            for (int k = 0; k < TK; ++k) {
+        for (int s = 0; s < S; ++s) acc[r][s] = 0.0f;
+
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t) {
+        if (t < cnt) issue(t, t);
+        cp_async_commit();
+    }
+    for (int t = 0; t < cnt; ++t) {
+        cp_async_wait<STAGES - 2>();   // tile t is in (this thread's copies)
+        __syncthreads();               // ... everyone's; stage t-1 is free
+        if (t + STAGES - 1 < cnt)
+            issue(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+        cp_async_commit();
+
+        const float* T = Ts[t % STAGES] + w * RPT * TK;
+        const float* X = Xs[t % STAGES];
+#pragma unroll
+        for (int h = 0; h < TK / 4; ++h) {
+            float4 xv[S];
+#pragma unroll
+            for (int s = 0; s < S; ++s)
+                xv[s] = *reinterpret_cast<const float4*>(
+                    X + xs_at(g + 32 * s, h));
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) {
                 const float4 a =
-                    *reinterpret_cast<const float4*>(&As[t * TK + k][tx * RI]);
-                const float4 w =
-                    *reinterpret_cast<const float4*>(&Xs[k][ty * RB]);
-                const float av[RI] = {a.x, a.y, a.z, a.w};
-                const float xv[RB] = {w.x, w.y, w.z, w.w};
+                    *reinterpret_cast<const float4*>(T + r * TK + 4 * h);
 #pragma unroll
-                for (int r = 0; r < RI; ++r)
-#pragma unroll
-                    for (int s = 0; s < RB; ++s)
-                        acc[r][s] = fmaf(av[r], xv[s], acc[r][s]);
+                for (int s = 0; s < S; ++s) {
+                    acc[r][s] = fmaf(a.x, xv[s].x, acc[r][s]);
+                    acc[r][s] = fmaf(a.y, xv[s].y, acc[r][s]);
+                    acc[r][s] = fmaf(a.z, xv[s].z, acc[r][s]);
+                    acc[r][s] = fmaf(a.w, xv[s].w, acc[r][s]);
+                }
             }
-            __syncthreads();
         }
-        // the next super-chunk overwrites As and ORs into the reset mask
-        __syncthreads();
-        par ^= 1;
     }
 
+    const int row0 = blockIdx.x * TM + w * RPT;
 #pragma unroll
-    for (int s = 0; s < RB; ++s) {
-        const int lane = l0 + ty * RB + s;
-        if (lane >= B) continue;
+    for (int s = 0; s < S; ++s) {
+        const int l = g + 32 * s;
+        if (l >= nl) continue;
+        float* yl = y + (size_t)(l0 + l) * n + row0;
+        if (VEC && row0 + RPT <= n) {
+            *reinterpret_cast<float4*>(yl) =
+                make_float4(acc[0][s], acc[1][s], acc[2][s], acc[3][s]);
+        } else {
 #pragma unroll
-        for (int r = 0; r < RI; ++r) {
-            const int i = i0 + tx * RI + r;
-            const long long row = (long long)q * b + i;
-            if (i < b && row < n) y[(size_t)lane * n + row] = acc[r][s];
+            for (int r = 0; r < RPT; ++r)
+                if (row0 + r < n) yl[r] = acc[r][s];
         }
     }
 }
 
+template <int S>
+void launch(const float* vals, const int* col0, const int* row_ptr,
+            const float* x, float* y, int B, int n, int list_max, bool vec,
+            cudaStream_t stream)
+{
+    const dim3 grid((n + TM - 1) / TM, (B + 32 * S - 1) / (32 * S));
+    const size_t list_bytes = sizeof(int) * list_max;
+    if (vec)
+        band_mv_f32_kernel<S, true><<<grid, NT, list_bytes, stream>>>(
+            vals, col0, row_ptr, x, y, B, n);
+    else
+        band_mv_f32_kernel<S, false><<<grid, NT, list_bytes, stream>>>(
+            vals, col0, row_ptr, x, y, B, n);
+}
+
 }  // namespace
 
-// band (nb, b, 3b), x (B, n), y (B, n): all f32, contiguous, on the current
-// device.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int band_mv_f32_launch(const float* band, const float* x, float* y,
-                                  int B, int n, int nb, int b, void* stream)
+// The tile shape the kernel was compiled for, as TM * 1000 + TK.
+extern "C" int band_mv_f32_tile(void) { return TM * 1000 + TK; }
+
+// vals (n_tiles, TM, TK) f32, col0 (n_tiles,) int32, row_ptr (n_row_tiles+1,)
+// int32 with n_row_tiles * TM >= n and at most list_max tiles in a row tile;
+// x (B, n) and y (B, n) f32.  All contiguous on the current device, vals
+// 16-byte aligned.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int band_mv_f32_launch(const float* vals, const int* col0,
+                                  const int* row_ptr, const float* x,
+                                  float* y, int B, int n, int n_row_tiles,
+                                  int list_max, void* stream)
 {
-    if (B <= 0 || n <= 0 || nb <= 0 || b <= 0) return 0;
-    const dim3 grid(nb, (b + TI - 1) / TI, (B + TB - 1) / TB);
-    band_mv_f32_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-        band, x, y, B, n, b);
+    if (B <= 0 || n <= 0) return 0;
+    if ((long long)n_row_tiles * TM < n || list_max < 0
+        || (uintptr_t)vals % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = n % 4 == 0 && (uintptr_t)x % 16 == 0
+                     && (uintptr_t)y % 16 == 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (B <= 32)
+        launch<1>(vals, col0, row_ptr, x, y, B, n, list_max, vec, st);
+    else if (B <= 64)
+        launch<2>(vals, col0, row_ptr, x, y, B, n, list_max, vec, st);
+    else
+        launch<4>(vals, col0, row_ptr, x, y, B, n, list_max, vec, st);
     return static_cast<int>(cudaGetLastError());
 }

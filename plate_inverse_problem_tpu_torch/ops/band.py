@@ -93,8 +93,8 @@ def band_mv(band, x, layout: BandLayout):
 
     The zero-padded [x_{q-1} | x_q | x_{q+1}] windows of every block row,
     then one batched GEMM ``(q,i,c) x (B,q,c) -> (B,q,i)`` in the dtype of
-    the operands (f64: cuBLAS DGEMM; f32 here only as the plain reference
-    of the CUDA kernel)."""
+    the operands (f64: cuBLAS DGEMM; f32 only in the tests, as the dense
+    reference of the packed f32 apply of ops/band_kernel.py)."""
     n, b, nb = layout.n, layout.b, layout.nb
     lead = x.shape[:-1]
     xf = x.reshape(-1, n)

@@ -149,16 +149,17 @@ def _chebyshev_smooth(mg, K_mv, r, e0=None, steps: int = 4,
     return e + p
 
 
-def twogrid_apply(band0, dinv, lmax, Pt, Kc_inv, r32, layout, rl,
+def twogrid_apply(pack, dinv, lmax, Pt, Kc_inv, r32, layout, rl,
                   slots, smooth_steps: int = 4):
     """Symmetric two-grid cycle on (..., n) f32 residuals: Chebyshev
-    pre-smooth on the f32 band operator, exact coarse correction through
+    pre-smooth on the f32 band operator (``pack``: its nonzero tiles,
+    ops/band_kernel.pack_band_tiles), exact coarse correction through
     the rectangular block-band prolongation and the dense coarse inverse
     (an IEEE f32 GEMM: TF32 is off, see config.py), Chebyshev
     post-smooth."""
 
     def K_mv(x):
-        return band_mv_f32(band0, x, layout)
+        return band_mv_f32(pack, x, layout)
 
     sm = {"dinv": dinv, "lmax": lmax}
     e = _chebyshev_smooth(sm, K_mv, r32, steps=smooth_steps)

@@ -313,10 +313,11 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     (rows, cols); B_re/B_im (F, n) f64 right-hand sides; omegas (F,) f64;
     W64 (n, m) f64 M-orthonormal band basis.  ``band``: {"layout":
     BandLayout, "lin": (nnz,) int64 device scatter targets}.  ``mg``: the
-    two-grid data {"tg_band0", "dinv", "Pt", "Kc_inv", "slots", "lmax",
-    "rl", "layout"}.  ``freq_chunk``: lanes per batch; the frequencies are
-    sorted by their band-computable resonance amplification first, so
-    smooth chunks exit after few iterations.
+    two-grid data {"tg_pack" (the f32 K_ref band packed by
+    ops/band_kernel.pack_band_tiles), "dinv", "Pt", "Kc_inv", "slots",
+    "lmax", "rl", "layout"}.  ``freq_chunk``: lanes per batch; the
+    frequencies are sorted by their band-computable resonance
+    amplification first, so smooth chunks exit after few iterations.
 
     Returns (U_re, U_im), each (F, n) f64.
     """
@@ -324,7 +325,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         raise NotImplementedError(
             "Per-modulus loss factors (ki_proportional=False) are not "
             "ported yet (ROADMAP Queue 1, item 2: material transforms).")
-    if band is None or mg is None or "tg_band0" not in mg:
+    if band is None or mg is None or "tg_pack" not in mg:
         raise NotImplementedError(
             "Only the band layout with the two-grid preconditioner is "
             "ported (ROADMAP Queue 1, items 5-6: the dense tier).")
@@ -382,7 +383,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
     # ---- f32 two-grid preconditioner ------------------------------------
     def cycle(x32):
-        return twogrid_apply(mg["tg_band0"], mg["dinv"], mg["lmax"],
+        return twogrid_apply(mg["tg_pack"], mg["dinv"], mg["lmax"],
                              mg["Pt"], mg["Kc_inv"], x32, mg["layout"],
                              mg["rl"], mg["slots"])
 
@@ -390,7 +391,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         # f32 refinement rounds around the cycle
         y32 = cycle(x32)
         for _ in range(_MG_REFINE):
-            r32 = x32 - band_mv_f32(mg["tg_band0"], y32, mg["layout"])
+            r32 = x32 - band_mv_f32(mg["tg_pack"], y32, mg["layout"])
             y32 = y32 + cycle(r32)
         return y32
 

@@ -4,8 +4,8 @@ the JAX package on the CPU.
 
 Inputs come from numpy seeds and go through both packages.  Tolerances:
 
-* f32 band matvec: <= 1e-6 of max |y| — both sides sum the 3b products of
-  a row in f32, in different orders;
+* f32 band matvec (the port's on the packed band): <= 1e-6 of max |y| —
+  both sides sum the 3b products of a row in f32, in different orders;
 * f64 band matvec, flat_to_band and the flat COO matvec: <= 1e-14 of the
   row abs-sum — f64
   rounding of sums of up to 3b terms.
@@ -72,8 +72,9 @@ def test_band_layout_matches_jax(plate_layout):
 
 @pytest.mark.parametrize("shape", [(16,), (3,), (), (2, 4)])
 def test_band_mv_f32_plain_matches_jax_and_pallas(plate_layout, shape):
-    """K1's plain version against JAX band_mv in f32 and the Pallas kernel
-    in interpret mode (the lane shapes of test_band.py:170)."""
+    """K1's plain version, on the packed band, against JAX band_mv in f32
+    and the Pallas kernel in interpret mode (the lane shapes of
+    test_band.py:170)."""
     rows, cols, n = plate_layout
     lj, lt = _layouts(rows, cols, n)
     rng = np.random.default_rng(11)
@@ -87,7 +88,8 @@ def test_band_mv_f32_plain_matches_jax_and_pallas(plate_layout, shape):
     band_t = tband.flat_to_band(torch.from_numpy(vals), lt,
                                 torch.from_numpy(lt.lin.astype(np.int64)))
     np.testing.assert_array_equal(band_t.numpy(), np.asarray(band_j))
-    y = band_kernel.band_mv_f32_reference(band_t, torch.from_numpy(X),
+    pack = band_kernel.pack_band_tiles(band_t, lt)
+    y = band_kernel.band_mv_f32_reference(pack, torch.from_numpy(X),
                                           lt).numpy()
     assert y.shape == X.shape
     den = float(np.abs(y_jax).max())
@@ -108,7 +110,8 @@ def test_band_mv_f32_plain_small_blocks():
                                       interpret=True))
     band_t = tband.flat_to_band(torch.from_numpy(vals), lt,
                                 torch.from_numpy(lt.lin.astype(np.int64)))
-    y = band_kernel.band_mv_f32_reference(band_t, torch.from_numpy(X),
+    pack = band_kernel.pack_band_tiles(band_t, lt)
+    y = band_kernel.band_mv_f32_reference(pack, torch.from_numpy(X),
                                           lt).numpy()
     assert np.abs(y - y_pal).max() / np.abs(y_pal).max() <= 1e-6
 
@@ -193,9 +196,9 @@ def test_cpu_call_does_not_launch_the_kernel(plate_layout):
     """A CPU tensor takes the plain version and leaves the count at 0."""
     rows, cols, n = plate_layout
     _, lt = _layouts(rows, cols, n)
-    band = torch.zeros(lt.nb, lt.b, 3 * lt.b)
+    pack = band_kernel.pack_band_tiles(torch.zeros(lt.nb, lt.b, 3 * lt.b), lt)
     band_kernel.band_mv_f32_cuda.launches = 0
-    y = band_kernel.band_mv_f32(band, torch.ones(4, n), lt)
+    y = band_kernel.band_mv_f32(pack, torch.ones(4, n), lt)
     assert y.shape == (4, n)
     assert band_kernel.band_mv_f32_cuda.launches == 0
 
@@ -204,6 +207,6 @@ def test_cuda_wrapper_refuses_cpu_tensors(plate_layout):
     """The kernel's wrapper never computes on a CPU tensor."""
     rows, cols, n = plate_layout
     _, lt = _layouts(rows, cols, n)
+    pack = band_kernel.pack_band_tiles(torch.ones(lt.nb, lt.b, 3 * lt.b), lt)
     with pytest.raises(ValueError):
-        band_kernel.band_mv_f32_cuda(torch.zeros(lt.nb, lt.b, 3 * lt.b),
-                                     torch.ones(2, n), lt)
+        band_kernel.band_mv_f32_cuda(pack, torch.ones(2, n), lt)

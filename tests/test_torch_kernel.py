@@ -5,10 +5,12 @@ no jax, so they run on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_kernel.py -q
 
-Tolerances: the kernel against its plain torch version to 1e-5 of max |y|
-(the f32 sums of 3b products run in another order); the FRF against the
-host f64 splu oracle to 1e-6 relative (the repo's gate; f64 atomics in the
-residual scatter add run-to-run last-bit noise far below it).
+The kernel reads the band's packed nonzero tiles (``pack_band_tiles``); its
+plain version reads the same pack.  Tolerances: the kernel against its plain
+version to 1e-5 of max |y| (the f32 sums of a row run in another order);
+the FRF against the host f64 splu oracle to 1e-6 relative (the repo's gate;
+f64 atomics in the residual scatter add run-to-run last-bit noise far below
+it).
 """
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu_torch.ops import band as tband
 from plate_inverse_problem_tpu_torch.ops import band_kernel
+from plate_inverse_problem_tpu_torch.ops.band_kernel import pack_band_tiles
 from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
 GP = (100e-3, 20e-3, 2e-3, None, None)
@@ -49,40 +52,75 @@ def _patterns():
             (rows, cols, n, {"block_multiple": 64, "min_block": 64})]
 
 
+def _band(rows, lt, rng, device):
+    vals = torch.as_tensor(rng.standard_normal(rows.size),
+                           dtype=torch.float32, device=device)
+    lin = torch.as_tensor(lt.lin, dtype=torch.int64, device=device)
+    return tband.flat_to_band(vals, lt, lin)
+
+
+def _agree(y, y_ref):
+    return float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 3, 128, 200])
 def test_band_kernel_matches_plain(cuda_device, B):
     for rows, cols, n, kw in _patterns():
         lt = tband.build_band_layout(rows, cols, n, **kw)
         rng = np.random.default_rng(B)
-        vals = torch.as_tensor(rng.standard_normal(rows.size),
-                               dtype=torch.float32, device=cuda_device)
-        lin = torch.as_tensor(lt.lin, dtype=torch.int64, device=cuda_device)
-        band = tband.flat_to_band(vals, lt, lin)
+        pack = pack_band_tiles(_band(rows, lt, rng, cuda_device), lt)
         x = torch.as_tensor(rng.standard_normal((B, n)),
                             dtype=torch.float32, device=cuda_device)
         n0 = band_kernel.band_mv_f32_cuda.launches
-        y = band_kernel.band_mv_f32(band, x, lt)
-        y_ref = band_kernel.band_mv_f32_reference(band, x, lt)
+        y = band_kernel.band_mv_f32(pack, x, lt)
+        y_ref = band_kernel.band_mv_f32_reference(pack, x, lt)
         torch.cuda.synchronize()
         assert band_kernel.band_mv_f32_cuda.launches == n0 + 1
-        assert float((y - y_ref).abs().max()) <= 1e-5 * float(
-            y_ref.abs().max())
+        assert _agree(y, y_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 37, 130])
+def test_band_kernel_ragged(cuda_device, B):
+    """n not a multiple of the 16-row tile (nor of 4, so x rows are not
+    16-byte aligned), B not a multiple of the lane tile: a narrow random
+    band, n = 1001, b = 64."""
+    n, w = 1001, 21
+    rows = np.concatenate([np.full(min(n, i + w + 1) - max(0, i - w), i)
+                           for i in range(n)])
+    cols = np.concatenate([np.arange(max(0, i - w), min(n, i + w + 1))
+                           for i in range(n)])
+    lt = tband.build_band_layout(rows, cols, n, block_multiple=64,
+                                 min_block=64)
+    assert n % 16 and n % 4
+    rng = np.random.default_rng(B)
+    band = _band(rows, lt, rng, cuda_device)
+    pack = pack_band_tiles(band, lt)
+    x = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32,
+                        device=cuda_device)
+    y = band_kernel.band_mv_f32_cuda(pack, x, lt)
+    y_ref = band_kernel.band_mv_f32_reference(pack, x, lt)
+    torch.cuda.synchronize()
+    assert _agree(y, y_ref)
+    assert _agree(y, tband.band_mv(band, x, lt))
 
 
 @pytest.mark.cuda
 def test_band_kernel_masks_out_of_range_windows(cuda_device):
     """A band with garbage in the slots outside the operator (edge windows,
-    padded tail) still gives the masked product."""
+    padded tail) still gives the masked product: the pack drops them."""
     rows, cols, n, _ = _patterns()[0]
     lt = tband.build_band_layout(rows, cols, n)
     g = torch.Generator(device="cpu").manual_seed(0)
     band = torch.randn(lt.nb, lt.b, 3 * lt.b, generator=g).to(cuda_device)
     x = torch.randn(5, n, generator=g).to(cuda_device)
-    y = band_kernel.band_mv_f32_cuda(band, x, lt)
-    y_ref = band_kernel.band_mv_f32_reference(band, x, lt)
+    pack = pack_band_tiles(band, lt)
+    y = band_kernel.band_mv_f32_cuda(pack, x, lt)
+    y_ref = band_kernel.band_mv_f32_reference(pack, x, lt)
     torch.cuda.synchronize()
-    assert float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+    assert _agree(y, y_ref)
+    assert _agree(y, tband.band_mv(band, x, lt))   # zero-padded windows
 
 
 @pytest.mark.cuda
@@ -93,20 +131,18 @@ def test_band_kernel_non_finite_x_stays_in_its_lane(cuda_device):
     rows, cols, n, _ = _patterns()[0]
     lt = tband.build_band_layout(rows, cols, n)
     rng = np.random.default_rng(11)
-    vals = torch.as_tensor(rng.standard_normal(rows.size),
-                           dtype=torch.float32, device=cuda_device)
-    lin = torch.as_tensor(lt.lin, dtype=torch.int64, device=cuda_device)
-    band = tband.flat_to_band(vals, lt, lin)
+    pack = pack_band_tiles(_band(rows, lt, rng, cuda_device), lt)
     x = torch.as_tensor(rng.standard_normal((4, n)), dtype=torch.float32,
                         device=cuda_device)
     j, k = n // 3, n - 5
     x[1, j] = float("nan")
     x[2, k] = float("inf")
-    y = band_kernel.band_mv_f32_cuda(band, x, lt).cpu()
-    y_ref = band_kernel.band_mv_f32_reference(band, x, lt).cpu()
+    y = band_kernel.band_mv_f32_cuda(pack, x, lt).cpu()
+    y_ref = band_kernel.band_mv_f32_reference(pack, x, lt).cpu()
     assert torch.isnan(y[1, j]) and not torch.isfinite(y[2, k])
     assert torch.isfinite(y[[0, 3]]).all()
     ok = torch.isfinite(y_ref)
+    assert torch.equal(torch.isfinite(y), ok)
     tol = 1e-5 * float(y_ref[ok].abs().max())
     assert float((y[ok] - y_ref[ok]).abs().max()) <= tol
 
@@ -115,9 +151,10 @@ def test_band_kernel_non_finite_x_stays_in_its_lane(cuda_device):
 def test_band_kernel_empty_input_launches_nothing(cuda_device):
     rows, cols, n, _ = _patterns()[0]
     lt = tband.build_band_layout(rows, cols, n)
-    band = torch.zeros(lt.nb, lt.b, 3 * lt.b, device=cuda_device)
+    pack = pack_band_tiles(torch.zeros(lt.nb, lt.b, 3 * lt.b,
+                                       device=cuda_device), lt)
     n0 = band_kernel.band_mv_f32_cuda.launches
-    y = band_kernel.band_mv_f32_cuda(band, torch.zeros(0, n,
+    y = band_kernel.band_mv_f32_cuda(pack, torch.zeros(0, n,
                                                        device=cuda_device), lt)
     assert y.shape == (0, n)
     assert band_kernel.band_mv_f32_cuda.launches == n0

@@ -16,6 +16,8 @@ import plate_inverse_problem_tpu as pip
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu.ops import mg as jmg
 from plate_inverse_problem_tpu_torch.ops import mg as tmg
+from plate_inverse_problem_tpu_torch.ops.band_kernel import (
+    band_mv_f32, pack_band_tiles)
 
 GP = (100e-3, 20e-3, 2e-3, None, None)
 
@@ -80,8 +82,9 @@ def test_twogrid_apply_matches_jax(pair, shape):
         jnp.asarray(r), pj._band_layout, pj._mg_rl,
         jnp.asarray(od["mg_slots"])))
     t = pt.opdata_from_jax(od, "cpu")
+    pack = pack_band_tiles(t["mg_band0"], pp._band_layout)
     y_t = tmg.twogrid_apply(
-        t["mg_band0"], t["mg_dinv"], pp._mg_lmax, t["mg_Pt"], t["mg_Kcinv"],
+        pack, t["mg_dinv"], pp._mg_lmax, t["mg_Pt"], t["mg_Kcinv"],
         torch.from_numpy(r), pp._band_layout, pp._mg_rl, t["mg_slots"])
     assert y_t.dtype == torch.float32 and y_t.shape == r.shape
     y_t = y_t.numpy()
@@ -97,16 +100,15 @@ def test_chebyshev_smooth_matches_jax(pair):
     band_j = jnp.asarray(od["mg_band0"])
     t = pt.opdata_from_jax(od, "cpu")
     from plate_inverse_problem_tpu.ops.band import band_mv as jbmv
-    from plate_inverse_problem_tpu_torch.ops.band_kernel import band_mv_f32
-
     sm_j = {"dinv": jnp.asarray(od["mg_dinv"]), "lmax": pj._mg_lmax}
     sm_t = {"dinv": t["mg_dinv"], "lmax": pp._mg_lmax}
+    pack = pack_band_tiles(t["mg_band0"], pp._band_layout)
     for e in (None, e0):
         y_j = np.asarray(jmg._chebyshev_smooth(
             sm_j, lambda x: jbmv(band_j, x, pj._band_layout),
             jnp.asarray(r), e0=None if e is None else jnp.asarray(e)))
         y_t = tmg._chebyshev_smooth(
-            sm_t, lambda x: band_mv_f32(t["mg_band0"], x, pp._band_layout),
+            sm_t, lambda x: band_mv_f32(pack, x, pp._band_layout),
             torch.from_numpy(r),
             e0=None if e is None else torch.from_numpy(e)).numpy()
         assert np.abs(y_t - y_j).max() / np.abs(y_j).max() <= 1e-5

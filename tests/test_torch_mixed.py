@@ -101,7 +101,7 @@ def _port_sweep(pp, od_t, x, **kw):
         t["K_re"], t["K_im"], od_t["MIn"], t["B_re"], t["B_im"], t["omegas"],
         od_t["rows"], od_t["cols"], pp.n_free, od_t["W64"],
         band={"layout": pp._band_layout, "lin": od_t["band_lin"]},
-        mg={"tg_band0": od_t["mg_band0"], "dinv": od_t["mg_dinv"],
+        mg={"tg_pack": pp._band_pack, "dinv": od_t["mg_dinv"],
             "Pt": od_t["mg_Pt"], "Kc_inv": od_t["mg_Kcinv"],
             "slots": od_t["mg_slots"], "lmax": pp._mg_lmax,
             "rl": pp._mg_rl, "layout": pp._band_layout},
