@@ -26,6 +26,24 @@ slice's f32 K_ref band splits into tiles of several shapes (the count
 behind K1's 16 x 8 tile): tiles holding a nonzero, packed MB, FLOP at
 B = 128 and the x slices pulled per apply.
 
+``--gn`` instead profiles the inverse half at the slice: the adjoint
+Gauss-Newton residual and Jacobian (``ResidualFunction("log_afc")
+.value_and_jac``) at theta_0 = truth x (1.05, 1.02, 1.2) against the FRF
+at the truth.  One first and three timed steady calls, then one steady
+call under ``torch.profiler`` with timing wrappers (synchronised) around
+the primal sweep, the adjoint sweep and the residual-map tangents: device
+busy vs wall and the idle share, kernel launches, the wall time of each
+part, K1 launches by lane count B in each sweep, and the device time by
+kernel kind.
+
+``--fd-cpu`` instead runs on the CPU at n = 1466 (``sh_i`` refine = 1,
+``precond="mg", operator_layout="band"``): every column of the adjoint
+Jacobian against a central difference of r at relative steps 1e-5 to
+1e-2, at 64 and 512 points over 40-600 Hz — the numbers behind
+chip_smoke.py's FD_STEPS and FD_TOL —
+and ``solveInverse(..., "gn", N_steps=8)`` from the same start at 512
+points, with every iterate.
+
 Prints the JSON record as its last line and writes it, with the
 profiler's kernel table, under ``--out`` (default build/profile/).
 
@@ -63,15 +81,15 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def build(dev, construct: bool = True):
+def build(dev, construct: bool = True, refine: float = 4.0, **kw):
     import plate_inverse_problem_tpu_torch as pt
 
     acc = pt.Accelerometer("AP1030")
     mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
     geom = pt.Geometry("sh_i", acc,
                        pt.GeometryParams(100e-3, 20e-3, 2e-3, None, None),
-                       refine=4.0)
-    p = pt.Problem(geom, mat, acc, device=dev)
+                       refine=refine)
+    p = pt.Problem(geom, mat, acc, device=dev, **kw)
     if construct:
         p.getFRCore()
     return p
@@ -98,12 +116,14 @@ def count_calls(module, name, counts):
     return lambda: setattr(module, name, fn)
 
 
-def record_lanes(module, hist):
-    """Wrap ``module.band_mv_f32`` to count its calls by lane count B."""
+def record_lanes(module, hist_of):
+    """Wrap ``module.band_mv_f32`` to count its calls by lane count B in
+    the dict ``hist_of()`` returns."""
     fn = module.band_mv_f32
 
     def wrapped(pack, x, layout):
         B = x.numel() // layout.n
+        hist = hist_of()
         hist[B] = hist.get(B, 0) + 1
         return fn(pack, x, layout)
 
@@ -199,6 +219,185 @@ def tile_count(B: int = 128):
               flush=True)
 
 
+START = np.array([1.05, 1.02, 1.2])
+
+
+def profile_events(prof, wall_ms: float) -> dict:
+    """Device busy (sum of the CUDA kernels' self time), the idle share of
+    ``wall_ms``, device ms by kernel kind, the launch calls' count and host
+    time, and the top kernels, from one ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    kernels, by_kind, launch = [], {}, {"count": 0, "host_ms": 0.0}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            ms = getattr(e, key) / 1e3
+            kernels.append((ms, e.count, e.key))
+            by_kind[kind_of(e.key)] = by_kind.get(kind_of(e.key), 0.0) + ms
+        elif e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                       "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            launch["count"] += e.count
+            launch["host_ms"] += e.cpu_time_total / 1e3
+    busy = sum(k[0] for k in kernels)
+    kernels.sort(reverse=True)
+    return {"device_busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms,
+            "device_ms_by_kind": dict(sorted(by_kind.items(),
+                                             key=lambda kv: -kv[1])),
+            "kernel_launches": launch,
+            "top_kernels": [{"ms": ms, "count": c, "name": nm[:120]}
+                            for ms, c, nm in kernels[:12]],
+            "_table": events.table(sort_by=key, row_limit=60)}
+
+
+def gn_profile(args, card: str) -> dict:
+    """--gn: where the time of one steady adjoint r + J goes at the slice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, mg, mixed
+
+    dev = torch.device("cuda")
+    rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    p = build(dev)
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    fr = p.solveForward(freqs).cpu().numpy()
+    truth = np.asarray(p.parameters)
+    th0 = truth * START
+    rf = p.getResidualFunction(freqs, fr, kind="log_afc")
+
+    def rj():
+        out = rf.value_and_jac(th0)
+        torch.cuda.synchronize()
+        return out
+
+    # what a process pays once for the first forward-mode vmap: a toy
+    # jacfwd through the ops of the residual map (out-of-place index_add,
+    # dot, gather), before the first r + J
+    def toy(v):
+        x = torch.arange(8.0, dtype=v.dtype, device=v.device)
+        idx = torch.tensor([0, 1, 1, 2], device=v.device)
+        b = torch.dot(v, v) / torch.dot(v, x[:3])
+        out = torch.zeros(2, 3, dtype=v.dtype, device=v.device)
+        return out.index_add(-1, idx[:3], (b * v * x[idx[1:]]).expand(2, 3))
+
+    t0 = time.perf_counter()
+    torch.func.jacfwd(toy)(torch.ones(3, dtype=torch.float64, device=dev))
+    torch.cuda.synchronize()
+    rec["jacfwd_warmup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rj()
+    rec["rj_first_s"] = time.perf_counter() - t0
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rj()
+        steady.append(time.perf_counter() - t0)
+    rec["rj_steady_s"] = steady
+    print(f"[gn] toy jacfwd first use {rec['jacfwd_warmup_s']:.3f} s; "
+          f"r + J first {rec['rj_first_s']:.3f} s, steady "
+          f"{', '.join(f'{s:.3f}' for s in steady)} s", flush=True)
+
+    # one profiled steady r + J; the parts timed by synchronised wrappers,
+    # K1 launches binned by lane count within each sweep
+    core = p.getFRCore()[0]
+    parts, lanes, phase = {}, {}, ["other"]
+
+    def timed(name, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            phase[0] = name
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+            phase[0] = "other"
+            return out
+        return run
+
+    hooks = core.sweep_u, core.sweep_adj, core.apply_res
+    core.sweep_u = timed("primal_sweep", hooks[0])
+    core.sweep_adj = timed("adjoint_sweep", hooks[1])
+    core.apply_res = timed("apply", hooks[2])
+    undo = [record_lanes(m, lambda: lanes.setdefault(phase[0], {}))
+            for m in (mg, mixed)]
+    band_kernel.band_mv_f32_cuda.launches = 0
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rj()
+            wall = time.perf_counter() - t0
+    finally:
+        core.sweep_u, core.sweep_adj, core.apply_res = hooks
+        for u in undo:
+            u()
+    rec["profiled_wall_s"] = wall
+    rec["part_wall_s"] = parts | {"rest": wall - sum(parts.values())}
+    rec["k1_launches"] = band_kernel.band_mv_f32_cuda.launches
+    rec["k1_launches_by_B"] = {k: dict(sorted(v.items()))
+                               for k, v in lanes.items()}
+    ev = profile_events(prof, float(np.mean(steady)) * 1e3)
+    table = ev.pop("_table")
+    rec.update(ev)
+    print(f"[gn] profiled r + J {wall:.3f} s: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in rec["part_wall_s"].items())
+          + f"; device busy {ev['device_busy_ms']:.1f} ms of the "
+          f"{ev['wall_ms']:.1f} ms mean steady r + J (idle "
+          f"{100 * ev['idle_share']:.1f} %); {ev['kernel_launches']['count']}"
+          f" kernel launches ({ev['kernel_launches']['host_ms']:.1f} ms host);"
+          f" K1 launches {rec['k1_launches']} by sweep and B "
+          f"{rec['k1_launches_by_B']}", flush=True)
+    for kind, ms in ev["device_ms_by_kind"].items():
+        print(f"[gn]   {kind:26s} {ms:9.3f} ms "
+              f"({100 * ms / ev['device_busy_ms']:.1f} %)", flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "torch_gn_profile.txt"), "w") as fh:
+        fh.write(table)
+    return rec
+
+
+def fd_cpu() -> dict:
+    """--fd-cpu: J against central differences, and GN, at n = 1466."""
+    p = build("cpu", refine=1.0, precond="mg", operator_layout="band")
+    truth = np.asarray(p.parameters)
+    th0 = truth * START
+    rec = {"n_free": p.n_free}
+    for F in (64, 512):
+        freqs = np.linspace(40.0, 600.0, F)
+        fr = p.solveForward(freqs).numpy()
+        rf = p.getResidualFunction(freqs, fr, kind="log_afc")
+        J = rf.value_and_jac(th0)[1].numpy()
+        for step in (1e-5, 1e-4, 1e-3, 1e-2):
+            dev = []
+            for j in range(3):
+                e = np.zeros(3)
+                e[j] = step * th0[j]
+                fd = (rf(th0 + e) - rf(th0 - e)).numpy() / (2 * e[j])
+                dev.append(float(np.abs(fd - J[:, j]).max()
+                                 / np.abs(J[:, j]).max()))
+            rec[f"fd_rel_{F}_step_{step:g}"] = dev
+            print(f"[fd-cpu] {F} points, relative step {step:g}: J column vs "
+                  f"central difference, max dev / column max "
+                  f"{', '.join(f'{d:.3e}' for d in dev)}", flush=True)
+    t0 = time.perf_counter()
+    res = p.solveInverse(th0, "MSE_LOG_AFC", "gn", ref_fr=(freqs, fr),
+                         use_scaling=True, N_steps=8, report=False, log=False)
+    rec["gn_s"] = time.perf_counter() - t0
+    rec["gn_f_history"] = list(res.f_history)
+    rec["gn_rel_err"] = [list((np.asarray(x) * th0 - truth) / truth)
+                         for x in res.x_history + [res.x / th0]]
+    for k, (f, e) in enumerate(zip(rec["gn_f_history"] + [None],
+                                   rec["gn_rel_err"])):
+        print(f"[fd-cpu] gn iterate {k}: loss {f}  rel err "
+              f"{', '.join(f'{v:+.3e}' for v in e)}", flush=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
@@ -206,13 +405,24 @@ def main() -> int:
                     help="also time K1 without its FMAs and copies")
     ap.add_argument("--tile-count", action="store_true",
                     help="only count the band's tile occupancy (host, CPU)")
+    ap.add_argument("--gn", action="store_true",
+                    help="only profile one steady adjoint r + J")
+    ap.add_argument("--fd-cpu", action="store_true",
+                    help="only check J against central differences and run "
+                         "GN at n = 1466 on the CPU")
     args = ap.parse_args()
     if args.tile_count:
         tile_count()
         return 0
+    if args.fd_cpu:
+        rec = fd_cpu()
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "torch_fd_cpu.json"), "w") as fh:
+            json.dump(rec, fh, indent=1)
+        print(json.dumps(rec), flush=True)
+        return 0
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from plate_inverse_problem_tpu_torch.ops import band_kernel, mg, mixed
@@ -225,6 +435,12 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     band_kernel.build()
+    if args.gn:
+        rec = gn_profile(args, card)
+        with open(os.path.join(args.out, "torch_gn_profile.json"), "w") as fh:
+            json.dump(rec, fh, indent=1)
+        print(json.dumps(rec), flush=True)
+        return 0
     rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
@@ -257,7 +473,7 @@ def main() -> int:
     counts, lanes = {}, {}
     undo = [count_calls(mixed, nm, counts) for nm in
             ("_pgmres", "_pgmres_cycle", "twogrid_apply", "band_mv")]
-    undo += [record_lanes(m, lanes) for m in (mg, mixed)]
+    undo += [record_lanes(m, lambda: lanes) for m in (mg, mixed)]
     band_kernel.band_mv_f32_cuda.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -278,33 +494,15 @@ def main() -> int:
         raise AssertionError(f"K1 lane histogram {lanes} does not add up to "
                              f"{rec['counts']['k1_launches']} launches")
 
-    events = prof.key_averages()
-    sort_key = ("self_device_time_total"
-                if hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
-
-    def dev_us(e):
-        return getattr(e, sort_key)
-
-    kernels, by_kind, launch = [], {}, {"count": 0, "host_ms": 0.0}
-    for e in events:
-        if e.device_type == DeviceType.CUDA:
-            kernels.append((dev_us(e) / 1e3, e.count, e.key))
-            k = kind_of(e.key)
-            by_kind[k] = by_kind.get(k, 0.0) + dev_us(e) / 1e3
-        elif e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                       "cudaLaunchKernelExC", "cuLaunchKernelEx"):
-            launch["count"] += e.count
-            launch["host_ms"] += e.cpu_time_total / 1e3
-    busy_ms = sum(k[0] for k in kernels)
-    kernels.sort(reverse=True)
-    rec["device_busy_ms"] = busy_ms
-    rec["idle_share_of_mean_steady"] = 1.0 - busy_ms / (mean_steady * 1e3)
-    rec["device_ms_by_kind"] = dict(sorted(by_kind.items(),
-                                           key=lambda kv: -kv[1]))
-    rec["kernel_launches"] = launch
-    rec["top_kernels"] = [{"ms": ms, "count": c, "name": nm[:120]}
-                          for ms, c, nm in kernels[:12]]
+    ev = profile_events(prof, mean_steady * 1e3)
+    table = ev.pop("_table")
+    busy_ms = ev["device_busy_ms"]
+    rec.update(device_busy_ms=busy_ms,
+               idle_share_of_mean_steady=ev["idle_share"],
+               device_ms_by_kind=ev["device_ms_by_kind"],
+               kernel_launches=ev["kernel_launches"],
+               top_kernels=ev["top_kernels"])
+    launch = ev["kernel_launches"]
     print(f"[profile] device busy {busy_ms:.1f} ms of a {mean_steady * 1e3:.1f}"
           f" ms mean steady sweep; {launch['count']} kernel launches "
           f"({launch['host_ms']:.1f} ms host); counts {rec['counts']}; K1 "
@@ -332,7 +530,7 @@ def main() -> int:
     with open(os.path.join(args.out, "torch_sweep_profile.json"), "w") as fh:
         json.dump(rec, fh, indent=1)
     with open(os.path.join(args.out, "torch_sweep_profile.txt"), "w") as fh:
-        fh.write(events.table(sort_by=sort_key, row_limit=60))
+        fh.write(table)
     print(json.dumps(rec), flush=True)
     return 0
 

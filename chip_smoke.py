@@ -17,7 +17,19 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
 4. run the 512-point sweep, count the kernel's launches (must be > 0) and
    check that the FRF is finite;
 5. hold the FRF against a host f64 sparse-LU oracle at 4 points including
-   the |FRF| peak, to 1e-6 relative.
+   the |FRF| peak, to 1e-6 relative;
+6. the inverse half on the same Problem, from theta_0 = truth x (1.05,
+   1.02, 1.2) against the phase-4 FRF at the truth (``[adjoint]``,
+   ``[jac]``, ``[gn]``): time ``ResidualFunction("log_afc").value_and_jac``
+   (first and steady call) and count K1's launches in its primal and its
+   adjoint sweep (both must be > 0); hold 2 J^T r / m against the
+   MSE_LOG_AFC loss gradient (GRAD_TOL) and every column of J against a
+   central difference of r (FD_STEPS, to FD_TOL of the column's max); run
+   ``solveInverse(theta_0, "MSE_LOG_AFC", "gn", use_scaling=True,
+   N_steps=GN_STEPS)``, print every iterate's loss and seconds, and
+   require the loss to fall at every step and the result to reach the
+   truth to 1e-4 relative (|beta|: the FRF magnitude is even in the loss
+   factor, so -beta is an exact minimum too).
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -41,6 +53,33 @@ N_FREQ = 512
 KERNEL_TOL = 1e-5
 SLEEP_CYCLES = 20_000_000   # ~10 ms of device sleep ahead of a timed run
 ORACLE_TOL = 1e-6
+START = (1.05, 1.02, 1.2)     # theta_0 / truth of phase 6
+# 2 J^T r / m vs the loss gradient, relative to its max component.  The two
+# come from independent primal and adjoint sweeps, which on the card agree
+# only to the sweeps' accuracy (the f64 atomics of the scatters change each
+# sweep's last bits and FGMRES carries that to its tolerance): 7.7e-8 to
+# 2.4e-7 on an H100 at 700 W, where two calls of the gradient itself differ
+# by 6.0e-8 to 2.7e-7.  The FRF gate, 1e-6, bounds it; on the CPU at n = 1466, where
+# the sweeps are deterministic, tests/test_torch_inverse.py holds it to
+# 1e-8.
+GRAD_TOL = 1e-6
+# J column vs its central difference, of the column's max.  E and G at a
+# relative step of 1e-4, where truncation sets the deviation (CPU, n = 1466,
+# E column: 2.2e-5 at 1e-4, 2.2e-3 at 1e-3); beta at 1e-2, because its
+# column is bound by the f64 noise of r over 2 h (CPU, 64 points: 1.4e-3 at
+# 1e-5, 6.5e-5 at 1e-4, 5.7e-6 at 1e-3, 1.0e-5 at 1e-2; the 21k sweep on
+# the card is noisier: 7.6e-4-1.9e-3 at 1e-4).  CPU numbers from
+# .probes/torch_sweep_profile.py --fd-cpu.  The tolerance is the bound of
+# 1e-3: the worst CPU deviation at these steps is 2.2e-5, the card's E and
+# G columns at 1e-4 were 1.4e-4-1.5e-4 and 4.7e-5-7.5e-5 (an H100 at
+# 700 W).
+FD_STEPS = (1e-4, 1e-4, 1e-2)
+FD_TOL = 1e-3
+# Gauss-Newton steps: from theta_0 the iterates reach 1.7e-4 / 8.4e-4 (E, G)
+# after 8 steps (iterate 8) and 1.0e-6 / 5.2e-6 after 10 on an H100 at
+# 700 W; beta ends at -beta, its mirror image
+GN_STEPS = 10
+GN_TOL = 1e-4                 # relative distance of the GN result to truth
 
 
 def card_info() -> str:
@@ -411,13 +450,16 @@ def smoke(dev, card: str, ab_sources=()):
     if not worst <= ORACLE_TOL:
         raise AssertionError(f"worst rel err {worst:.3e} > {ORACLE_TOL}")
 
+    inv = inverse_half(p, freqs, fr)
+
     summary = {"card": card, "n_free": p.n_free, "ctor_s": ctor_s,
                "pack_build_ms": 1e3 * p._pack_build_s,
                "pack_tiles": pack.vals.shape[0], "pack_mb": pack_mb,
                "sweep_first_s": sweep_s, "sweep_steady_s": steady_s,
                "solves_per_s_steady": N_FREQ / steady_s,
                "peak_mem_gb": peak_gb, "worst_rel_err": worst,
-               "f_peak": float(freqs[ipk]), "k1_by_B": recs, "k1_b64": b64}
+               "f_peak": float(freqs[ipk]), "k1_by_B": recs, "k1_b64": b64,
+               **inv}
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "band_mv_f32",
@@ -425,6 +467,10 @@ def smoke(dev, card: str, ab_sources=()):
         "source": "plate_inverse_problem_tpu_torch/csrc/band_mv.cu",
         "replaces": "plate_inverse_problem_tpu/ops/pallas_band.py:75",
         "launches": launches,
+        "launches_by_path": {"sweep": launches,
+                             "rj_primal": inv["k1_rj_primal"],
+                             "rj_adjoint": inv["k1_rj_adjoint"],
+                             "gn": inv["k1_gn"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
@@ -432,6 +478,157 @@ def smoke(dev, card: str, ab_sources=()):
         "bound_by": bound_by,
         "library_ms": slice_rec["library_ms"],
     }]}), flush=True)
+
+
+def launch_counter(fn, counts, key):
+    """``fn`` with K1's launches inside each call added to counts[key]."""
+    from plate_inverse_problem_tpu_torch.ops import band_kernel
+
+    def run(*a):
+        n0 = band_kernel.band_mv_f32_cuda.launches
+        out = fn(*a)
+        counts[key] += band_kernel.band_mv_f32_cuda.launches - n0
+        return out
+
+    return run
+
+
+def inverse_half(p, freqs, fr_truth) -> dict:
+    """Phase 6 on the Problem of phases 4-5: the adjoint r + J, its checks
+    and Gauss-Newton from theta_0.  Returns the numbers for [summary]."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import band_kernel
+
+    truth = np.asarray(p.parameters, np.float64)
+    th0 = truth * np.asarray(START)
+    core = p.getFRCore()[0]
+    rf = p.getResidualFunction(freqs, fr_truth, kind="log_afc")
+
+    # ---- [adjoint] one r + J, first and steady, K1 launches per sweep ----
+    counts = {"primal": 0, "adjoint": 0}
+    hooks = core.sweep_u, core.sweep_adj
+    core.sweep_u = launch_counter(hooks[0], counts, "primal")
+    core.sweep_adj = launch_counter(hooks[1], counts, "adjoint")
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(2):
+            counts.update(primal=0, adjoint=0)
+            band_kernel.band_mv_f32_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r, J = rf.value_and_jac(th0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            total = band_kernel.band_mv_f32_cuda.launches
+    finally:
+        core.sweep_u, core.sweep_adj = hooks
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    r, J = r.cpu().numpy(), J.cpu().numpy()
+    print(f"[adjoint] log_afc r + J at theta_0 = truth x {START}, "
+          f"{freqs.size} points: first {times[0]:.3f} s, steady "
+          f"{times[1]:.3f} s; K1 launches {counts['primal']} in the primal "
+          f"sweep, {counts['adjoint']} in the adjoint sweep ({total} in "
+          f"all); peak device memory {peak_gb:.2f} GB", flush=True)
+    # every check of the phase runs after all of its measurements
+    failed = []
+    if counts["primal"] <= 0 or counts["adjoint"] <= 0:
+        failed.append(f"K1 not launched in both sweeps: {counts}")
+    if total != counts["primal"] + counts["adjoint"]:
+        failed.append(f"K1 launched outside the sweeps: {total} vs {counts}")
+    if r.shape != (freqs.size,) or J.shape != (freqs.size, truth.size) \
+            or not (np.all(np.isfinite(r)) and np.all(np.isfinite(J))):
+        raise AssertionError(f"bad r {r.shape} or J {J.shape}")
+
+    # ---- [jac] (a) against the loss gradient, (b) against differences ---
+    loss = p.getLossFunction(freqs, fr_truth, "MSE_LOG_AFC")
+    t0 = time.perf_counter()
+    g = loss.grad(th0).cpu().numpy()
+    grad_s = time.perf_counter() - t0
+    g2 = loss.grad(th0).cpu().numpy()      # the same call again: its noise
+    g_gn = 2.0 * J.T @ r / r.size
+    grad_rel = float(np.abs(g_gn - g).max() / np.abs(g).max())
+    grad_rerun = float(np.abs(g2 - g).max() / np.abs(g).max())
+    print(f"[jac] (a) 2 J^T r / m vs MSE_LOG_AFC grad ({grad_s:.3f} s): "
+          f"max rel {grad_rel:.3e} (tol {GRAD_TOL}); two grad calls differ "
+          f"by {grad_rerun:.3e}", flush=True)
+
+    def fd_dev(j, step):
+        e = np.zeros(truth.size)
+        e[j] = step * th0[j]
+        fd = (rf(th0 + e) - rf(th0 - e)).cpu().numpy() / (2.0 * e[j])
+        return float(np.abs(fd - J[:, j]).max() / np.abs(J[:, j]).max())
+
+    fd_rel = [fd_dev(j, step) for j, step in enumerate(FD_STEPS)]
+    fd_beta_1e4 = fd_dev(truth.size - 1, 1e-4)
+    print(f"[jac] (b) J columns vs central differences at relative steps "
+          f"{FD_STEPS}: max dev / column max "
+          f"{', '.join(f'{x:.3e}' for x in fd_rel)} (tol {FD_TOL}); the beta "
+          f"column at step 1e-4: {fd_beta_1e4:.3e}", flush=True)
+    if not grad_rel <= GRAD_TOL:
+        failed.append(f"2 J^T r / m disagrees with the loss gradient: "
+                      f"{grad_rel:.3e} > {GRAD_TOL}")
+    if not max(fd_rel) <= FD_TOL:
+        failed.append(f"J disagrees with central differences: {fd_rel} > "
+                      f"{FD_TOL}")
+    # ---- [gn] Gauss-Newton through solveInverse --------------------------
+    stamps = []
+    make = p.getResidualFunction
+
+    def timed_residuals(*a, **k):
+        res_fn = make(*a, **k)
+        vj = res_fn.value_and_jac
+
+        def value_and_jac(x):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return vj(x)
+
+        res_fn.value_and_jac = value_and_jac
+        return res_fn
+
+    p.getResidualFunction = timed_residuals
+    band_kernel.band_mv_f32_cuda.launches = 0
+    try:
+        res = p.solveInverse(th0, "MSE_LOG_AFC", "gn",
+                             ref_fr=(freqs, fr_truth), use_scaling=True,
+                             N_steps=GN_STEPS, report=False, log=False)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    finally:
+        del p.getResidualFunction
+    k1_gn = band_kernel.band_mv_f32_cuda.launches
+    iter_s = list(np.diff(stamps))
+    for k, (f, x, s) in enumerate(zip(res.f_history, res.x_history, iter_s)):
+        x = np.asarray(x) * th0
+        print(f"[gn] iterate {k}: loss {f:.6e}  {s:.3f} s  rel err "
+              f"{', '.join(f'{v:+.3e}' for v in (x - truth) / truth)}",
+              flush=True)
+    err = (np.abs(res.x) - truth) / truth
+    print(f"[gn] {len(res.f_history)} iterations in {sum(iter_s):.3f} s "
+          f"({np.mean(iter_s):.3f} s/iter), status {res.status}, K1 "
+          f"launches {k1_gn}; result rel err (|beta|) "
+          f"{', '.join(f'{v:+.3e}' for v in err)} (tol {GN_TOL})", flush=True)
+    if k1_gn <= 0:
+        failed.append("Gauss-Newton never launched the band kernel")
+    if not np.all(np.diff(res.f_history) < 0):
+        failed.append(f"loss did not fall at every step: {res.f_history}")
+    if not np.all(np.abs(err) <= GN_TOL):
+        failed.append(f"GN result {res.x} is not within {GN_TOL} of the "
+                      f"truth {truth}")
+    if failed:
+        raise AssertionError("phase 6 failed: " + "; ".join(failed))
+    return {"rj_first_s": times[0], "rj_steady_s": times[1],
+            "k1_rj_primal": counts["primal"],
+            "k1_rj_adjoint": counts["adjoint"], "rj_peak_mem_gb": peak_gb,
+            "grad_s": grad_s, "jac_grad_rel": grad_rel,
+            "grad_rerun_rel": grad_rerun, "jac_fd_rel": fd_rel,
+            "jac_fd_beta_step_1e-4": fd_beta_1e4,
+            "gn_f_history": [float(f) for f in res.f_history],
+            "gn_iter_s": iter_s, "gn_s_per_iter": float(np.mean(iter_s)),
+            "gn_status": res.status, "gn_rel_err": [float(v) for v in err],
+            "k1_gn": k1_gn}
 
 
 if __name__ == "__main__":

@@ -4,15 +4,18 @@
 This slice runs the band tier of the mixed engine end to end: the 3-field
 plate operator in the RCM block-tridiagonal layout, the f64 FGMRES sweep
 with a two-grid f32 preconditioner whose band matvec is a hand-written
-CUDA kernel (``csrc/band_mv.cu``), and the accelerometer readout.  The
-package imports torch, numpy and scipy, never jax.
+CUDA kernel (``csrc/band_mv.cu``), and the accelerometer readout; and the
+inverse problem on it: the adjoint sweep, the loss and its gradient, the
+adjoint Gauss-Newton Jacobian and ``Problem.solveInverse(..., "gn")``.
+The package imports torch, numpy and scipy, never jax.
 """
 from . import config
 from .convert import opdata_from_jax
 from .models.accelerometer import Accelerometer
 from .models.geometry import Geometry, GeometryParams
 from .models.materials import get_material
-from .models.problem import Problem
+from .models.problem import LossFunction, Problem, ResidualFunction
+from .optimize import JointResidual, optimize_gauss_newton, optResult
 
 __version__ = "0.1.0"
 
@@ -20,8 +23,13 @@ __all__ = [
     "Accelerometer",
     "Geometry",
     "GeometryParams",
+    "JointResidual",
+    "LossFunction",
     "Problem",
+    "ResidualFunction",
     "config",
     "get_material",
     "opdata_from_jax",
+    "optResult",
+    "optimize_gauss_newton",
 ]

@@ -65,10 +65,18 @@ class Material(abc.ABC):
 
     def abd_split(self, params: torch.Tensor, h: float):
         """((Are, Aim), (Bre, Bim), (Dre, Dim)): the split complex moduli
-        (JAX ``get_ABD_transform_split``)."""
+        (JAX ``get_ABD_transform_split``).  Torch ops only, so gradients
+        and forward tangents in ``params`` flow through."""
         A, B, D = self.real_coeffs(params, h)
         b = params[self._loss_factor_index]
         return (A, b * A), (B, b * B), (D, b * D)
+
+    def __str__(self):
+        s = f"{self.__class__.__name__} material with\n"
+        for k, v in self.__dict__.items():
+            if not k.startswith("_"):
+                s += f"{k} = {v}\n"
+        return s.rstrip()
 
 
 class Isotropic(Material):

@@ -29,9 +29,249 @@ from ..fem.assembly import (
     accel_indicator,
     assemble_unsymm,
 )
+from ..io.report import default_uid, write_log, write_report
+from ..optimize import optResult
 from .accelerometer import Accelerometer
 from .geometry import Geometry
 from .materials import Material
+
+
+def _numpy(x) -> np.ndarray:
+    """numpy copy of a tensor on any device, or ``np.asarray`` of x."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _split_ref(reference_fr, device) -> torch.Tensor:
+    """The reference FRF as an (F, 2) (re, im) f64 stack on ``device``;
+    real references get a zero imaginary lane, so every loss and residual
+    kind sees one layout."""
+    r = _numpy(reference_fr)
+    if np.iscomplexobj(r):
+        r = np.stack([r.real, r.imag], axis=-1)
+    else:
+        r = np.stack([r, np.zeros_like(r)], axis=-1)
+    return torch.as_tensor(r.astype(np.float64), device=device)
+
+
+def _ref_abs2(ref):
+    """|ref|^2 from the split (re, im) layout."""
+    return ref[..., 0] ** 2 + ref[..., 1] ** 2
+
+
+def _ref_abs(ref):
+    """|ref| from the split (re, im) layout (``hypot``: no under/overflow
+    of the square for |ref| beyond ~1e+-154)."""
+    return torch.hypot(ref[..., 0], ref[..., 1])
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    """f64 tensor on ``device`` from a tensor or an array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float64)
+    return torch.as_tensor(np.array(x, np.float64), device=device)
+
+
+# core attributes the adjoint Gauss-Newton Jacobian needs (primal / adjoint
+# sweeps, the explicit residual map, the solve-free readout): one predicate
+# for every adjoint-mode selector
+_ADJOINT_HOOKS = ("sweep_u", "sweep_adj", "apply_res", "readout_ui")
+
+
+def _has_adjoint_hooks(core) -> bool:
+    return all(hasattr(core, a) for a in _ADJOINT_HOOKS)
+
+
+class _ImplicitSweep(torch.autograd.Function):
+    """U(theta) = A(theta)^-1 b(theta) with the adjoint backward — the role
+    ``lax.custom_linear_solve`` and its ``transpose_solve`` play in the JAX
+    package.
+
+    Forward: the primal sweep, outside the graph.  Backward, for the
+    cotangent G = dL/dU: one adjoint sweep conj(A) Y = G, then
+    dL/dtheta = -d/dtheta [sum Y . (A(theta) U - b(theta))] at fixed U and
+    Y, by autograd through the solve-free residual map."""
+
+    @staticmethod
+    def forward(ctx, params, freqs, od, core):
+        U_re, U_im = core.sweep_u(freqs, params, od)
+        ctx.core, ctx.freqs, ctx.od = core, freqs, od
+        ctx.save_for_backward(params, U_re, U_im)
+        return U_re, U_im
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        params, U_re, U_im = ctx.saved_tensors
+        core, freqs, od = ctx.core, ctx.freqs, ctx.od
+        th = params.detach()
+        Y_re, Y_im = core.sweep_adj(freqs, th, od, g_re, g_im)
+        with torch.enable_grad():
+            th = th.requires_grad_(True)
+            R_re, R_im = core.apply_res(freqs, th, od, U_re, U_im)
+            psi = (Y_re * R_re).sum() + (Y_im * R_im).sum()
+            (g,) = torch.autograd.grad(psi, th)
+        return -g, None, None, None
+
+
+class LossFunction:
+    """Scalar loss of the FRF against a reference: ``f(params) -> scalar``
+    with ``value_and_grad`` and ``grad`` (JAX ``LossFunction``).
+
+    Types MSE / RMSE / MSE_AFC / MSE_LOG_AFC, each the mean of a
+    per-frequency term.  The gradient costs one primal and one adjoint
+    sweep (``_ImplicitSweep``).  Values and gradients are f64 tensors on
+    the operator data's device.
+    """
+
+    def __init__(self, core, opdata, frequencies, reference_fr, func_type,
+                 scaling_params=None):
+        dev = opdata["rows"].device
+        self._core = core
+        self._opdata = opdata
+        self._device = dev
+        self._freqs = _as_tensor(frequencies, dev)
+        self._ref = _split_ref(reference_fr, dev)
+        self.func_type = func_type
+        self._scaling = (1.0 if scaling_params is None
+                         else _as_tensor(scaling_params, dev))
+
+        # the 3-field path's FRF is a real magnitude: Im fr = 0
+        if func_type == "MSE":
+            def term(fr, ref):
+                return (fr - ref[..., 0]) ** 2 + ref[..., 1] ** 2
+        elif func_type == "RMSE":
+            def term(fr, ref):
+                return (((fr - ref[..., 0]) ** 2 + ref[..., 1] ** 2)
+                        / _ref_abs2(ref))
+        elif func_type == "MSE_AFC":
+            def term(fr, ref):
+                return (torch.abs(fr) - _ref_abs(ref)) ** 2
+        elif func_type == "MSE_LOG_AFC":
+            def term(fr, ref):
+                return (torch.log(torch.abs(fr))
+                        - torch.log(_ref_abs(ref))) ** 2
+        else:
+            raise ValueError(f'Function type "{func_type}" is not supported!')
+        self._term = term
+
+    def _full(self, params):
+        fr = self._core(self._freqs, params * self._scaling, self._opdata)
+        return self._term(fr, self._ref).mean()
+
+    def __call__(self, params):
+        with torch.no_grad():
+            return self._full(_as_tensor(params, self._device))
+
+    def value_and_grad(self, params):
+        th = _as_tensor(params, self._device).detach().requires_grad_(True)
+        v = self._full(th)
+        (g,) = torch.autograd.grad(v, th)
+        return v.detach(), g
+
+    def grad(self, params):
+        return self.value_and_grad(params)[1]
+
+    def hessian(self, params):
+        raise NotImplementedError(
+            "The loss Hessian (and the trust-region and Newton optimizers "
+            "that use it) is not ported yet (ROADMAP Queue 1, item D).")
+
+    def value_grad_hessian(self, params):
+        raise NotImplementedError(
+            "The loss Hessian (and the trust-region and Newton optimizers "
+            "that use it) is not ported yet (ROADMAP Queue 1, item D).")
+
+
+class ResidualFunction:
+    """Vector residual r(theta) with the adjoint Gauss-Newton Jacobian
+    (JAX ``ResidualFunction``, ``jac_mode='adjoint'``).
+
+    kinds: 'log_afc' (r_i = log|fr_i| - log|ref_i|, the Gauss-Newton
+    counterpart of MSE_LOG_AFC) and 'afc' (|fr| - |ref|).  Each row is a
+    per-frequency scalar, so J costs two batched sweeps — the primal and
+    one adjoint sweep conj(A_i) y_i = dr_i/dU_i — plus p forward tangents of
+    the solve-free residual map psi_i(theta) = y_i . (A_i(theta) U_i -
+    b_i(theta)), J = -dpsi/dtheta, whatever the parameter count p.
+    ``jac_mode='auto'`` resolves to 'adjoint'.  r and J are f64 tensors on
+    the operator data's device.
+    """
+
+    def __init__(self, core, opdata, frequencies, reference_fr, kind="log_afc",
+                 scaling_params=None, freq_chunk: int | None = None,
+                 jac_mode: str = "auto"):
+        if kind == "log_afc":
+            def resid(fr, ref):
+                return torch.log(torch.abs(fr)) - torch.log(_ref_abs(ref))
+        elif kind == "afc":
+            def resid(fr, ref):
+                return torch.abs(fr) - _ref_abs(ref)
+        elif kind == "complex":
+            raise NotImplementedError(
+                "The 'complex' residual kind needs the forward-mode "
+                "Jacobian, which is not ported yet (ROADMAP Queue 1, item "
+                "C: jac_mode='fwd').")
+        else:
+            raise ValueError(f"Unknown residual kind {kind!r}.")
+        if jac_mode not in ("auto", "adjoint", "fwd"):
+            raise ValueError(f"Unknown jac_mode {jac_mode!r}.")
+        if jac_mode == "fwd" or not _has_adjoint_hooks(core):
+            raise NotImplementedError(
+                "The forward-mode Jacobian (jac_mode='fwd', and any core "
+                "without the adjoint hooks) is not ported yet (ROADMAP "
+                "Queue 1, item C).")
+        if freq_chunk is not None:
+            raise NotImplementedError(
+                "freq_chunk chunks the forward-mode Jacobian, which is not "
+                "ported yet (ROADMAP Queue 1, item C: jac_mode='fwd'); the "
+                "adjoint Jacobian's memory is bounded by the sweep's and "
+                "the residual map's own chunking.")
+        dev = opdata["rows"].device
+        self._core = core
+        self._opdata = opdata
+        self._device = dev
+        self._freqs = _as_tensor(frequencies, dev)
+        self._ref = _split_ref(reference_fr, dev)
+        self._scaling = (1.0 if scaling_params is None
+                         else _as_tensor(scaling_params, dev))
+        self._resid = resid
+        self.kind = kind
+        self.jac_mode = "adjoint"
+
+    def __call__(self, params):
+        th = _as_tensor(params, self._device)
+        with torch.no_grad():
+            fr = self._core(self._freqs, th * self._scaling, self._opdata)
+            return self._resid(fr, self._ref)
+
+    def value_and_jac(self, params):
+        core, od, freqs, ref = self._core, self._opdata, self._freqs, \
+            self._ref
+        params = _as_tensor(params, self._device)
+        th = params * self._scaling
+        # U and Y are constants of the Jacobian formula (their theta-
+        # derivatives are what the adjoint identity eliminates)
+        U_re, U_im = core.sweep_u(freqs, th, od)
+        # r(U) is per-frequency diagonal (row i depends only on U[i]), so
+        # ONE pullback at the all-ones cotangent gives every row gradient
+        # G_i = dr_i/dU_i
+        with torch.enable_grad():
+            Ur = U_re.detach().requires_grad_(True)
+            Ui = U_im.detach().requires_grad_(True)
+            r = self._resid(core.readout_ui(Ur, Ui, od), ref)
+            G_re, G_im = torch.autograd.grad(r, (Ur, Ui),
+                                             torch.ones_like(r))
+        Y_re, Y_im = core.sweep_adj(freqs, th, od, G_re, G_im)
+
+        def psi(p):
+            R_re, R_im = core.apply_res(freqs, p * self._scaling, od,
+                                        U_re, U_im)
+            return (Y_re * R_re + Y_im * R_im).sum(-1)
+
+        # dr_i = -y_i . d(A_i U_i - b_i): p forward tangents through the
+        # scatter passes and the coefficient chain, no solve
+        J = -torch.func.jacfwd(psi)(params)
+        return r.detach(), J
 
 
 class Problem:
@@ -192,7 +432,7 @@ class Problem:
         )
         from ..ops.band_kernel import pack_band_tiles
         from ..ops.mg import _dinv_lmax, _pin_dead, build_prolongation
-        from ..ops.mixed import band_basis_host, mixed_sweep
+        from ..ops.mixed import band_basis_host, mixed_apply, mixed_sweep
 
         op = self.op
         n = op.n_free
@@ -315,6 +555,7 @@ class Problem:
         self._pack_build_s = time.perf_counter() - t0
 
         material = self.material
+        ki_prop = material.scalar_loss_factor
         ts = self.accelerometer.transverse_sensitivity
         freq_chunk = self._auto_freq_chunk()
 
@@ -331,20 +572,41 @@ class Problem:
             B_im = bK_im[None, :].expand_as(B_re)
             return K_re, K_im, B_re, B_im, omegas
 
+        def solve(K_re, K_im, B_re, B_im, omegas, od, adjoint):
+            with torch.no_grad():
+                return mixed_sweep(
+                    K_re, K_im, od["MIn"], B_re, B_im, omegas,
+                    od["rows"], od["cols"], n, od["W64"],
+                    band={"layout": layout, "lin": od["band_lin"]},
+                    mg={"tg_pack": pack, "dinv": od["mg_dinv"],
+                        "Pt": od["mg_Pt"], "Kc_inv": od["mg_Kcinv"],
+                        "slots": od["mg_slots"], "lmax": lmax, "rl": rl,
+                        "layout": layout},
+                    n_refine=self.n_refine, refine_tol=self.refine_tol,
+                    freq_chunk=freq_chunk, ki_proportional=ki_prop,
+                    k_cycle=self.k_cycle, adjoint=adjoint)
+
         def sweep(freqs, params, od):
+            """Primal sweep (U_re, U_im), each (F, n) f64, outside any
+            autograd graph."""
             K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
-            return mixed_sweep(
-                K_re, K_im, od["MIn"], B_re, B_im, omegas,
-                od["rows"], od["cols"], n, od["W64"],
-                band={"layout": layout, "lin": od["band_lin"]},
-                mg={"tg_pack": pack, "dinv": od["mg_dinv"],
-                    "Pt": od["mg_Pt"], "Kc_inv": od["mg_Kcinv"],
-                    "slots": od["mg_slots"], "lmax": lmax, "rl": rl,
-                    "layout": layout},
-                n_refine=self.n_refine, refine_tol=self.refine_tol,
-                freq_chunk=freq_chunk,
-                ki_proportional=material.scalar_loss_factor,
-                k_cycle=self.k_cycle)
+            return solve(K_re, K_im, B_re, B_im, omegas, od, False)
+
+        def sweep_adj(freqs, params, od, G_re, G_im):
+            """Adjoint sweep: conj(A) y = g per frequency, the transpose of
+            the split-complex operator, for right-hand sides (F, n)."""
+            K_re, K_im, _, _, omegas = assemble(freqs, params, od)
+            return solve(K_re, K_im, G_re, G_im, omegas, od, True)
+
+        def apply_res(freqs, params, od, U_re, U_im):
+            """The residual map A(theta) U - b(theta) at fixed U, each
+            (F, n) f64, differentiable in ``params`` (forward and reverse
+            mode)."""
+            K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
+            AU_re, AU_im = mixed_apply(K_re, K_im, od["MIn"], omegas, U_re,
+                                       U_im, od["rows"], od["cols"], n,
+                                       ki_proportional=ki_prop)
+            return AU_re - B_re, AU_im - B_im
 
         def readout(U_re, U_im, od):
             def mag2(rvec, r0):
@@ -359,10 +621,16 @@ class Problem:
 
         def core(freqs, params, od):
             """FRF magnitude (F,) f64 at ``freqs`` (F,) for ``params``, both
-            f64 tensors on the operator data's device."""
-            U_re, U_im = sweep(freqs, params, od)
+            f64 tensors on the operator data's device.  Differentiable in
+            ``params``: the backward of the sweep is one adjoint sweep."""
+            U_re, U_im = _ImplicitSweep.apply(params, freqs, od, core)
             return readout(U_re, U_im, od)
 
+        # the pieces the adjoint Gauss-Newton Jacobian and the gradient need
+        core.sweep_u = sweep
+        core.sweep_adj = sweep_adj
+        core.apply_res = apply_res
+        core.readout_ui = readout
         return core, opdata
 
     def _reference_stiffness_flat(self) -> np.ndarray:
@@ -429,3 +697,161 @@ class Problem:
             params = self.parameters
         self._check_band(freqs)
         return self.getFRFunction()(freqs, params)
+
+    # ------------------------------------------------------------------
+
+    def getLossFunction(self, frequencies, reference_fr, func_type: str,
+                        scaling_params=None) -> LossFunction:
+        """Loss factory; types MSE / RMSE / MSE_AFC / MSE_LOG_AFC
+        (reference Problem.py:933-980).  Returns a :class:`LossFunction`:
+        ``f(params) -> scalar`` with ``.grad`` and ``.value_and_grad``."""
+        assert np.shape(frequencies)[0] == np.shape(reference_fr)[0]
+        self._check_band(frequencies)
+        core, opdata = self.getFRCore()
+        return LossFunction(core, opdata, frequencies, reference_fr,
+                            func_type, scaling_params)
+
+    def getResidualFunction(self, frequencies, reference_fr,
+                            kind: str = "log_afc", scaling_params=None,
+                            freq_chunk: int | None = None,
+                            jac_mode: str = "auto") -> ResidualFunction:
+        """Vector-residual factory for Gauss-Newton
+        (``optimize.optimize_gauss_newton``); the adjoint Jacobian, see
+        :class:`ResidualFunction`."""
+        assert np.shape(frequencies)[0] == np.shape(reference_fr)[0]
+        self._check_band(frequencies)
+        core, opdata = self.getFRCore()
+        return ResidualFunction(core, opdata, frequencies, reference_fr,
+                                kind, scaling_params, freq_chunk=freq_chunk,
+                                jac_mode=jac_mode)
+
+    def solveInverse(self, arg0, loss_type: str, optimizer: str,
+                     compression: tuple = (False, 0), comp_alg: int = 1,
+                     ref_fr: tuple = None, use_rel: bool = False,
+                     use_scaling: bool = False,
+                     use_constraints: bool = False, report: bool = True,
+                     log: bool = True, case_name: str = "", uid: str = None,
+                     extra_info: str = "", **opt_kwargs) -> optResult:
+        """Inverse solve from an initial guess (reference Problem.py:641-914)
+        by Gauss-Newton ('gn' / 'gauss_newton') on the adjoint Jacobian.
+
+        ``arg0`` is a 1-D start point: absolute, or with ``use_rel``
+        relative corrections on the Problem's own parameters, theta_0 =
+        (1 + arg0) * parameters.  ``use_scaling`` iterates on O(1)
+        variables (theta / theta_0).  ``report`` prints and writes the
+        text report, ``log`` the ``.npz`` history, both under
+        ``utils.paths.get_output_dir()``.  Returns an :class:`optResult`
+        with host numpy iterates.
+        """
+        if ref_fr is None:
+            ref_fr = getattr(self, "reference_fr", None)
+            if ref_fr is None:
+                raise ValueError(
+                    "Cannot solve inverse problem as `ref_fr` argument was "
+                    "not provided and the Problem object doesn't have a "
+                    "reference_fr attribute.")
+        ref_fr = [_numpy(ref_fr[0]), _numpy(ref_fr[1])]
+        if not isinstance(compression, tuple):
+            raise TypeError(
+                "`compression` argument should have a type `tuple`, not "
+                f"{type(compression)}.")
+        if len(compression) != 2:
+            raise ValueError("`compression` tuple should have 2 elements, "
+                             f"not {len(compression)}.")
+        if compression[0]:
+            raise NotImplementedError(
+                "FRF compression (compression=(True, k)) is not ported yet "
+                "(ROADMAP Queue 1, item F.17: io/compress.py).")
+        if optimizer not in ("gn", "gauss_newton"):
+            known = ("trust_region", "tr", "coord_descent", "cd",
+                     "coord_descent_mem", "cd_mem", "grad_descent", "gd",
+                     "newton", "lbfgs", "de", "shgo")
+            if optimizer in known:
+                raise NotImplementedError(
+                    f"Optimizer {optimizer!r} is not ported yet (ROADMAP "
+                    "Queue 1, item D); the port runs Gauss-Newton ('gn').")
+            raise ValueError(f"Optimizer type `{optimizer}` is not supported!")
+
+        guess = np.asarray(arg0, dtype=np.float64)
+        if guess.ndim == 2:
+            raise NotImplementedError(
+                "A 2-D bounds box is the start of the global optimizers "
+                "('de', 'shgo'), which are not ported yet (ROADMAP Queue 1, "
+                "item D).")
+        if guess.ndim != 1:
+            raise ValueError("arg0 must be a 1-D start point or a 2-D bounds "
+                             f"box; got ndim={guess.ndim}.")
+        if use_rel:
+            base = getattr(self, "parameters", None)
+            if base is None:
+                raise ValueError(
+                    "use_rel=True reads arg0 as relative corrections on the "
+                    "Problem's own parameter vector, but this Problem "
+                    "carries none (material built without parameters).")
+            factors = guess + 1.0
+            start = np.asarray(base, np.float64) * factors
+        else:
+            factors = None
+            start = guess
+        if use_scaling:
+            scaling_params = start
+            x0 = factors if use_rel else np.ones_like(start)
+        else:
+            scaling_params = np.ones_like(start)
+            x0 = start
+
+        kind = {"MSE": "complex", "RMSE": "complex", "MSE_AFC": "afc",
+                "MSE_LOG_AFC": "log_afc"}.get(loss_type)
+        if kind is None:
+            raise ValueError(f'Function type "{loss_type}" is not supported!')
+        resfn = self.getResidualFunction(
+            ref_fr[0], ref_fr[1], kind=kind,
+            scaling_params=scaling_params if use_scaling else None)
+
+        from ..optimize import optimize_gauss_newton
+
+        t_start = time.perf_counter()
+        result = optimize_gauss_newton(resfn, x0, **opt_kwargs)
+        elapsed = (time.perf_counter() - t_start) / 60
+        if use_scaling:
+            result = result._replace(x=result.x * scaling_params)
+
+        full_str = case_name + (default_uid() if uid is None else uid)
+        if report:
+            rel_err1 = rel_err2 = "Unknown"
+            if getattr(self, "parameters", None) is not None:
+                params0 = np.array(self.parameters)
+                rel_err1 = (np.array(x0) * scaling_params - params0) / params0
+                rel_err2 = (np.array(result.x) - params0) / params0
+
+            def a2s(s):
+                if isinstance(s, str):
+                    return s
+                return np.array2string(np.array(s), separator=", ",
+                                       precision=5)
+
+            f0 = result.f_history[0] if len(result.f_history) else float("nan")
+            rep_str = (
+                f"{self.accelerometer}\n{self.material}\n{self.geometry}\n"
+                + extra_info
+                + f"Starting parameters: {a2s(np.asarray(x0) * scaling_params)}.\n"
+                f"With relative error: {a2s(rel_err1)}.\n"
+                f"Initial loss: {f0}.\n"
+                f"Elapsed time: {elapsed} min.\n"
+                f"After optimization: {a2s(result.x)}.\n"
+                f"With relative error: {a2s(rel_err2)}.\n"
+                f"Resulting loss: {result.f}.\n"
+                f"Optimization status: {result.status}.\n"
+                f"Optimizer parameters: {opt_kwargs}.\n"
+                f"Optimizer type: {optimizer}.\n"
+                f"Scaling parameters used: {scaling_params}.\n"
+            )
+            print(rep_str, end="")
+            write_report(full_str, rep_str)
+        if log:
+            write_log(full_str, result)
+        return result
+
+    def solveInverseLocal(self, *args, **kwargs):
+        """Alias for ``solveInverse`` (reference Problem.py:916-921)."""
+        return self.solveInverse(*args, **kwargs)

@@ -36,6 +36,15 @@ _MG_REFINE = 1
 # tier: each contracts the Ritz-pair defect ~100x (1.6e-5 -> 1.6e-7 FRF
 # error at 21k with the second pass)
 _BAND_CORRECT_N = 2
+# the residual-map apply (mixed_apply) walks the nnz axis in segments of
+# _RES_SEG entries and the lanes in chunks that keep each segment's
+# (S=2, 2, lanes, seg) f64 contribution tensor under _APPLY_BUDGET bytes.
+# Sized for an 80 GB card: 64-lane chunks at the 21k tier, and the
+# Jacobian's 3 forward tangents keep about 4x that live (5.2 GB peak with
+# the sweep's state, H100).  Module-level so the CPU tests can shrink both
+# to walk several chunks and segments on a small mesh.
+_RES_SEG = 1 << 17
+_APPLY_BUDGET = 512e6
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +312,65 @@ def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
 # the mixed sweep
 # ---------------------------------------------------------------------------
 
+def _fused_apply_flat(stacked_data, uu, rows, cols, n: int,
+                      seg: int | None = None):
+    """(S, nnz) operator stack applied to (..., n): output (S, ..., n).
+
+    The nnz axis is walked in segments of ``seg`` entries, each segment's
+    (S, ..., seg) contribution tensor short-lived.  Out-of-place
+    ``index_add``, so forward- and reverse-mode AD both run through it."""
+    if seg is None:
+        seg = _RES_SEG
+    S, nnz = stacked_data.shape
+    bshape = (S,) + (1,) * (uu.dim() - 1)
+    out = torch.zeros((S,) + uu.shape[:-1] + (n,), dtype=stacked_data.dtype,
+                      device=uu.device)
+    for lo in range(0, nnz, seg):
+        contrib = stacked_data[:, lo:lo + seg].reshape(bshape + (-1,)) \
+            * uu[..., cols[lo:lo + seg]][None]
+        out = out.index_add(-1, rows[lo:lo + seg], contrib)
+    return out
+
+
+def mixed_apply(K_re, K_im, M_flat, omegas, U_re, U_im, rows, cols, n: int,
+                ki_proportional: bool = True):
+    """Batched split-complex operator application A(theta) U on (F, n)
+    pairs: the exact f64 operator of ``mixed_sweep`` on the flat pattern,
+    one fused scatter pass for K and M per chunk of lanes (_APPLY_BUDGET).
+
+    ``beta`` = <K_re, K_im> / <K_re, K_re> stays in the graph: its tangent
+    d beta is what makes the adjoint Jacobian exact for the scalar-loss
+    families (dK_im = d beta K_re + beta dK_re).  Differentiable in the
+    operator data by forward and reverse mode, at fixed U.
+
+    Returns (AU_re, AU_im), each (F, n) f64.
+    """
+    if not ki_proportional:
+        raise NotImplementedError(
+            "Per-modulus loss factors (ki_proportional=False) are not "
+            "ported yet (ROADMAP Queue 1, item B: material families).")
+    f64 = torch.float64
+    om2 = (omegas.to(f64) ** 2)[:, None]
+    Kr = K_re.to(f64)
+    beta = torch.dot(Kr, K_im.to(f64)) / torch.dot(Kr, Kr)
+    KM = torch.stack([Kr, M_flat.to(f64)])
+    uu = torch.stack([U_re.to(f64), U_im.to(f64)])
+    seg = min(int(rows.shape[0]), _RES_SEG)
+    chunk = max(8, int(_APPLY_BUDGET // (2 * 2 * seg * 8)))
+    chunk = 1 << (chunk.bit_length() - 1)
+    KMx = torch.cat([_fused_apply_flat(KM, uu[:, lo:lo + chunk], rows, cols,
+                                       n, seg)
+                     for lo in range(0, uu.shape[1], chunk)], dim=2)
+    Kx, Mx = KMx[0], KMx[1]
+    return (Kx[0] - beta * Kx[1] - om2 * Mx[0],
+            Kx[1] + beta * Kx[0] - om2 * Mx[1])
+
+
 def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
                 W64, *, band, mg, n_refine: int = 16,
                 refine_tol: float = 3e-7, freq_chunk: int | None = None,
-                ki_proportional: bool = True, k_cycle: int | None = None):
+                ki_proportional: bool = True, k_cycle: int | None = None,
+                adjoint: bool = False):
     """f64-grade frequency sweep on the band tier, split-complex interface.
 
     K_re/K_im/M_flat (nnz,) f64 flat operator data on the pattern
@@ -318,6 +382,12 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     "lmax", "rl", "layout"}.  ``freq_chunk``: lanes per batch; the
     frequencies are sorted by their band-computable resonance
     amplification first, so smooth chunks exit after few iterations.
+
+    ``adjoint``: solve conj(A) y = b instead of A u = b — the transpose of
+    the real split-complex operator [[Ar, -Ai], [Ai, Ar]] of the complex
+    symmetric A.  The same solver with the sign of the imaginary part
+    flipped everywhere; the preconditioner (real, on Re K_ref) and the
+    difficulty sort do not depend on the sign.
 
     Returns (U_re, U_im), each (F, n) f64.
     """
@@ -401,11 +471,12 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     rows_l = rows.long()
     cols_l = cols.long()
 
-    def solve_chunk(om):
+    def solve_chunk(om, sign: float):
         """Band-resolvent start + FGMRES + final band corrections for the
-        frequency lanes ``om`` (L,); right-hand sides (L, 2, n)."""
+        frequency lanes ``om`` (L,); right-hand sides (L, 2, n).  ``sign``
+        = +1 solves A, -1 conj(A)."""
         om2 = om * om                                   # (L,)
-        sb = beta                                       # sign = +1
+        sb = sign * beta
         dre = lam_w[None, :] - om2[:, None]             # (L, m)
         dim = sb * lam_w                                # (m,)
         den_d = dre * dre + dim * dim
@@ -494,6 +565,14 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     om64 = omegas.to(f64)
     F = om64.shape[0]
     bb = torch.stack([B_re.to(f64), B_im.to(f64)], dim=1)        # (F, 2, n)
+    # every lane is solved for its right-hand side scaled to max |b| = 1
+    # and scaled back: the iteration does not depend on the scale of b (an
+    # adjoint right-hand side dr_i/dU_i can be tiny without its squared
+    # norms underflowing), and lanes that differ only in scale get the
+    # same solve; an all-zero lane stays zero
+    scale = bb.abs().amax((1, 2))
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    bb = bb / scale[:, None, None]
     chunk = F if freq_chunk is None else max(1, min(int(freq_chunk), F))
     # difficulty sort: every lane of a chunk pays the chunk's worst
     # iteration count, so group frequencies by resonance amplification
@@ -504,5 +583,6 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     U = torch.empty_like(bb)
     for lo in range(0, F, chunk):
         sel = order[lo:lo + chunk]
-        U[sel] = solve_chunk(om64[sel])(bb[sel])
+        U[sel] = solve_chunk(om64[sel], -1.0 if adjoint else 1.0)(bb[sel])
+    U = U * scale[:, None, None]
     return U[:, 0], U[:, 1]

@@ -22,6 +22,7 @@ from plate_inverse_problem_tpu.ops.scatter import spmv_flat as jspmv_flat
 from plate_inverse_problem_tpu_torch.ops import band as tband
 from plate_inverse_problem_tpu_torch.ops import band_kernel
 from plate_inverse_problem_tpu_torch.ops.scatter import spmv_flat
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,10 @@ plain version reads the same pack.  Tolerances: the kernel against its plain
 version to 1e-5 of max |y| (the f32 sums of a row run in another order);
 the FRF against the host f64 splu oracle to 1e-6 relative (the repo's gate;
 f64 atomics in the residual scatter add run-to-run last-bit noise far below
-it).
+it); the adjoint Gauss-Newton residual and Jacobian on the card against the
+same call on the CPU (plain K1), on one set of operator data: r to 3e-6,
+J to 1e-5 of max |J| (the f32 preconditioner rounds differently, as
+against the JAX package).
 """
 import numpy as np
 import pytest
@@ -175,3 +178,30 @@ def test_sweep_on_card_matches_oracle(cuda_device):
     y = y.cpu().numpy()
     ref = splu_frf(p, freqs)
     assert np.all(np.abs(y - ref) <= 1e-6 * ref)
+
+
+@pytest.mark.cuda
+def test_residual_jacobian_on_card_matches_cpu(cuda_device):
+    """The inverse half on the card: ``ResidualFunction.value_and_jac``
+    (primal sweep, adjoint sweep, residual-map tangents) goes through K1 in
+    both sweeps and agrees with the CPU run on the same operator data."""
+    p_cpu = pt.Problem(*_parts(), device="cpu", precond="mg",
+                       operator_layout="band")
+    od = p_cpu.getFRCore()[1]
+    p_gpu = pt.Problem(*_parts(), device=cuda_device, precond="mg",
+                       operator_layout="band",
+                       opdata={k: v.to(cuda_device) for k, v in od.items()})
+    freqs = np.linspace(40.0, 300.0, 9)
+    truth = np.asarray(p_cpu.parameters)
+    ref = p_cpu.solveForward(freqs).numpy()
+    th0 = truth * np.array([1.05, 1.02, 1.2])
+    r_c, J_c = p_cpu.getResidualFunction(freqs, ref).value_and_jac(th0)
+    band_kernel.band_mv_f32_cuda.launches = 0
+    r_g, J_g = p_gpu.getResidualFunction(freqs, ref).value_and_jac(th0)
+    torch.cuda.synchronize()
+    assert band_kernel.band_mv_f32_cuda.launches > 0
+    assert r_g.is_cuda and J_g.is_cuda and J_g.shape == (freqs.size, 3)
+    r_g, J_g = r_g.cpu().numpy(), J_g.cpu().numpy()
+    r_c, J_c = r_c.numpy(), J_c.numpy()
+    assert np.abs(r_g - r_c).max() <= 3e-6
+    assert np.abs(J_g - J_c).max() <= 1e-5 * np.abs(J_c).max()

@@ -18,6 +18,7 @@ from plate_inverse_problem_tpu.ops import mg as jmg
 from plate_inverse_problem_tpu_torch.ops import mg as tmg
 from plate_inverse_problem_tpu_torch.ops.band_kernel import (
     band_mv_f32, pack_band_tiles)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GP = (100e-3, 20e-3, 2e-3, None, None)
 

@@ -22,6 +22,7 @@ import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu.ops import mixed as jmixed
 from plate_inverse_problem_tpu_torch.ops import mixed as tmixed
 from plate_inverse_problem_tpu_torch.oracle import splu_frf
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GP = (100e-3, 20e-3, 2e-3, None, None)
 FREQS = np.linspace(60.0, 420.0, 8)   # includes the ~152 Hz resonance

@@ -17,6 +17,7 @@ from plate_inverse_problem_tpu_torch.ops import band as tband
 from plate_inverse_problem_tpu_torch.ops import band_kernel
 from plate_inverse_problem_tpu_torch.ops.band_kernel import (
     TILE, BandTiles, pack_band_tiles)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GP = (100e-3, 20e-3, 2e-3, None, None)
 

@@ -23,6 +23,7 @@ import torch
 import plate_inverse_problem_tpu as pip
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu_torch.oracle import splu_frf
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GP = (100e-3, 20e-3, 2e-3, None, None)
 FREQS = np.linspace(60.0, 420.0, 8)   # includes the ~152 Hz resonance
@@ -183,7 +184,9 @@ def test_unported_paths_raise():
 
 
 def test_package_imports_no_jax():
-    code = ("import sys, plate_inverse_problem_tpu_torch; "
+    code = ("import sys, plate_inverse_problem_tpu_torch, "
+            "plate_inverse_problem_tpu_torch.optimize, "
+            "plate_inverse_problem_tpu_torch.io.report; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
