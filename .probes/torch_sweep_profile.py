@@ -36,6 +36,18 @@ busy vs wall and the idle share, kernel launches, the wall time of each
 part, K1 launches by lane count B in each sweep, and the device time by
 kernel kind.
 
+``--dense`` instead profiles the dense-preconditioner tier at its two
+plates: ``sh_i`` refine = 1 (n = 1466, the bench configuration, flat
+layout) and refine = 3 (n = 11910, band layout), both at "auto".  For
+each: construction (and the dense f64 inverse's build), a first and three
+timed steady sweeps, one steady sweep under ``torch.profiler`` with
+counting wrappers (FGMRES chunks and cycles, K5 products by row count,
+K3 fused f64 flat applies, flat SpMVs, f64 band applies, K1 launches,
+which must be 0), the device busy time and idle share, and the device
+time by kernel kind; then K3 and K5 alone at the slice shape (512 lanes,
+re/im: 1024 rows), timed with CUDA events beside their bounds and, for K3,
+the library call (``torch.sparse.mm`` on CSR K and M).
+
 ``--fd-cpu`` instead runs on the CPU at n = 1466 (``sh_i`` refine = 1,
 ``precond="mg", operator_layout="band"``): every column of the adjoint
 Jacobian against a central difference of r at relative steps 1e-5 to
@@ -361,6 +373,164 @@ def gn_profile(args, card: str) -> dict:
     return rec
 
 
+def k3_k5_times(p, cs) -> dict:
+    """K5 (the dense preconditioner's f64 GEMM) and K3 (the fused f64 flat
+    K/M scatter apply) alone at the slice shape, B = 1024 rows, with their
+    bounds (H100 SXM: 3.35 TB/s; 67 TFLOP/s f64 on the tensor cores for
+    the DGEMM, 34 TFLOP/s f64 outside them for the scatter), and for K3 the
+    library call: ``torch.sparse.mm`` of CSR K and M."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import mixed
+
+    od = p.getFRCore()[1]
+    n, rows, cols = p.n_free, od["rows"], od["cols"]
+    nnz = int(rows.numel())
+    B, lanes = 1024, 512
+    rng = np.random.default_rng(0)
+    dev = rows.device
+    x = torch.as_tensor(rng.standard_normal((B, n)), device=dev)
+    uu = torch.as_tensor(rng.standard_normal((lanes, 2, n)), device=dev)
+    # stiffness-like and mass data on the pattern (the values do not move
+    # the times)
+    KM = torch.stack([od["ABD"][2].sum(0), od["MIn"]])
+    seg = mixed._flat_seg(nnz)
+    Ks, Ms = (torch.sparse_coo_tensor(torch.stack([rows, cols]), v, (n, n))
+              .coalesce().to_sparse_csr() for v in KM)
+    u2 = uu.reshape(B, n).T.contiguous()
+    inv = od["invK64"]
+    fns = {
+        "k5": lambda: mixed._dense_apply(inv, x),
+        "k3_f64_fused": lambda: mixed._fused_apply_flat(KM, uu, rows, cols,
+                                                        n, seg),
+        "k3_library": lambda: (torch.sparse.mm(Ks, u2),
+                               torch.sparse.mm(Ms, u2)),
+    }
+    ref = mixed._fused_apply_flat(KM, uu, rows, cols, n, seg)
+    lib = torch.stack([m.T.reshape(lanes, 2, n)
+                       for m in fns["k3_library"]()])
+    lib_err = float((lib - ref).abs().max() / ref.abs().max())
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        times[k].append(cs.time_ms(fns[k])[0])
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    bw, f64_tc, f64 = 3.35e12, 67e12, 34e12
+
+    def bound(flop, nbytes, peak):
+        t_b, t_o = nbytes / bw, flop / peak
+        return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    k5 = bound(2.0 * B * n * n, 8.0 * n * n + 2 * 8.0 * B * n, f64_tc)
+    # K3: S = 2 operators x nnz x B rows, one multiply-add each; data S x nnz
+    # f64, rows and cols int64, x read once, S outputs written once
+    k3 = bound(2.0 * 2 * nnz * B, 8.0 * 2 * nnz + 16.0 * nnz + 8.0 * B * n
+               + 2 * 8.0 * B * n, f64)
+    rec = {"n": n, "nnz": nnz, "B": B, "ms": ms,
+           "k5_bound_ms": k5[0], "k5_bound_by": k5[1],
+           "k3_bound_ms": k3[0], "k3_bound_by": k3[1],
+           "k3_library_rel_err": lib_err}
+    print(f"[dense] n={n} nnz={nnz} B={B}: K5 DGEMM {ms['k5']:.4f} ms (bound "
+          f"{k5[0]:.4f} ms, {k5[1]}); K3 fused f64 K/M apply "
+          f"{ms['k3_f64_fused']:.4f} ms (bound {k3[0]:.4f} ms, {k3[1]}; "
+          f"library sparse.mm {ms['k3_library']:.4f} ms, rel {lib_err:.1e})",
+          flush=True)
+    return rec
+
+
+def dense_profile(args, card: str) -> dict:
+    """--dense: where the time of the dense tier's sweeps goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, mixed
+
+    dev = torch.device("cuda")
+    rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    tables = []
+    for refine in (1.0, 3.0):
+        t0 = time.perf_counter()
+        p = build(dev, refine=refine)
+        torch.cuda.synchronize()
+        r = {"ctor_s": time.perf_counter() - t0,
+             "inv_build_s": p._inv_build_s, "n_free": p.n_free,
+             "nnz": int(p.op.pattern.nnz), "tier": list(p._tier)}
+
+        def sweep():
+            y = p.solveForward(freqs)
+            torch.cuda.synchronize()
+            return y
+
+        t0 = time.perf_counter()
+        fr = sweep().cpu().numpy()
+        r["sweep_first_s"] = time.perf_counter() - t0
+        steady = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sweep()
+            steady.append(time.perf_counter() - t0)
+        r["sweep_steady_s"] = steady
+        r["worst_rel_err"], r["worst_at_hz"] = worst_oracle_err(p, freqs, fr)
+
+        counts, k5_lanes = {}, {}
+        undo = [count_calls(mixed, nm, counts) for nm in
+                ("_pgmres", "_pgmres_cycle", "_fused_apply_flat",
+                 "spmv_flat", "band_mv")]
+        k5 = mixed._dense_apply
+
+        def k5_counted(inv, x32):
+            rows = x32.numel() // inv.shape[0]
+            k5_lanes[rows] = k5_lanes.get(rows, 0) + 1
+            return k5(inv, x32)
+
+        mixed._dense_apply = k5_counted
+        undo.append(lambda: setattr(mixed, "_dense_apply", k5))
+        band_kernel.band_mv_f32_cuda.launches = 0
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                sweep()
+        finally:
+            for u in undo:
+                u()
+        r["counts"] = {"chunks": counts.get("_pgmres", 0),
+                       "fgmres_cycles": counts.get("_pgmres_cycle", 0),
+                       "k5_products": sum(k5_lanes.values()),
+                       "k3_fused_f64_applies": counts.get(
+                           "_fused_apply_flat", 0),
+                       "flat_spmvs": counts.get("spmv_flat", 0),
+                       "f64_band_applies": counts.get("band_mv", 0),
+                       "k1_launches": band_kernel.band_mv_f32_cuda.launches}
+        r["k5_products_by_rows"] = dict(sorted(k5_lanes.items()))
+        if r["counts"]["k1_launches"]:
+            raise AssertionError("K1 launched on the dense tier")
+        ev = profile_events(prof, float(np.mean(steady)) * 1e3)
+        tables.append(ev.pop("_table"))
+        r.update(ev)
+        print(f"[dense] n={p.n_free} tier {p._tier}: construction "
+              f"{r['ctor_s']:.2f} s (inverse {p._inv_build_s:.3f} s); sweep "
+              f"first {r['sweep_first_s']:.3f} s, steady "
+              f"{', '.join(f'{t:.3f}' for t in steady)} s; worst rel err "
+              f"{r['worst_rel_err']:.3e} at {r['worst_at_hz']:.3f} Hz; device "
+              f"busy {ev['device_busy_ms']:.1f} ms of {ev['wall_ms']:.1f} ms "
+              f"(idle {100 * ev['idle_share']:.1f} %), "
+              f"{ev['kernel_launches']['count']} launches; counts "
+              f"{r['counts']}; K5 by rows {r['k5_products_by_rows']}",
+              flush=True)
+        for kind, ms in ev["device_ms_by_kind"].items():
+            print(f"[dense]   {kind:26s} {ms:9.3f} ms "
+                  f"({100 * ms / ev['device_busy_ms']:.1f} %)", flush=True)
+        r["kernels"] = k3_k5_times(p, cs)
+        rec[f"n{p.n_free}"] = r
+        del p
+        torch.cuda.empty_cache()
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "torch_dense_profile.txt"), "w") as fh:
+        fh.write("\n\n".join(tables))
+    return rec
+
+
 def fd_cpu() -> dict:
     """--fd-cpu: J against central differences, and GN, at n = 1466."""
     p = build("cpu", refine=1.0, precond="mg", operator_layout="band")
@@ -407,6 +577,9 @@ def main() -> int:
                     help="only count the band's tile occupancy (host, CPU)")
     ap.add_argument("--gn", action="store_true",
                     help="only profile one steady adjoint r + J")
+    ap.add_argument("--dense", action="store_true",
+                    help="only profile the dense tier's sweeps (n = 1466 and "
+                         "11910) and time K3 and K5")
     ap.add_argument("--fd-cpu", action="store_true",
                     help="only check J against central differences and run "
                          "GN at n = 1466 on the CPU")
@@ -435,6 +608,13 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     band_kernel.build()
+    if args.dense:
+        rec = dense_profile(args, card)
+        with open(os.path.join(args.out, "torch_dense_profile.json"),
+                  "w") as fh:
+            json.dump(rec, fh, indent=1)
+        print(json.dumps(rec), flush=True)
+        return 0
     if args.gn:
         rec = gn_profile(args, card)
         with open(os.path.join(args.out, "torch_gn_profile.json"), "w") as fh:

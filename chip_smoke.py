@@ -29,7 +29,21 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    N_steps=GN_STEPS)``, print every iterate's loss and seconds, and
    require the loss to fall at every step and the result to reach the
    truth to 1e-4 relative (|beta|: the FRF magnitude is even in the loss
-   factor, so -beta is an exact minimum too).
+   factor, so -beta is an exact minimum too);
+7. the dense-preconditioner tier (``[dense]``), where K1 must not run:
+   (a) the bench configuration as ``bench.py`` builds it (``sh_i`` refine =
+   1, n = 1466, ``precond`` and ``operator_layout`` left at "auto", which
+   must resolve to the flat layout, the dense preconditioner and an f32
+   Krylov basis): a first and a steady 512-point sweep with peak memory,
+   the FRF checksum sum |FRF| within 1e-6 of the JAX CPU run's
+   (``BENCH_r05.json``) and the worst relative error against the host f64
+   splu at bench.py's four points within 1e-6; one steady sweep with
+   ``basis_f32=False`` held to the same 1e-6; (b) phase 6's inverse half
+   on that Problem; (c) the largest dense-tier plate (refine = 3, n =
+   11910, "auto": the band layout with the dense preconditioner): its
+   construction with the dense f64 inverse, a first and a steady sweep
+   with peak memory, and the splu check at 4 points including the peak.
+   K1's launch counter reads 0 over each of them.
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -80,6 +94,10 @@ FD_TOL = 1e-3
 # 700 W; beta ends at -beta, its mirror image
 GN_STEPS = 10
 GN_TOL = 1e-4                 # relative distance of the GN result to truth
+# sum |FRF| of the bench sweep (sh_i refine = 1, 512 points over 40-600 Hz)
+# from the JAX package on the CPU (BENCH_r05.json), and its tolerance
+BENCH_CHECKSUM = 1584.7714001606384
+CHECKSUM_TOL = 1e-6
 
 
 def card_info() -> str:
@@ -348,11 +366,10 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=()):
-    """Phases 2-5 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-7 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources``: other versions of K1 to time beside it (A/B only)."""
     import torch
 
-    import plate_inverse_problem_tpu_torch as pt
     from plate_inverse_problem_tpu_torch.ops import band_kernel
     from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
@@ -366,12 +383,7 @@ def smoke(dev, card: str, ab_sources=()):
 
     # ---- construct the 21k-DOF Problem on the card -------------------------
     t0 = time.perf_counter()
-    acc = pt.Accelerometer("AP1030")
-    mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
-    geom = pt.Geometry("sh_i", acc,
-                       pt.GeometryParams(100e-3, 20e-3, 2e-3, None, None),
-                       refine=4.0)
-    p = pt.Problem(geom, mat, acc, device=dev)
+    p = sh_i_problem(dev, 4.0)
     core, od = p.getFRCore()
     torch.cuda.synchronize()
     ctor_s = time.perf_counter() - t0
@@ -451,6 +463,7 @@ def smoke(dev, card: str, ab_sources=()):
         raise AssertionError(f"worst rel err {worst:.3e} > {ORACLE_TOL}")
 
     inv = inverse_half(p, freqs, fr)
+    dense = dense_tier(dev)
 
     summary = {"card": card, "n_free": p.n_free, "ctor_s": ctor_s,
                "pack_build_ms": 1e3 * p._pack_build_s,
@@ -459,7 +472,7 @@ def smoke(dev, card: str, ab_sources=()):
                "solves_per_s_steady": N_FREQ / steady_s,
                "peak_mem_gb": peak_gb, "worst_rel_err": worst,
                "f_peak": float(freqs[ipk]), "k1_by_B": recs, "k1_b64": b64,
-               **inv}
+               **inv, "dense": dense}
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "band_mv_f32",
@@ -470,7 +483,8 @@ def smoke(dev, card: str, ab_sources=()):
         "launches_by_path": {"sweep": launches,
                              "rj_primal": inv["k1_rj_primal"],
                              "rj_adjoint": inv["k1_rj_adjoint"],
-                             "gn": inv["k1_gn"]},
+                             "gn": inv["k1_gn"],
+                             **dense["k1"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
@@ -478,6 +492,166 @@ def smoke(dev, card: str, ab_sources=()):
         "bound_by": bound_by,
         "library_ms": slice_rec["library_ms"],
     }]}), flush=True)
+
+
+def sh_i_problem(dev, refine: float, **kw):
+    """``sh_i`` strip 100 x 20 x 2 mm, isotropic steel, AP1030 (bench.py's
+    plate at refine = 1), on ``dev``."""
+    import plate_inverse_problem_tpu_torch as pt
+
+    acc = pt.Accelerometer("AP1030")
+    mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
+    geom = pt.Geometry("sh_i", acc,
+                       pt.GeometryParams(100e-3, 20e-3, 2e-3, None, None),
+                       refine=refine)
+    return pt.Problem(geom, mat, acc, device=dev, **kw)
+
+
+def timed_sweeps(p, freqs, label: str) -> dict:
+    """A first and a steady sweep, synchronised, with the peak device memory
+    of the first and K1's launches over both; prints one [dense] line."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import band_kernel
+
+    band_kernel.band_mv_f32_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr = p.solveForward(freqs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(times) == 1:
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fr = fr.cpu().numpy()
+    rec = {"sweep_first_s": times[0], "sweep_steady_s": times[1],
+           "solves_per_s_steady": freqs.size / times[1],
+           "peak_mem_gb": peak_gb,
+           "k1": band_kernel.band_mv_f32_cuda.launches}
+    print(f"[dense] {label}: {freqs.size} points over 40-600 Hz: first "
+          f"{times[0]:.3f} s ({freqs.size / times[0]:.1f} solves/s), steady "
+          f"{times[1]:.3f} s ({rec['solves_per_s_steady']:.1f} solves/s); "
+          f"peak device memory {peak_gb:.2f} GB; K1 launches {rec['k1']}",
+          flush=True)
+    if fr.shape != freqs.shape or not np.all(np.isfinite(fr)):
+        raise AssertionError(f"{label}: bad FRF: shape {fr.shape}, "
+                             f"finite={np.all(np.isfinite(fr))}")
+    return rec | {"fr": fr}
+
+
+def oracle_check(p, freqs, fr, idx, label: str) -> float:
+    """Worst relative error of ``fr`` at ``idx`` against the host f64 splu
+    oracle; prints it and raises above ORACLE_TOL."""
+    from plate_inverse_problem_tpu_torch.oracle import splu_frf
+
+    ref = splu_frf(p, freqs[idx])
+    rel = np.abs(fr[idx] - ref) / np.abs(ref)
+    worst = float(rel.max())
+    print(f"[dense] {label}: rel err vs f64 splu at "
+          + ", ".join(f"{freqs[i]:.3f} Hz {r:.3e}" for i, r in zip(idx, rel))
+          + f"; worst {worst:.3e} (tol {ORACLE_TOL})", flush=True)
+    if not worst <= ORACLE_TOL:
+        raise AssertionError(f"{label}: worst rel err {worst:.3e} > "
+                             f"{ORACLE_TOL}")
+    return worst
+
+
+def construct(dev, refine: float, label: str, **kw):
+    """Build a Problem and its core on ``dev``; print its [dense] ctor line
+    (the dense f64 inverse's build time is part of the construction)."""
+    import torch
+
+    t0 = time.perf_counter()
+    p = sh_i_problem(dev, refine, **kw)
+    od = p.getFRCore()[1]
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    lay = p._band_layout
+    inv = od["invK64"]
+    inv_mb = inv.numel() * inv.element_size() / 1e6
+    print(f"[dense] {label}: n_free={p.n_free} nnz={p.op.pattern.nnz} "
+          f"tier {p._tier} (layout, preconditioner, f32 basis)"
+          + ("" if lay is None else f", b={lay.b} nb={lay.nb}")
+          + f", m={od['W64'].shape[1]}; construction {ctor_s:.2f} s, of "
+          f"which the dense f64 inverse (inv_refined, {inv_mb:.0f} MB) "
+          f"{p._inv_build_s:.3f} s", flush=True)
+    return p, {"n_free": p.n_free, "nnz": int(p.op.pattern.nnz),
+               "tier": list(p._tier), "ctor_s": ctor_s,
+               "inv_build_s": p._inv_build_s, "inv_mb": inv_mb}
+
+
+def dense_tier(dev) -> dict:
+    """Phase 7: the dense-preconditioner tier at n = 1466 (the bench
+    configuration, forward and inverse) and n = 11910 (its largest plate).
+    Returns the numbers for [summary], K1's zero counts under "k1"."""
+    import plate_inverse_problem_tpu_torch as pt
+
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    out = {}
+    # ---- (a) the bench configuration -------------------------------------
+    p, rec = construct(dev, 1.0, "(a) bench sh_i refine=1")
+    if p._tier != ("flat", "dense", True):
+        raise AssertionError(f"'auto' at n={p.n_free} resolved to {p._tier},"
+                             " not the flat layout, the dense "
+                             "preconditioner and an f32 basis")
+    rec |= timed_sweeps(p, freqs, "(a) bench sweep")
+    fr = rec.pop("fr")
+    checksum = float(np.abs(fr).sum())
+    cs_rel = abs(checksum - BENCH_CHECKSUM) / BENCH_CHECKSUM
+    print(f"[dense] (a) FRF checksum sum |FRF| = {checksum!r} against the JAX "
+          f"CPU run's {BENCH_CHECKSUM!r}: rel {cs_rel:.3e} (tol "
+          f"{CHECKSUM_TOL})", flush=True)
+    if not cs_rel <= CHECKSUM_TOL:
+        raise AssertionError(f"bench checksum {checksum} is {cs_rel:.3e} from"
+                             f" {BENCH_CHECKSUM}")
+    # bench.py's four points (bench.py:261)
+    idx = [3, int(np.argmax(fr)), N_FREQ // 2, N_FREQ - 1]
+    rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
+                                        "(a) bench points")
+    rec["checksum"] = checksum
+    # the same Problem data with an f64 Krylov basis: recorded only
+    q = pt.Problem(p.geometry, p.material, p.accelerometer, device=dev,
+                   basis_f32=False, opdata=p.getFRCore()[1])
+    f64 = timed_sweeps(q, freqs, "(a) bench sweep, basis_f32=False")
+    rec["basis_f64"] = {k: f64[k] for k in ("sweep_steady_s",
+                                           "solves_per_s_steady", "k1")}
+    rec["basis_f64"]["worst_rel_err"] = oracle_check(
+        q, freqs, f64["fr"], idx, "(a) bench points, basis_f32=False")
+    del q
+    out["bench"] = rec
+
+    # ---- (b) the inverse half on the bench Problem ------------------------
+    out["bench_inverse"] = inverse_half(p, freqs, fr, k1=False,
+                                        tag="[dense] (b) ")
+    del p
+
+    # ---- (c) the largest dense-tier plate --------------------------------
+    p, rec = construct(dev, 3.0, "(c) sh_i refine=3")
+    if p._tier != ("band", "dense", True):
+        raise AssertionError(f"'auto' at n={p.n_free} resolved to {p._tier},"
+                             " not the band layout with the dense "
+                             "preconditioner")
+    rec |= timed_sweeps(p, freqs, "(c) sweep")
+    fr = rec.pop("fr")
+    idx = [3, int(np.argmax(fr)), N_FREQ // 2, N_FREQ - 1]
+    rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
+                                        "(c) 4 points incl. the peak")
+    rec["f_peak"] = float(freqs[idx[1]])
+    out["largest"] = rec
+    del p
+
+    inv = out["bench_inverse"]
+    out["k1"] = {"dense_sweep_1466": out["bench"]["k1"],
+                 "dense_sweep_1466_basis_f64": out["bench"]["basis_f64"]["k1"],
+                 "dense_rj_primal_1466": inv["k1_rj_primal"],
+                 "dense_rj_adjoint_1466": inv["k1_rj_adjoint"],
+                 "dense_gn_1466": inv["k1_gn"],
+                 "dense_sweep_11910": out["largest"]["k1"]}
+    if any(out["k1"].values()):
+        raise AssertionError(f"K1 launched on the dense tier: {out['k1']}")
+    return out
 
 
 def launch_counter(fn, counts, key):
@@ -493,9 +667,12 @@ def launch_counter(fn, counts, key):
     return run
 
 
-def inverse_half(p, freqs, fr_truth) -> dict:
-    """Phase 6 on the Problem of phases 4-5: the adjoint r + J, its checks
-    and Gauss-Newton from theta_0.  Returns the numbers for [summary]."""
+def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
+    """Phase 6 on the Problem of phases 4-5 (and on the dense tier's in
+    phase 7): the adjoint r + J, its checks and Gauss-Newton from theta_0.
+    ``k1``: the tier runs the two-grid, so K1 must launch in both sweeps
+    and in GN; else it must not launch at all.  ``tag`` prefixes the
+    printed lines.  Returns the numbers for [summary]."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops import band_kernel
@@ -526,15 +703,17 @@ def inverse_half(p, freqs, fr_truth) -> dict:
         core.sweep_u, core.sweep_adj = hooks
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     r, J = r.cpu().numpy(), J.cpu().numpy()
-    print(f"[adjoint] log_afc r + J at theta_0 = truth x {START}, "
+    print(f"{tag}[adjoint] log_afc r + J at theta_0 = truth x {START}, "
           f"{freqs.size} points: first {times[0]:.3f} s, steady "
           f"{times[1]:.3f} s; K1 launches {counts['primal']} in the primal "
           f"sweep, {counts['adjoint']} in the adjoint sweep ({total} in "
           f"all); peak device memory {peak_gb:.2f} GB", flush=True)
     # every check of the phase runs after all of its measurements
     failed = []
-    if counts["primal"] <= 0 or counts["adjoint"] <= 0:
+    if k1 and (counts["primal"] <= 0 or counts["adjoint"] <= 0):
         failed.append(f"K1 not launched in both sweeps: {counts}")
+    if not k1 and total != 0:
+        failed.append(f"K1 launched {total} times on a tier without it")
     if total != counts["primal"] + counts["adjoint"]:
         failed.append(f"K1 launched outside the sweeps: {total} vs {counts}")
     if r.shape != (freqs.size,) or J.shape != (freqs.size, truth.size) \
@@ -550,7 +729,7 @@ def inverse_half(p, freqs, fr_truth) -> dict:
     g_gn = 2.0 * J.T @ r / r.size
     grad_rel = float(np.abs(g_gn - g).max() / np.abs(g).max())
     grad_rerun = float(np.abs(g2 - g).max() / np.abs(g).max())
-    print(f"[jac] (a) 2 J^T r / m vs MSE_LOG_AFC grad ({grad_s:.3f} s): "
+    print(f"{tag}[jac] (a) 2 J^T r / m vs MSE_LOG_AFC grad ({grad_s:.3f} s): "
           f"max rel {grad_rel:.3e} (tol {GRAD_TOL}); two grad calls differ "
           f"by {grad_rerun:.3e}", flush=True)
 
@@ -562,7 +741,7 @@ def inverse_half(p, freqs, fr_truth) -> dict:
 
     fd_rel = [fd_dev(j, step) for j, step in enumerate(FD_STEPS)]
     fd_beta_1e4 = fd_dev(truth.size - 1, 1e-4)
-    print(f"[jac] (b) J columns vs central differences at relative steps "
+    print(f"{tag}[jac] (b) J columns vs central differences at relative steps "
           f"{FD_STEPS}: max dev / column max "
           f"{', '.join(f'{x:.3e}' for x in fd_rel)} (tol {FD_TOL}); the beta "
           f"column at step 1e-4: {fd_beta_1e4:.3e}", flush=True)
@@ -602,23 +781,27 @@ def inverse_half(p, freqs, fr_truth) -> dict:
     iter_s = list(np.diff(stamps))
     for k, (f, x, s) in enumerate(zip(res.f_history, res.x_history, iter_s)):
         x = np.asarray(x) * th0
-        print(f"[gn] iterate {k}: loss {f:.6e}  {s:.3f} s  rel err "
+        print(f"{tag}[gn] iterate {k}: loss {f:.6e}  {s:.3f} s  rel err "
               f"{', '.join(f'{v:+.3e}' for v in (x - truth) / truth)}",
               flush=True)
     err = (np.abs(res.x) - truth) / truth
-    print(f"[gn] {len(res.f_history)} iterations in {sum(iter_s):.3f} s "
+    print(f"{tag}[gn] {len(res.f_history)} iterations in {sum(iter_s):.3f} s "
           f"({np.mean(iter_s):.3f} s/iter), status {res.status}, K1 "
           f"launches {k1_gn}; result rel err (|beta|) "
           f"{', '.join(f'{v:+.3e}' for v in err)} (tol {GN_TOL})", flush=True)
-    if k1_gn <= 0:
+    if k1 and k1_gn <= 0:
         failed.append("Gauss-Newton never launched the band kernel")
+    if not k1 and k1_gn != 0:
+        failed.append(f"Gauss-Newton launched K1 {k1_gn} times on a tier "
+                      "without it")
     if not np.all(np.diff(res.f_history) < 0):
         failed.append(f"loss did not fall at every step: {res.f_history}")
     if not np.all(np.abs(err) <= GN_TOL):
         failed.append(f"GN result {res.x} is not within {GN_TOL} of the "
                       f"truth {truth}")
     if failed:
-        raise AssertionError("phase 6 failed: " + "; ".join(failed))
+        raise AssertionError(f"{tag or 'phase 6 '}failed: "
+                             + "; ".join(failed))
     return {"rj_first_s": times[0], "rj_steady_s": times[1],
             "k1_rj_primal": counts["primal"],
             "k1_rj_adjoint": counts["adjoint"], "rj_peak_mem_gb": peak_gb,

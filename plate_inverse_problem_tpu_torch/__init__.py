@@ -1,11 +1,13 @@
 """plate_inverse_problem_tpu_torch — the PyTorch / CUDA port of
 ``plate_inverse_problem_tpu`` for NVIDIA Hopper (H100).
 
-This slice runs the band tier of the mixed engine end to end: the 3-field
-plate operator in the RCM block-tridiagonal layout, the f64 FGMRES sweep
-with a two-grid f32 preconditioner whose band matvec is a hand-written
-CUDA kernel (``csrc/band_mv.cu``), and the accelerometer readout; and the
-inverse problem on it: the adjoint sweep, the loss and its gradient, the
+It runs the mixed engine end to end on its three tiers: the 3-field
+plate operator on the flat pattern or in the RCM block-tridiagonal layout,
+the f64 FGMRES sweep with an f32 complement preconditioner (the dense
+inverse of the reference stiffness up to 12288 DOF, above it a two-grid
+cycle whose band matvec is a hand-written CUDA kernel,
+``csrc/band_mv.cu``), and the accelerometer readout; and the inverse
+problem on it: the adjoint sweep, the loss and its gradient, the
 adjoint Gauss-Newton Jacobian and ``Problem.solveInverse(..., "gn")``.
 The package imports torch, numpy and scipy, never jax.
 """

@@ -1,10 +1,12 @@
 """Problem: geometry + material + accelerometer -> FRF sweep on a device.
 
-Port of the JAX package's ``models/problem.py`` for the band tier of the
-mixed engine: the 3-field (laminate) path, the RCM block-tridiagonal f64
-operator and the two-grid f32 preconditioner.  Operator data is a plain
-dict of tensors under the JAX opdata's key names; ``getFRCore`` returns a
-plain function of (freqs, params, opdata).
+Port of the JAX package's ``models/problem.py`` for the mixed engine's
+3-field (laminate) path on its three tiers: the flat f64 operator with the
+dense preconditioner (n < 8192), the RCM block-tridiagonal f64 operator
+with the dense preconditioner (8192 <= n <= 12288) or with the two-grid f32
+preconditioner (n > 12288).  Operator data is a plain dict of tensors under
+the JAX opdata's key names; ``getFRCore`` returns a plain function of
+(freqs, params, opdata).
 
 Options that resolve to what this port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item; nothing falls back.  The
@@ -292,11 +294,16 @@ class Problem:
         k_cycle: int | None = None,     # FGMRES cycle length (None = 8)
         refine_tol: float = 3e-7,       # residual target (tracks the
                                         # delivered FRF accuracy ~1:1)
-        precond: str = "auto",          # 'mg' (two-grid); 'dense' waits
+        precond: str = "auto",          # 'dense' / 'mg' (two-grid, band
+                                        # layout only); auto: dense up to
+                                        # 12288 DOF
         mg_coarse_max: int = 11500,     # sets the coarsening factor
         freq_chunk: int | None = None,  # lanes per batch (None = auto)
-        operator_layout: str = "auto",  # 'band'; 'flat' waits
+        operator_layout: str = "auto",  # 'flat' / 'band'; auto: band from
+                                        # 8192 DOF
         basis: str = "arpack",          # how the band basis is computed
+        basis_f32: bool | None = None,  # f32 Krylov basis storage (None:
+                                        # on the dense tier)
         opdata: dict | None = None,     # operator data to use instead of
                                         # building it (convert.py)
     ):
@@ -327,6 +334,7 @@ class Problem:
         self.mg_coarse_max = int(mg_coarse_max)
         self.freq_chunk = freq_chunk
         self.operator_layout = operator_layout
+        self.basis_f32 = basis_f32
         self._given_opdata = opdata
 
         self.accelerometer = accel
@@ -431,62 +439,75 @@ class Problem:
             permute_pattern, permute_vector, rect_band_tensor,
         )
         from ..ops.band_kernel import pack_band_tiles
+        from ..ops.dense import inv_refined
         from ..ops.mg import _dinv_lmax, _pin_dead, build_prolongation
         from ..ops.mixed import band_basis_host, mixed_apply, mixed_sweep
+        from ..ops.scatter import to_dense
 
         op = self.op
         n = op.n_free
         h = self.geometry.height
         dev = self.device
 
+        # the RCM block-tridiagonal layout from 8192 DOF (below it the dense
+        # GEMM preconditioner dominates and the band's blocks are tiny);
+        # the dense inverse up to 12288 DOF, the two-grid above
         use_band = (self.operator_layout == "band"
                     or (self.operator_layout == "auto" and n >= 8192))
-        if not use_band:
-            raise NotImplementedError(
-                "operator_layout='flat' (and 'auto' below 8192 DOF) is not "
-                "ported yet (ROADMAP Queue 1, items 4-6: the dense tier).")
         precond = self.precond
         if precond == "auto":
             precond = "mg" if n > 12288 else "dense"
-        if precond == "dense":
+        if precond == "mg" and not use_band:
             raise NotImplementedError(
-                "The dense f32 preconditioner (precond='dense', and 'auto' "
-                "at or below 12288 DOF) is not ported yet (ROADMAP Queue 1, "
-                "item 5).")
-        layout = build_band_layout(op.pattern.rows, op.pattern.cols, n)
-        rows_h, cols_h = permute_pattern(layout, op.pattern.rows,
-                                         op.pattern.cols)
+                "precond='mg' on the flat layout (operator_layout='flat', or "
+                "'auto' below 8192 DOF) needs the flat multilevel "
+                "preconditioner, which is not ported yet (ROADMAP Queue 1, "
+                "item 14); the port's two-grid runs on the band layout.")
+        basis_f32 = (precond == "dense" if self.basis_f32 is None
+                     else bool(self.basis_f32))
+        self._tier = ("band" if use_band else "flat", precond, basis_f32)
+        if use_band:
+            layout = build_band_layout(op.pattern.rows, op.pattern.cols, n)
+            rows_h, cols_h = permute_pattern(layout, op.pattern.rows,
+                                             op.pattern.cols)
 
-        def pvec(v, axis=-1):
-            return permute_vector(layout, v, axis=axis)
+            def pvec(v, axis=-1):
+                return permute_vector(layout, v, axis=axis)
+        else:
+            layout = None
+            rows_h, cols_h = op.pattern.rows, op.pattern.cols
+
+            def pvec(v, axis=-1):
+                return v
 
         self._band_layout = layout
         K_ref_eq = K_ref * ss
         M_eq = self.MInertia * ss
 
-        # ---- band tier two-grid: one coarse level, aimed directly at the
-        # dense-invertible size (n scales ~ factor^-2)
-        factor = max(2.0, float(np.sqrt(n / (0.62 * self.mg_coarse_max))))
-        c_mesh, c_free, c_constrained = self._coarse_level(factor)
-        if c_free.size >= n or c_free.size < 60:
-            raise ValueError(
-                "precond='mg' could not build a coarser mesh level for "
-                f"this geometry (n_free={n}).")
-        P = build_prolongation(self.mesh, c_mesh, op.free_idx, c_free,
-                               op.constrained, c_constrained,
-                               three_field=True)
-        P = P[layout.perm, :].tocsr()
-        P = (sp.diags(1.0 / pvec(scale_vec)) @ P).tocsr()
-        rl = build_rect_band(P, layout)
-        Ksp = sp.csr_matrix((K_ref_eq, (rows_h, cols_h)), shape=(n, n))
-        Ksp = 0.5 * (Ksp + Ksp.T)
-        Pp = P[:, rl.perm_c]
-        Kc = _pin_dead((Pp.T @ (Ksp @ Pp)).tocsc(), Pp)
-        Kc = (0.5 * (Kc + Kc.T)).tocsc()
-        dinv, lmax = _dinv_lmax(Ksp)
-        self._mg_lmax = lmax
-        self._mg_rl = rl
-        self._mg_Kc = Kc
+        if precond == "mg":
+            # ---- band tier two-grid: one coarse level, aimed directly at
+            # the dense-invertible size (n scales ~ factor^-2)
+            factor = max(2.0, float(np.sqrt(n / (0.62 * self.mg_coarse_max))))
+            c_mesh, c_free, c_constrained = self._coarse_level(factor)
+            if c_free.size >= n or c_free.size < 60:
+                raise ValueError(
+                    "precond='mg' could not build a coarser mesh level for "
+                    f"this geometry (n_free={n}).")
+            P = build_prolongation(self.mesh, c_mesh, op.free_idx, c_free,
+                                   op.constrained, c_constrained,
+                                   three_field=True)
+            P = P[layout.perm, :].tocsr()
+            P = (sp.diags(1.0 / pvec(scale_vec)) @ P).tocsr()
+            rl = build_rect_band(P, layout)
+            Ksp = sp.csr_matrix((K_ref_eq, (rows_h, cols_h)), shape=(n, n))
+            Ksp = 0.5 * (Ksp + Ksp.T)
+            Pp = P[:, rl.perm_c]
+            Kc = _pin_dead((Pp.T @ (Ksp @ Pp)).tocsc(), Pp)
+            Kc = (0.5 * (Kc + Kc.T)).tocsc()
+            dinv, lmax = _dinv_lmax(Ksp)
+            self._mg_lmax = lmax
+            self._mg_rl = rl
+            self._mg_Kc = Kc
 
         if self._given_opdata is not None:
             opdata = self._given_opdata
@@ -507,15 +528,13 @@ class Problem:
             def t64(a):
                 return torch.as_tensor(np.asarray(a, np.float64), device=dev)
 
-            lin = torch.as_tensor(layout.lin, dtype=torch.int64, device=dev)
-            # the coarse Galerkin operator is too ill-conditioned for any
-            # f32 factorization: invert it with a host f64 splu
-            Kc_inv = spla.splu(Kc).solve(np.eye(Kc.shape[0]))
             W64, _ = band_basis_host(K_ref_eq, M_eq, rows_h, cols_h, n,
                                      omega_max=2.0 * np.pi * self.f_max)
+            rows_d = torch.as_tensor(rows_h, dtype=torch.int64, device=dev)
+            cols_d = torch.as_tensor(cols_h, dtype=torch.int64, device=dev)
             opdata = {
-                "rows": torch.as_tensor(rows_h, dtype=torch.int64, device=dev),
-                "cols": torch.as_tensor(cols_h, dtype=torch.int64, device=dev),
+                "rows": rows_d,
+                "cols": cols_d,
                 "MIn": t64(M_eq),
                 "fIn": t64(pvec(self.fInertia * scale_vec)),
                 "ABD": t64(np.stack([
@@ -533,26 +552,47 @@ class Problem:
                 "rw": t64(pvec(cw * scale_vec)),
                 "r0": t64([ou - eff * owx, ov - eff * owy, ow]),
                 "W64": t64(W64),
-                "band_lin": lin,
-                "Kref64": t64(K_ref_eq),
-                "mg_band0": flat_to_band(
-                    torch.as_tensor(K_ref_eq, dtype=F32, device=dev),
-                    layout, lin),
-                "mg_dinv": torch.as_tensor(dinv, dtype=F32, device=dev),
-                "mg_Pt": rect_band_tensor(rl, dev),
-                "mg_slots": torch.as_tensor(rl.slots, dtype=torch.int64,
-                                            device=dev),
-                "mg_Kcinv": torch.as_tensor(Kc_inv, dtype=F32, device=dev),
             }
+            if layout is not None:
+                opdata["band_lin"] = torch.as_tensor(
+                    layout.lin, dtype=torch.int64, device=dev)
+            if precond == "mg":
+                # the coarse Galerkin operator is too ill-conditioned for
+                # any f32 factorization: invert it with a host f64 splu
+                Kc_inv = spla.splu(Kc).solve(np.eye(Kc.shape[0]))
+                opdata |= {
+                    "Kref64": t64(K_ref_eq),
+                    "mg_band0": flat_to_band(
+                        torch.as_tensor(K_ref_eq, dtype=F32, device=dev),
+                        layout, opdata["band_lin"]),
+                    "mg_dinv": torch.as_tensor(dinv, dtype=F32, device=dev),
+                    "mg_Pt": rect_band_tensor(rl, dev),
+                    "mg_slots": torch.as_tensor(rl.slots, dtype=torch.int64,
+                                                device=dev),
+                    "mg_Kcinv": torch.as_tensor(Kc_inv, dtype=F32,
+                                                device=dev),
+                }
+            else:
+                # the dense f64 inverse of the equilibrated reference
+                # stiffness (ops/dense.py: why f64), built once on the
+                # Problem's device
+                t0 = time.perf_counter()
+                opdata["invK64"] = inv_refined(
+                    to_dense(t64(K_ref_eq), rows_d, cols_d, n))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                self._inv_build_s = time.perf_counter() - t0
 
-        # the f32 K_ref band of the preconditioner, packed once per Problem
-        # into its nonzero tiles: every band_mv_f32 of every sweep reads it
-        t0 = time.perf_counter()
-        pack = pack_band_tiles(opdata["mg_band0"], layout)
-        if pack.vals.is_cuda:
-            torch.cuda.synchronize(pack.vals.device)
-        self._band_pack = pack
-        self._pack_build_s = time.perf_counter() - t0
+        if precond == "mg":
+            # the f32 K_ref band of the preconditioner, packed once per
+            # Problem into its nonzero tiles: every band_mv_f32 of every
+            # sweep reads it
+            t0 = time.perf_counter()
+            pack = pack_band_tiles(opdata["mg_band0"], layout)
+            if pack.vals.is_cuda:
+                torch.cuda.synchronize(pack.vals.device)
+            self._band_pack = pack
+            self._pack_build_s = time.perf_counter() - t0
 
         material = self.material
         ki_prop = material.scalar_loss_factor
@@ -573,18 +613,24 @@ class Problem:
             return K_re, K_im, B_re, B_im, omegas
 
         def solve(K_re, K_im, B_re, B_im, omegas, od, adjoint):
+            band = (None if layout is None
+                    else {"layout": layout, "lin": od["band_lin"]})
+            mg = None if precond != "mg" else {
+                "tg_pack": pack, "dinv": od["mg_dinv"], "Pt": od["mg_Pt"],
+                "Kc_inv": od["mg_Kcinv"], "slots": od["mg_slots"],
+                "lmax": lmax, "rl": rl, "layout": layout}
             with torch.no_grad():
                 return mixed_sweep(
                     K_re, K_im, od["MIn"], B_re, B_im, omegas,
-                    od["rows"], od["cols"], n, od["W64"],
-                    band={"layout": layout, "lin": od["band_lin"]},
-                    mg={"tg_pack": pack, "dinv": od["mg_dinv"],
-                        "Pt": od["mg_Pt"], "Kc_inv": od["mg_Kcinv"],
-                        "slots": od["mg_slots"], "lmax": lmax, "rl": rl,
-                        "layout": layout},
-                    n_refine=self.n_refine, refine_tol=self.refine_tol,
-                    freq_chunk=freq_chunk, ki_proportional=ki_prop,
-                    k_cycle=self.k_cycle, adjoint=adjoint)
+                    od["rows"], od["cols"], n, od["W64"], band=band, mg=mg,
+                    # the port's f64 inverse, or the JAX package's f32 one
+                    # with its refinement operator (opdata_from_jax)
+                    invK=od.get("invK64", od.get("invK32")),
+                    K_ref32=od.get("Kref32"),
+                    basis_f32=basis_f32, n_refine=self.n_refine,
+                    refine_tol=self.refine_tol, freq_chunk=freq_chunk,
+                    ki_proportional=ki_prop, k_cycle=self.k_cycle,
+                    adjoint=adjoint)
 
         def sweep(freqs, params, od):
             """Primal sweep (U_re, U_im), each (F, n) f64, outside any

@@ -1,7 +1,10 @@
-"""Mixed-precision frequency sweep: f64-grade FRFs with an f32 preconditioner.
+"""Mixed-precision frequency sweep: f64-grade FRFs, f32 Krylov work.
 
-Port of the JAX package's ``ops/mixed.py`` for the band tier: the RCM
-block-tridiagonal exact f64 operator and the two-grid f32 preconditioner.
+Port of the JAX package's ``ops/mixed.py`` for its three tiers: the exact
+f64 operator on the flat pattern (scatter SpMV) or in the RCM
+block-tridiagonal layout, preconditioned by the dense inverse of the
+reference stiffness (n <= 12288; f64 in the port, ops/dense.py) or by the
+band f32 two-grid cycle.
 
 1. **Band basis** (host, init-time): the lowest ``m`` M-orthonormal modes of
    the equilibrated reference pencil, from ARPACK shift-invert in f64.
@@ -9,8 +12,9 @@ block-tridiagonal exact f64 operator and the two-grid f32 preconditioner.
    Rayleigh-quotient refinement, and the exactly projected m x m pencil.
 3. **Per-frequency solve**: exact band-resolvent start, then restarted
    flexible GMRES in split-complex f64 preconditioned by the band resolvent
-   plus the deflated two-grid cycle, then final band corrections through a
-   residual-grade (entrywise-combined) operator apply.
+   plus the deflated complement preconditioner (dense inverse or two-grid
+   cycle), then final band corrections through a residual-grade
+   (entrywise-combined) operator apply.
 
 The JAX side vmaps the per-frequency solve; here the frequency lanes are a
 written-out leading axis of every (lanes, 2, n) re/im stack.  Its batched
@@ -28,17 +32,19 @@ import torch
 from .band import band_mv, flat_to_band
 from .band_kernel import band_mv_f32
 from .mg import twogrid_apply
+from .scatter import spmv_flat
 
 # f32 refinement rounds around the two-grid cycle (each round costs one
 # extra f32 band matvec + cycle and squares the cycle's error)
 _MG_REFINE = 1
-# true-residual band corrections after the Krylov loop on the two-grid
-# tier: each contracts the Ritz-pair defect ~100x (1.6e-5 -> 1.6e-7 FRF
-# error at 21k with the second pass)
-_BAND_CORRECT_N = 2
+# refinement rounds inside the dense preconditioner when it is the JAX
+# package's f32 inverse (each costs one extra GEMM + f32 SpMV and squares
+# the eps32 * kappa error of the inverse; the JAX package tuned 1)
+_PRECOND_REFINE = 1
 # the residual-map apply (mixed_apply) walks the nnz axis in segments of
 # _RES_SEG entries and the lanes in chunks that keep each segment's
-# (S=2, 2, lanes, seg) f64 contribution tensor under _APPLY_BUDGET bytes.
+# (S=2, 2, lanes, seg) f64 contribution tensor under _APPLY_BUDGET bytes;
+# the sweep's flat applies walk it in _RES_SEG segments above 2 * _RES_SEG.
 # Sized for an 80 GB card: 64-lane chunks at the 21k tier, and the
 # Jacobian's 3 forward tangents keep about 4x that live (5.2 GB peak with
 # the sweep's state, H100).  Module-level so the CPU tests can shrink both
@@ -106,10 +112,11 @@ def _sel(mask, new, old):
 
 
 def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
-            r0, final_correct, final_correct_n: int, A_final):
+            r0, final_correct, final_correct_n: int, A_final,
+            basis_f32: bool = False):
     """Restarted flexible (right-preconditioned) GMRES on split-complex f64
-    lanes (JAX ``_pgmres`` with ``anchor=True``, ``tol_abs2=0``, an f64
-    basis, a given start residual and final band corrections).
+    lanes (JAX ``_pgmres`` with ``anchor=True``, ``tol_abs2=0``, a given
+    start residual and final band corrections).
 
     ``bb``/``x0``/``r0``: (L, 2, n).  ``tol_rel``: (L,).  ``A_apply``/
     ``P_apply``/``A_final``/``final_correct``: (L', 2, n) -> (L', 2, n)
@@ -118,13 +125,20 @@ def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
     f64 residual decides whether a lane goes on.  FLEXIBLE because the f32
     preconditioner is linear only to ~1e-7: the preconditioned vectors
     Z_j = P(v_j) are stored and x = x0 + Z y is exact for any P.
+
+    ``basis_f32``: store the bases V and Z in f32 and run the CGS2 dots in
+    f32; ``P_apply`` then takes and returns f32.  The operator applies, the
+    iterates and the true residuals stay f64, so only the subspace's
+    representation is f32: it caps one cycle's residual gain at ~3e-7 and
+    the f64 restarts square that down (GMRES-IR).
     """
     L = bb.shape[0]
     lanes = torch.arange(L, device=bb.device)
     tol2 = (tol_rel * torch.sqrt((r0 * r0).sum((1, 2)))) ** 2
     active = torch.ones(L, dtype=torch.bool, device=bb.device)
     x, r, rn2, tol2 = _pgmres_cycle(A_apply, P_apply, bb, x0, r0, tol2,
-                                    tol_rel, k_max, True, active, lanes)
+                                    tol_rel, k_max, True, active, lanes,
+                                    basis_f32)
     c = 1
     while c < n_cycles:
         active = rn2 > tol2
@@ -132,7 +146,7 @@ def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
             break
         xn, rnew, rn2n, tol2n = _pgmres_cycle(
             A_apply, P_apply, bb, x, r, tol2, tol_rel, k_max, False, active,
-            lanes)
+            lanes, basis_f32)
         x, r = _sel(active, xn, x), _sel(active, rnew, r)
         rn2, tol2 = _sel(active, rn2n, rn2), _sel(active, tol2n, tol2)
         c += 1
@@ -146,7 +160,8 @@ def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
 
 
 def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
-                  k_max: int, anchor: bool, run, lanes):
+                  k_max: int, anchor: bool, run, lanes,
+                  basis_f32: bool = False):
     """One FGMRES cycle over the lanes where ``run`` holds: Arnoldi with
     CGS2 orthogonalisation, incremental complex Givens rotations,
     back-substitution and reconstruction, then the TRUE f64 residual.
@@ -154,15 +169,19 @@ def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
     Returns (x_new, r_new, rn2, tol2) for every lane; lanes outside ``run``
     come back unusable and the caller keeps their old state."""
     f64 = bb.dtype
+    bd = torch.float32 if basis_f32 else f64      # basis storage
     dev = bb.device
     L, _, n = bb.shape
     tiny = 1e-300
-    floor = 1e-15   # relative residual gain one f64-basis cycle can certify
+    tinyb = 1e-30 if basis_f32 else tiny
+    # relative residual gain one cycle can certify with this basis: the
+    # estimate stops there and the f64 restart takes over
+    floor = 3e-7 if basis_f32 else 1e-15
 
     beta0 = torch.sqrt((r0 * r0).sum((1, 2)))                    # (L,)
-    V = torch.zeros(L, k_max + 1, 2, n, dtype=f64, device=dev)
-    V[:, 0] = r0 / torch.clamp(beta0, min=tiny)[:, None, None]
-    Z = torch.zeros(L, k_max, 2, n, dtype=f64, device=dev)
+    V = torch.zeros(L, k_max + 1, 2, n, dtype=bd, device=dev)
+    V[:, 0] = (r0 / torch.clamp(beta0, min=tiny)[:, None, None]).to(bd)
+    Z = torch.zeros(L, k_max, 2, n, dtype=bd, device=dev)
     R = torch.zeros(L, k_max, k_max, 2, dtype=f64, device=dev)
     R[:, :, :, 0] = torch.eye(k_max, dtype=f64, device=dev)
     g = torch.zeros(L, k_max + 1, 2, dtype=f64, device=dev)
@@ -194,20 +213,21 @@ def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
         idx = torch.nonzero(active).squeeze(1)
         # the operator and preconditioner run on the active lanes only
         z_a = P_apply(V[idx, j], lanes[idx])
-        w_a = A_apply(z_a, lanes[idx])
-        z = torch.zeros(L, 2, n, dtype=f64, device=dev)
-        w = torch.zeros(L, 2, n, dtype=f64, device=dev)
+        w_a = A_apply(z_a.to(f64), lanes[idx])
+        z = torch.zeros(L, 2, n, dtype=bd, device=dev)
+        w = torch.zeros(L, 2, n, dtype=bd, device=dev)
         z[idx] = z_a
-        w[idx] = w_a
+        w[idx] = w_a.to(bd)
         Z[:, j] = _sel(active, z, Z[:, j])
         h1re, h1im = cdots(V, w)
         w = csaxpy(V, h1re, h1im, w)
         h2re, h2im = cdots(V, w)          # CGS2 reorthogonalisation
         w = csaxpy(V, h2re, h2im, w)
-        hre = h1re + h2re
-        him = h1im + h2im
-        hlast = torch.sqrt((w * w).sum((1, 2)))
-        V[:, j + 1] = _sel(active, w / torch.clamp(hlast, min=tiny)[:, None, None],
+        hre = (h1re + h2re).to(f64)
+        him = (h1im + h2im).to(f64)
+        hl = torch.sqrt((w * w).sum((1, 2)))
+        hlast = hl.to(f64)
+        V[:, j + 1] = _sel(active, w / torch.clamp(hl, min=tinyb)[:, None, None],
                            V[:, j + 1])
 
         # apply the accumulated rotations to the new column (rotations
@@ -297,11 +317,12 @@ def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
         y[:, l, 0] = yl[0]
         y[:, l, 1] = yl[1]
 
-    xc0 = torch.einsum("lk,lkn->ln", y[..., 0], Z[:, :, 0]) \
-        - torch.einsum("lk,lkn->ln", y[..., 1], Z[:, :, 1])
-    xc1 = torch.einsum("lk,lkn->ln", y[..., 0], Z[:, :, 1]) \
-        + torch.einsum("lk,lkn->ln", y[..., 1], Z[:, :, 0])
-    x = x_in + torch.stack([xc0, xc1], dim=1)
+    yb = y.to(bd)
+    xc0 = torch.einsum("lk,lkn->ln", yb[..., 0], Z[:, :, 0]) \
+        - torch.einsum("lk,lkn->ln", yb[..., 1], Z[:, :, 1])
+    xc1 = torch.einsum("lk,lkn->ln", yb[..., 0], Z[:, :, 1]) \
+        + torch.einsum("lk,lkn->ln", yb[..., 1], Z[:, :, 0])
+    x = x_in + torch.stack([xc0, xc1], dim=1).to(f64)
     idx = torch.nonzero(run).squeeze(1)
     r_new = torch.zeros_like(bb)
     r_new[idx] = bb[idx] - A_apply(x[idx], lanes[idx])
@@ -366,22 +387,51 @@ def mixed_apply(K_re, K_im, M_flat, omegas, U_re, U_im, rows, cols, n: int,
             Kx[1] + beta * Kx[0] - om2 * Mx[1])
 
 
+def _dense_apply(invK, x):
+    """The dense preconditioner's product, invK applied to every row of
+    (..., n) in invK's dtype: one GEMM (f64: DGEMM; f32: SGEMM, IEEE f32
+    with TF32 off, config.py)."""
+    return torch.matmul(x.to(invK.dtype), invK.T)
+
+
+def _flat_seg(nnz: int) -> int:
+    """nnz segment of the sweep's flat applies: one pass up to 2 * _RES_SEG
+    entries, _RES_SEG segments above (JAX ``_fused_mv``)."""
+    return nnz if nnz <= 2 * _RES_SEG else _RES_SEG
+
+
 def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
-                W64, *, band, mg, n_refine: int = 16,
+                W64, *, band=None, mg=None, invK=None, K_ref32=None,
+                basis_f32: bool | None = None, n_refine: int = 16,
                 refine_tol: float = 3e-7, freq_chunk: int | None = None,
                 ki_proportional: bool = True, k_cycle: int | None = None,
                 adjoint: bool = False):
-    """f64-grade frequency sweep on the band tier, split-complex interface.
+    """f64-grade frequency sweep, split-complex interface.
 
     K_re/K_im/M_flat (nnz,) f64 flat operator data on the pattern
     (rows, cols); B_re/B_im (F, n) f64 right-hand sides; omegas (F,) f64;
-    W64 (n, m) f64 M-orthonormal band basis.  ``band``: {"layout":
-    BandLayout, "lin": (nnz,) int64 device scatter targets}.  ``mg``: the
-    two-grid data {"tg_pack" (the f32 K_ref band packed by
-    ops/band_kernel.pack_band_tiles), "dinv", "Pt", "Kc_inv", "slots",
-    "lmax", "rl", "layout"}.  ``freq_chunk``: lanes per batch; the
-    frequencies are sorted by their band-computable resonance
+    W64 (n, m) f64 M-orthonormal band basis.  ``freq_chunk``: lanes per
+    batch; the frequencies are sorted by their band-computable resonance
     amplification first, so smooth chunks exit after few iterations.
+
+    The tier is set by what is given:
+
+    * ``band`` {"layout": BandLayout, "lin": (nnz,) int64 device scatter
+      targets}: the exact operator runs as f64 block-tridiagonal GEMMs;
+      without it, as the fused flat scatter over (rows, cols);
+    * ``mg``, the two-grid data {"tg_pack" (the f32 K_ref band packed by
+      ops/band_kernel.pack_band_tiles), "dinv", "Pt", "Kc_inv", "slots",
+      "lmax", "rl", "layout"} (band layout only): the complement
+      preconditioner is the two-grid cycle;
+    * else ``invK`` (n, n), the dense inverse of the reference stiffness,
+      applied as one GEMM in its own precision: f64, the port's (see
+      ops/dense.py), or f32, the JAX package's, with ``_PRECOND_REFINE``
+      f32 refinement rounds through ``K_ref32`` (nnz,) f32 on the pattern
+      when that is given.
+
+    ``basis_f32`` (None: the dense tier's, ``mg is None``) stores the
+    FGMRES bases in f32 and feeds the preconditioner f32 (at least two
+    cycles then: one cycle certifies only ~3e-7).
 
     ``adjoint``: solve conj(A) y = b instead of A u = b — the transpose of
     the real split-complex operator [[Ar, -Ai], [Ai, Ar]] of the complex
@@ -395,27 +445,51 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         raise NotImplementedError(
             "Per-modulus loss factors (ki_proportional=False) are not "
             "ported yet (ROADMAP Queue 1, item 2: material transforms).")
-    if band is None or mg is None or "tg_pack" not in mg:
+    if mg is not None and band is None:
         raise NotImplementedError(
-            "Only the band layout with the two-grid preconditioner is "
-            "ported (ROADMAP Queue 1, items 5-6: the dense tier).")
+            "The flat multilevel preconditioner (a multigrid without the "
+            "band layout) is not ported yet (ROADMAP Queue 1, item 14).")
+    if mg is None and invK is None:
+        raise ValueError("mixed_sweep needs a complement preconditioner: "
+                         "the two-grid data ``mg`` or the dense ``invK``.")
     f64 = torch.float64
+    f32 = torch.float32
     dev = K_re.device
     # beta is only the preconditioner's model of K_im; the residuals use
     # K_im = beta K_re exactly (scalar-loss families)
     beta = torch.dot(K_re, K_im) / torch.dot(K_re, K_re)
     Kr64 = K_re.to(f64)
     Ms64 = M_flat.to(f64)
+    rows_l = rows.long()
+    cols_l = cols.long()
 
-    lay = band["layout"]
-    Kband = flat_to_band(Kr64, lay, band["lin"])
-    Mband = flat_to_band(Ms64, lay, band["lin"])
+    if band is not None:
+        lay = band["layout"]
+        Kband = flat_to_band(Kr64, lay, band["lin"])
+        Mband = flat_to_band(Ms64, lay, band["lin"])
 
-    def K_mv(x):
-        return band_mv(Kband, x, lay)
+        def K_mv(x):
+            return band_mv(Kband, x, lay)
 
-    def M_mv(x):
-        return band_mv(Mband, x, lay)
+        def M_mv(x):
+            return band_mv(Mband, x, lay)
+
+        def KM_mv(uu):
+            return K_mv(uu), M_mv(uu)
+    else:
+        KM64 = torch.stack([Kr64, Ms64])
+        seg = _flat_seg(int(rows_l.shape[0]))
+
+        def K_mv(x):
+            return spmv_flat(Kr64, rows_l, cols_l, x, n)
+
+        def M_mv(x):
+            return spmv_flat(Ms64, rows_l, cols_l, x, n)
+
+        def KM_mv(uu):
+            # K and M in one fused scatter pass over the pattern
+            KMu = _fused_apply_flat(KM64, uu, rows_l, cols_l, n, seg)
+            return KMu[0], KMu[1]
 
     # ---- per-theta band Rayleigh-Ritz, all f64 --------------------------
     KW = K_mv(W64.T.contiguous())                      # (m, n) rows = K w_i
@@ -444,32 +518,51 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     Mp64 = 0.5 * (Mp64 + Mp64.T)
 
     # ---- FGMRES shape knobs ---------------------------------------------
-    # the band tier keeps an f64 Krylov basis; n_refine is the total budget
-    # spent as restarted cycles of k_cycle iterations
+    # n_refine is the total budget spent as restarted cycles of k_cycle
+    # iterations.  The f32 basis is the JAX package's on the dense tier;
+    # the two-grid tier keeps an f64 basis (f32 stalls at 20k+ DOF)
+    if basis_f32 is None:
+        basis_f32 = mg is None
+    # final true-residual band corrections: each contracts the Ritz-pair
+    # defect ~100x, which the two-grid tier's 21k+ DOF need twice
+    band_correct_n = 2 if mg is not None else 1
     if k_cycle is None:
         k_cycle = 8
     k_cycle = max(1, min(int(k_cycle), int(n_refine)))
     n_cycles = -(-int(n_refine) // k_cycle)
+    if basis_f32:
+        n_cycles = max(n_cycles, 2)
 
-    # ---- f32 two-grid preconditioner ------------------------------------
-    def cycle(x32):
-        return twogrid_apply(mg["tg_pack"], mg["dinv"], mg["lmax"],
-                             mg["Pt"], mg["Kc_inv"], x32, mg["layout"],
-                             mg["rl"], mg["slots"])
+    # ---- complement preconditioner: pc(x) in x's dtype ------------------
+    if mg is not None:
+        def cycle(x32):
+            return twogrid_apply(mg["tg_pack"], mg["dinv"], mg["lmax"],
+                                 mg["Pt"], mg["Kc_inv"], x32, mg["layout"],
+                                 mg["rl"], mg["slots"])
 
-    def precond32(x32):
-        # f32 refinement rounds around the cycle
-        y32 = cycle(x32)
-        for _ in range(_MG_REFINE):
-            r32 = x32 - band_mv_f32(mg["tg_pack"], y32, mg["layout"])
-            y32 = y32 + cycle(r32)
-        return y32
+        def pc(x):
+            # the f32 two-grid cycle with f32 refinement rounds around it
+            x32 = x.to(f32)
+            y32 = cycle(x32)
+            for _ in range(_MG_REFINE):
+                r32 = x32 - band_mv_f32(mg["tg_pack"], y32, mg["layout"])
+                y32 = y32 + cycle(r32)
+            return y32.to(x.dtype)
+    else:
+        def pc(x):
+            # refinement rounds (the JAX package's f32 inverse only): each
+            # squares its eps32 * kappa error for one GEMM + one f32 SpMV
+            xd = x.to(invK.dtype)
+            y = _dense_apply(invK, xd)
+            if K_ref32 is not None:
+                for _ in range(_PRECOND_REFINE):
+                    r = xd - spmv_flat(K_ref32, rows_l, cols_l, y, n)
+                    y = y + _dense_apply(invK, r)
+            return y.to(x.dtype)
 
-    def precond(x64):
-        return precond32(x64.to(torch.float32)).to(f64)
-
-    rows_l = rows.long()
-    cols_l = cols.long()
+    if basis_f32:
+        Zw32 = Zw64.to(f32)
+        MZ32 = MZ64.to(f32)
 
     def solve_chunk(om, sign: float):
         """Band-resolvent start + FGMRES + final band corrections for the
@@ -512,9 +605,10 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
             return torch.stack([y_re @ Zw64.T, y_im @ Zw64.T], dim=1)
 
         def A_apply(uu, li):
-            """Exact f64 operator on (L', 2, n): two band DGEMMs."""
+            """Exact f64 operator on (L', 2, n): two band DGEMMs or one
+            fused flat scatter."""
             o2 = om2[li][:, None]
-            Ku, Mu = K_mv(uu), M_mv(uu)
+            Ku, Mu = KM_mv(uu)
             return torch.stack([Ku[:, 0] - sb * Ku[:, 1] - o2 * Mu[:, 0],
                                 Ku[:, 1] + sb * Ku[:, 0] - o2 * Mu[:, 1]],
                                dim=1)
@@ -522,23 +616,53 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         def A_res_apply(uu, li):
             """Residual-grade exact apply: combine the flat operator values
             ENTRYWISE per lane (A_jk = K_jk - om^2 M_jk cancels at the
-            entry level near a resonance), then one scatter pass."""
-            are = Kr64[None, :] - om2[li][:, None] * Ms64[None, :]
-            aim = sb * Kr64
-            g_re = uu[:, 0][:, cols_l]
-            g_im = uu[:, 1][:, cols_l]
-            contrib = torch.stack([are * g_re - aim * g_im,
-                                   aim * g_re + are * g_im], dim=1)
+            entry level near a resonance), then one scatter pass, walked
+            in nnz segments (the (lanes, seg) temporaries stay small)."""
+            o2 = om2[li][:, None]
             out = torch.zeros_like(uu)
-            return out.index_add_(-1, rows_l, contrib)
+            nnz = int(rows_l.shape[0])
+            seg = _flat_seg(nnz)
+            for lo in range(0, nnz, seg):
+                r, c = rows_l[lo:lo + seg], cols_l[lo:lo + seg]
+                kd = Kr64[None, lo:lo + seg]
+                are = kd - o2 * Ms64[None, lo:lo + seg]
+                aim = sb * kd
+                g_re = uu[:, 0][:, c]
+                g_im = uu[:, 1][:, c]
+                contrib = torch.stack([are * g_re - aim * g_im,
+                                       aim * g_re + are * g_im], dim=1)
+                out.index_add_(-1, r, contrib)
+            return out
 
-        def P_apply(rr, li):
-            """Band resolvent + M-deflated two-grid complement cycle."""
-            db = band_stack(rr, li)
-            rc = rr - (rr @ Zw64) @ MZ64.T
-            dc = precond(rc)
-            dc = dc - (dc @ MZ64) @ Zw64.T
+        def P_common(rr, band_part, Zm, Pm, pc, li):
+            """Band resolvent + the M-deflated complement preconditioner:
+            band directions are left to the exact resolvent alone."""
+            db = band_part(rr, li)
+            rc = rr - (rr @ Zm) @ Pm.T
+            dc = pc(rc)
+            dc = dc - (dc @ Pm) @ Zm.T
             return db + dc
+
+        if basis_f32:
+            # the whole preconditioner in f32 (it only steers the Krylov
+            # subspace); the resolvent denominators are computed in f64
+            # first (cancellation near lam ~ om^2), then cast
+            dre32 = dre.to(f32)
+            dim32 = dim.to(f32)
+            den32 = dre32 * dre32 + dim32 * dim32
+
+            def band_stack32(rr, li):
+                q = rr @ Zw32                           # (L', 2, m)
+                d_re, d_den = dre32[li], den32[li]
+                y_re = (q[:, 0] * d_re + q[:, 1] * dim32) / d_den
+                y_im = (q[:, 1] * d_re - q[:, 0] * dim32) / d_den
+                return torch.stack([y_re @ Zw32.T, y_im @ Zw32.T], dim=1)
+
+            def P_apply(rr, li):
+                return P_common(rr, band_stack32, Zw32, MZ32, pc, li)
+        else:
+            def P_apply(rr, li):
+                return P_common(rr, band_stack, Zw64, MZ64, pc, li)
 
         # amplification-aware residual target (forward error ~ kappa(A) x
         # relative residual, kappa ~ 1/beta near a resonance)
@@ -557,8 +681,8 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
                                KZy[:, 1] + sb * KZy[:, 0] - o2 * MZy[:, 1]],
                               dim=1)
             return _pgmres(A_apply, P_apply, bbs, x0, tol_eff, k_cycle,
-                           n_cycles, bbs - Ax0, band_stack, _BAND_CORRECT_N,
-                           A_res_apply)
+                           n_cycles, bbs - Ax0, band_stack, band_correct_n,
+                           A_res_apply, basis_f32)
 
         return solve
 

@@ -76,7 +76,8 @@ def splu_frf(problem, freqs, params=None) -> np.ndarray:
 def splu_adjoint(problem, freqs, G_re, G_im, params=None):
     """(Y_re, Y_im), each (F, n): the adjoint solves of the sweep at
     ``freqs`` [Hz] for right-hand sides G (F, n) given in the sweep's
-    space (equilibrated by S = diag(scale), RCM-permuted by P).
+    space (equilibrated by S = diag(scale), RCM-permuted by P on the band
+    layout; P = I on the flat layout).
 
     The sweep solves A_s u = b with A_s = S P A P^T S.  The transpose of
     its real split-complex form [[Re, -Im], [Im, Re]] is the split form of
@@ -89,7 +90,8 @@ def splu_adjoint(problem, freqs, G_re, G_im, params=None):
     p = problem
     theta = np.asarray(p.parameters if params is None else params, np.float64)
     K, M, _ = _operator(p, theta)
-    perm = p._band_layout.perm
+    lay = p._band_layout
+    perm = np.arange(p.n_free) if lay is None else lay.perm
     s = p._eq_scale[perm]                      # S in the permuted order
     g = np.asarray(G_re, np.float64) + 1j * np.asarray(G_im, np.float64)
     Y = np.empty_like(g)

@@ -5,7 +5,11 @@ resonance), the start theta_0 = truth x (1.05, 1.02, 1.2).
 
 Both sides run on the JAX operator data (``opdata_from_jax``: one band
 basis, one pattern), with the reference FRF made once by the JAX package
-at the truth.  Tolerances:
+at the truth.  The module compiles one JAX Jacobian, the scaled log_afc
+r + J at theta_0: the afc residual and the four losses at theta_0 follow
+from it in numpy (fr = |ref| exp(r_log), dfr/dtheta = fr J_log /
+theta_0, each loss the mean of its per-frequency term of fr, as the JAX
+``LossFunction`` defines it).  Tolerances:
 
 * adjoint sweep: 3e-6 of a lane's max |Y| against JAX (the f32
   preconditioner rounds differently on the two sides, so the FGMRES
@@ -14,7 +18,8 @@ at the truth.  Tolerances:
 * residual map A(theta) U - b(theta): 1e-13 of each row's abs-sum
   sum_k |A_jk u_k| + |b_j| (f64 summation order);
 * r to 3e-6 (log_afc; afc: of max |ref|), J to 1e-5 of max |J|;
-* loss value and gradient: 1e-5 relative;
+* loss value and gradient: 1e-5 relative (against the JAX log_afc
+  Jacobian chained through each loss's term);
 * 2 J^T r / m against the MSE_LOG_AFC gradient within the port: 1e-8 of
   the gradient's max |component| (the two adjoint sweeps see right-hand
   sides that differ by a per-lane factor; the sweep scales every lane to
@@ -68,18 +73,18 @@ def setup():
 @pytest.fixture(scope="module")
 def jax_rj(setup):
     """JAX r and J: log_afc with the solveInverse scaling (theta_0, at
-    x = 1), afc unscaled (at theta_0); the log_afc object is reused for
-    the Gauss-Newton reference."""
+    x = 1), its object reused for the Gauss-Newton reference; from it, afc
+    unscaled (at theta_0), and the FRF at theta_0 and its Jacobian (``fr``,
+    ``dfr``) for the losses."""
     pj, _, truth, ref = setup
     th0 = truth * START
-    out = {}
     rf = pj.getResidualFunction(FREQS, ref, kind="log_afc",
                                 scaling_params=th0)
-    out["log_afc"] = rf, tuple(np.asarray(a)
-                               for a in rf.value_and_jac(np.ones(3)))
-    rf = pj.getResidualFunction(FREQS, ref, kind="afc")
-    out["afc"] = rf, tuple(np.asarray(a) for a in rf.value_and_jac(th0))
-    return out
+    r, J = (np.asarray(a) for a in rf.value_and_jac(np.ones(3)))
+    fr = np.abs(ref) * np.exp(r)
+    dfr = fr[:, None] * J / th0[None, :]
+    return {"log_afc": (rf, (r, J)), "afc": (None, (fr - np.abs(ref), dfr)),
+            "fr": fr, "dfr": dfr}
 
 
 def _port_rf(setup, kind):
@@ -242,13 +247,30 @@ def test_gauss_newton_gradient_is_loss_gradient(setup):
 # (4) the losses
 # ---------------------------------------------------------------------------
 
+def _loss_term(func_type, fr, ref):
+    """The JAX ``LossFunction``'s per-frequency term of a real FRF ``fr``
+    and its derivative in fr."""
+    d_re, d_im = fr - ref.real, -ref.imag
+    if func_type == "MSE":
+        return d_re ** 2 + d_im ** 2, 2.0 * d_re
+    if func_type == "RMSE":
+        a2 = np.abs(ref) ** 2
+        return (d_re ** 2 + d_im ** 2) / a2, 2.0 * d_re / a2
+    if func_type == "MSE_AFC":
+        d = fr - np.abs(ref)
+        return d ** 2, 2.0 * d
+    d = np.log(fr) - np.log(np.abs(ref))          # MSE_LOG_AFC
+    return d ** 2, 2.0 * d / fr
+
+
 @pytest.mark.parametrize("func_type", ["MSE", "RMSE", "MSE_AFC",
                                        "MSE_LOG_AFC"])
-def test_loss_value_and_grad_match_jax(setup, func_type):
-    pj, pp, truth, ref = setup
+def test_loss_value_and_grad_match_jax(setup, jax_rj, func_type):
+    _, pp, truth, ref = setup
     th0 = truth * START
-    vj, gj = pj.getLossFunction(FREQS, ref, func_type).value_and_grad(th0)
-    vj, gj = float(vj), np.asarray(gj)
+    term, dterm = _loss_term(func_type, jax_rj["fr"], ref)
+    vj = float(term.mean())
+    gj = (dterm[:, None] * jax_rj["dfr"]).mean(axis=0)
     lf = pp.getLossFunction(FREQS, ref, func_type)
     v, g = lf.value_and_grad(th0)
     assert abs(float(v) - vj) <= 1e-5 * abs(vj)

@@ -163,9 +163,18 @@ def test_solve_forward_own_basis_matches_oracle(port_problem):
     {},   # 'auto' on this small plate resolves to flat + dense
 ])
 def test_unported_tiers_raise(kw):
+    """The tier combinations the port once refused: the two dense ones now
+    build on their own operator data and meet the splu oracle to 1e-6;
+    (flat, mg), the flat multilevel preconditioner, still raises."""
     p = pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.getFRCore()
+    if kw.get("precond") == "mg":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+            p.getFRCore()
+        return
+    freqs = FREQS[::3]
+    y = p.solveForward(freqs).numpy()
+    ref = splu_frf(p, freqs)
+    assert np.all(np.abs(y - ref) <= 1e-6 * ref)
 
 
 @pytest.mark.parametrize("kw", [{"engine": "modal"}, {"basis": "lobpcg"}])
@@ -186,6 +195,7 @@ def test_unported_paths_raise():
 def test_package_imports_no_jax():
     code = ("import sys, plate_inverse_problem_tpu_torch, "
             "plate_inverse_problem_tpu_torch.optimize, "
+            "plate_inverse_problem_tpu_torch.ops.dense, "
             "plate_inverse_problem_tpu_torch.io.report; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
