@@ -16,8 +16,10 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    the L2 flushed, in turns, and state the kernel's bound (``[bound]``);
 4. run the 512-point sweep, count the kernel's launches (must be > 0) and
    check that the FRF is finite;
-5. hold the FRF against a host f64 sparse-LU oracle at 4 points including
-   the |FRF| peak, to 1e-6 relative;
+5. hold the FRF against a host f64 sparse-LU oracle (``oracle.splu_frf``:
+   an f64 LU solve refined with extended-precision residuals, the solution
+   of the f64 system) at 4 points including the |FRF| peak, to 1e-6
+   relative;
 6. the inverse half on the same Problem, from theta_0 = truth x (1.05,
    1.02, 1.2) against the phase-4 FRF at the truth (``[adjoint]``,
    ``[jac]``, ``[gn]``): time ``ResidualFunction("log_afc").value_and_jac``
@@ -43,7 +45,28 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    11910, "auto": the band layout with the dense preconditioner): its
    construction with the dense f64 inverse, a first and a steady sweep
    with peak memory, and the splu check at 4 points including the peak.
-   K1's launch counter reads 0 over each of them.
+   K1's launch counter reads 0 over each of them;
+8. the material families and the pure-bending path (``[families]``), all
+   sweeps 512 points over 40-600 Hz: (a) the multi-cut orthotropic
+   identification of ``examples/joint_identification.py`` on the bench
+   plate (n = 1466, dense tier): three SOL cuts at 0/90/45 degrees sharing
+   theta = [E1, E2, G12, nu12, beta], synthetic FRFs from ``solveForward``
+   at the truth, a ``JointResidual`` of theta-scaled ``log_afc`` residuals
+   and 30 Gauss-Newton steps from s0, every iterate's loss and seconds
+   printed, the loss falling at every step and the result within
+   JOINT_TOL of the truth; and a non-palindromic SOL stack (0, 45), whose
+   B is not zero, against f64 splu at 4 points incl. the peak; (b)
+   ``OrthotropicD4`` (a loss factor per modulus, so K_im is a third
+   operator) at refine = 4 (n = 20916, two-grid): construction, a first
+   and a steady sweep with peak memory, splu at 4 points incl. the peak,
+   K1 launches > 0; one ``ResidualFunction("log_afc").value_and_jac`` over
+   the 8 parameters with K1 launches in both sweeps, 2 J^T r / m against
+   the MSE_LOG_AFC gradient; (c) isotropic steel on the pure-bending path
+   (``Problem(geom, mat, None)``) at refine = 1 (n = 956, dense) and 4 (n
+   = 13862, two-grid): construction, first and steady sweep, splu at 4
+   points incl. the peak of the complex FRF; at 13862 K1 launches > 0 and
+   K1 against its plain version on that Problem's own pack (a Morley-only
+   band).
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -98,6 +121,23 @@ GN_TOL = 1e-4                 # relative distance of the GN result to truth
 # from the JAX package on the CPU (BENCH_r05.json), and its tolerance
 BENCH_CHECKSUM = 1584.7714001606384
 CHECKSUM_TOL = 1e-6
+# phase 8 (a): examples/joint_identification.py on the bench plate —
+# theta = [E1, E2, G12, nu12, beta] of a carbon-like sheet (density 1550),
+# three SOL cuts, the start s0 = theta_0 / truth and the Gauss-Newton steps;
+# the result's relative tolerance to the truth per parameter (|beta|: the
+# FRF magnitude is even in the loss factor)
+JOINT_TRUE = (120e9, 8.5e9, 4.5e9, 0.30, 0.006)
+JOINT_ANGLES = (0.0, 90.0, 45.0)
+JOINT_S0 = (1.35, 0.70, 1.40, 0.85, 1.50)
+JOINT_STEPS = 30
+JOINT_TOL = (1e-3, 1e-3, 1e-3, 1e-2, 1e-2)
+# (the JAX package's own CPU run of this configuration,
+# .probes/joint_identification_jax.py, meets JOINT_TOL: it stalls after 16
+# steps at -7.6e-6, +2.7e-6, -1.1e-4, +2.7e-3, -5.6e-6)
+# phase 8 (b): the per-modulus loss factors of tests/test_problem.py
+D4 = dict(E1=210e9, E2=200e9, G12=75e9, nu12=0.33, b1=0.003, b2=0.003,
+          b3=0.004, b4=0.0)
+D4_START = (1.02, 0.98, 1.03, 0.97, 1.1, 0.9, 1.05, 1.0)   # theta_0 / truth
 
 
 def card_info() -> str:
@@ -366,7 +406,7 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=()):
-    """Phases 2-7 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-8 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources``: other versions of K1 to time beside it (A/B only)."""
     import torch
 
@@ -374,7 +414,7 @@ def smoke(dev, card: str, ab_sources=()):
     from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
     # ---- 2. build the kernel ---------------------------------------------
-    t0 = time.perf_counter()
+    t_phases = t0 = time.perf_counter()
     report = band_kernel.build()
     print(f"[build] band_mv.cu -> sm_90a in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -449,8 +489,8 @@ def smoke(dev, card: str, ab_sources=()):
                              f"finite={np.all(np.isfinite(fr))}")
 
     # ---- 5. host f64 splu oracle at 4 points including the peak -----------
-    ipk = int(np.argmax(fr))
-    idx = [3, ipk, N_FREQ // 2, N_FREQ - 1]
+    idx = peak_points(fr)
+    ipk = idx[1]
     ref = splu_frf(p, freqs[idx])
     rel = np.abs(fr[idx] - ref) / np.abs(ref)
     for i, r in zip(idx, rel):
@@ -464,6 +504,7 @@ def smoke(dev, card: str, ab_sources=()):
 
     inv = inverse_half(p, freqs, fr)
     dense = dense_tier(dev)
+    fam = families(dev)
 
     summary = {"card": card, "n_free": p.n_free, "ctor_s": ctor_s,
                "pack_build_ms": 1e3 * p._pack_build_s,
@@ -472,7 +513,9 @@ def smoke(dev, card: str, ab_sources=()):
                "solves_per_s_steady": N_FREQ / steady_s,
                "peak_mem_gb": peak_gb, "worst_rel_err": worst,
                "f_peak": float(freqs[ipk]), "k1_by_B": recs, "k1_b64": b64,
-               **inv, "dense": dense}
+               **inv, "dense": dense, "families": fam}
+    summary["phases_s"] = time.perf_counter() - t_phases
+    print(f"[time] phases 2-8 in {summary['phases_s']:.1f} s", flush=True)
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "band_mv_f32",
@@ -484,7 +527,7 @@ def smoke(dev, card: str, ab_sources=()):
                              "rj_primal": inv["k1_rj_primal"],
                              "rj_adjoint": inv["k1_rj_adjoint"],
                              "gn": inv["k1_gn"],
-                             **dense["k1"]},
+                             **dense["k1"], **fam["k1"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
@@ -494,22 +537,26 @@ def smoke(dev, card: str, ab_sources=()):
     }]}), flush=True)
 
 
-def sh_i_problem(dev, refine: float, **kw):
-    """``sh_i`` strip 100 x 20 x 2 mm, isotropic steel, AP1030 (bench.py's
-    plate at refine = 1), on ``dev``."""
+def sh_i_problem(dev, refine: float, mat=None, accel: bool = True, **kw):
+    """``sh_i`` strip 100 x 20 x 2 mm, AP1030 (bench.py's plate at refine =
+    1), on ``dev``: isotropic steel unless ``mat`` is given; ``accel=False``
+    leaves the accelerometer out of the Problem (the pure-bending path of a
+    mid-plane symmetric material)."""
     import plate_inverse_problem_tpu_torch as pt
 
     acc = pt.Accelerometer("AP1030")
-    mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
+    if mat is None:
+        mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9,
+                              beta=0.003)
     geom = pt.Geometry("sh_i", acc,
                        pt.GeometryParams(100e-3, 20e-3, 2e-3, None, None),
                        refine=refine)
-    return pt.Problem(geom, mat, acc, device=dev, **kw)
+    return pt.Problem(geom, mat, acc if accel else None, device=dev, **kw)
 
 
-def timed_sweeps(p, freqs, label: str) -> dict:
+def timed_sweeps(p, freqs, label: str, tag: str = "[dense]") -> dict:
     """A first and a steady sweep, synchronised, with the peak device memory
-    of the first and K1's launches over both; prints one [dense] line."""
+    of the first and K1's launches over both; prints one ``tag`` line."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops import band_kernel
@@ -530,7 +577,7 @@ def timed_sweeps(p, freqs, label: str) -> dict:
            "solves_per_s_steady": freqs.size / times[1],
            "peak_mem_gb": peak_gb,
            "k1": band_kernel.band_mv_f32_cuda.launches}
-    print(f"[dense] {label}: {freqs.size} points over 40-600 Hz: first "
+    print(f"{tag} {label}: {freqs.size} points over 40-600 Hz: first "
           f"{times[0]:.3f} s ({freqs.size / times[0]:.1f} solves/s), steady "
           f"{times[1]:.3f} s ({rec['solves_per_s_steady']:.1f} solves/s); "
           f"peak device memory {peak_gb:.2f} GB; K1 launches {rec['k1']}",
@@ -541,15 +588,22 @@ def timed_sweeps(p, freqs, label: str) -> dict:
     return rec | {"fr": fr}
 
 
-def oracle_check(p, freqs, fr, idx, label: str) -> float:
-    """Worst relative error of ``fr`` at ``idx`` against the host f64 splu
-    oracle; prints it and raises above ORACLE_TOL."""
+def peak_points(fr) -> list[int]:
+    """bench.py's four points of a 512-point sweep: 3, the |FRF| peak, 256
+    and 511."""
+    return [3, int(np.argmax(np.abs(fr))), N_FREQ // 2, N_FREQ - 1]
+
+
+def oracle_check(p, freqs, fr, idx, label: str, tag: str = "[dense]"
+                 ) -> float:
+    """Worst relative error of ``fr`` (real or complex) at ``idx`` against
+    the host f64 splu oracle; prints it and raises above ORACLE_TOL."""
     from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
     ref = splu_frf(p, freqs[idx])
     rel = np.abs(fr[idx] - ref) / np.abs(ref)
     worst = float(rel.max())
-    print(f"[dense] {label}: rel err vs f64 splu at "
+    print(f"{tag} {label}: rel err vs f64 splu at "
           + ", ".join(f"{freqs[i]:.3f} Hz {r:.3e}" for i, r in zip(idx, rel))
           + f"; worst {worst:.3e} (tol {ORACLE_TOL})", flush=True)
     if not worst <= ORACLE_TOL:
@@ -558,9 +612,10 @@ def oracle_check(p, freqs, fr, idx, label: str) -> float:
     return worst
 
 
-def construct(dev, refine: float, label: str, **kw):
-    """Build a Problem and its core on ``dev``; print its [dense] ctor line
-    (the dense f64 inverse's build time is part of the construction)."""
+def construct(dev, refine: float, label: str, tag: str = "[dense]", **kw):
+    """Build a Problem (``sh_i_problem`` keywords) and its core on ``dev``;
+    print its ctor line: the dense f64 inverse's build time, or the
+    two-grid's coarse size and K1 pack, is part of the construction."""
     import torch
 
     t0 = time.perf_counter()
@@ -569,17 +624,27 @@ def construct(dev, refine: float, label: str, **kw):
     torch.cuda.synchronize()
     ctor_s = time.perf_counter() - t0
     lay = p._band_layout
-    inv = od["invK64"]
-    inv_mb = inv.numel() * inv.element_size() / 1e6
-    print(f"[dense] {label}: n_free={p.n_free} nnz={p.op.pattern.nnz} "
+    rec = {"n_free": p.n_free, "nnz": int(p.op.pattern.nnz),
+           "tier": list(p._tier), "ctor_s": ctor_s}
+    if "invK64" in od:
+        inv = od["invK64"]
+        rec |= {"inv_build_s": p._inv_build_s,
+                "inv_mb": inv.numel() * inv.element_size() / 1e6}
+        part = (f"the dense f64 inverse (inv_refined, {rec['inv_mb']:.0f} "
+                f"MB) {p._inv_build_s:.3f} s")
+    else:
+        rec |= {"n_c": p._mg_rl.n_coarse,
+                "pack_tiles": p._band_pack.vals.shape[0],
+                "pack_build_ms": 1e3 * p._pack_build_s}
+        part = (f"the two-grid's coarse level n_c={rec['n_c']} and the K1 "
+                f"pack ({rec['pack_tiles']} tiles, "
+                f"{rec['pack_build_ms']:.1f} ms)")
+    print(f"{tag} {label}: n_free={p.n_free} nnz={p.op.pattern.nnz} "
           f"tier {p._tier} (layout, preconditioner, f32 basis)"
           + ("" if lay is None else f", b={lay.b} nb={lay.nb}")
           + f", m={od['W64'].shape[1]}; construction {ctor_s:.2f} s, of "
-          f"which the dense f64 inverse (inv_refined, {inv_mb:.0f} MB) "
-          f"{p._inv_build_s:.3f} s", flush=True)
-    return p, {"n_free": p.n_free, "nnz": int(p.op.pattern.nnz),
-               "tier": list(p._tier), "ctor_s": ctor_s,
-               "inv_build_s": p._inv_build_s, "inv_mb": inv_mb}
+          f"which {part}", flush=True)
+    return p, rec
 
 
 def dense_tier(dev) -> dict:
@@ -607,7 +672,7 @@ def dense_tier(dev) -> dict:
         raise AssertionError(f"bench checksum {checksum} is {cs_rel:.3e} from"
                              f" {BENCH_CHECKSUM}")
     # bench.py's four points (bench.py:261)
-    idx = [3, int(np.argmax(fr)), N_FREQ // 2, N_FREQ - 1]
+    idx = peak_points(fr)
     rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
                                         "(a) bench points")
     rec["checksum"] = checksum
@@ -635,7 +700,7 @@ def dense_tier(dev) -> dict:
                              "preconditioner")
     rec |= timed_sweeps(p, freqs, "(c) sweep")
     fr = rec.pop("fr")
-    idx = [3, int(np.argmax(fr)), N_FREQ // 2, N_FREQ - 1]
+    idx = peak_points(fr)
     rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
                                         "(c) 4 points incl. the peak")
     rec["f_peak"] = float(freqs[idx[1]])
@@ -812,6 +877,238 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
             "gn_iter_s": iter_s, "gn_s_per_iter": float(np.mean(iter_s)),
             "gn_status": res.status, "gn_rel_err": [float(v) for v in err],
             "k1_gn": k1_gn}
+
+
+def families(dev) -> dict:
+    """Phase 8: the material families and the pure-bending path, (a) the
+    multi-cut orthotropic identification at n = 1466, (b) per-modulus loss
+    factors at n = 20916, (c) the pure-bending path at n = 956 and 13862.
+    Returns the numbers for [summary], K1's counts by path under "k1"."""
+    out = {"joint": joint_identification(dev), "d4": per_modulus(dev),
+           "symm": pure_bending(dev)}
+    d4, symm = out["d4"], out["symm"]
+    out["k1"] = {"families_joint_gn": out["joint"]["k1"],
+                 "families_sol_0_45_sweep": out["joint"]["sol_0_45"]["k1"],
+                 f"families_d4_sweep_{d4['n_free']}": d4["k1"],
+                 f"families_d4_rj_primal_{d4['n_free']}": d4["k1_rj_primal"],
+                 f"families_d4_rj_adjoint_{d4['n_free']}":
+                     d4["k1_rj_adjoint"],
+                 **{f"families_symm_sweep_{r['n_free']}": r["k1"]
+                    for r in symm.values()}}
+    return out
+
+
+def joint_identification(dev) -> dict:
+    """Phase 8 (a): examples/joint_identification.py on the bench plate,
+    then a non-palindromic SOL stack against splu."""
+    import torch
+
+    import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.ops import band_kernel
+
+    tag = "[families] (a)"
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    truth = np.asarray(JOINT_TRUE)
+
+    def sol(angles):
+        return pt.get_material(1550.0, "sol", angles=angles, E1=truth[0],
+                               E2=truth[1], G12=truth[2], nu12=truth[3],
+                               beta=truth[4])
+
+    band_kernel.band_mv_f32_cuda.launches = 0
+    t0 = time.perf_counter()
+    problems = [sh_i_problem(dev, 1.0, mat=sol((a,))) for a in JOINT_ANGLES]
+    data = [p.solveForward(freqs, truth).cpu().numpy() for p in problems]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"{tag} {len(problems)} SOL cuts at {JOINT_ANGLES} deg, n_free="
+          f"{problems[0].n_free}, tier {problems[0]._tier}: Problems and "
+          f"synthetic FRFs at the truth in {setup_s:.2f} s", flush=True)
+    joint = pt.JointResidual([
+        p.getResidualFunction(freqs, fr, "log_afc", scaling_params=truth)
+        for p, fr in zip(problems, data)])
+    stamps = []
+    value_and_jac = joint.value_and_jac
+
+    def timed(s):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return value_and_jac(s)
+
+    joint.value_and_jac = timed
+    res = pt.optimize_gauss_newton(joint, np.asarray(JOINT_S0),
+                                   N_steps=JOINT_STEPS)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    k1 = band_kernel.band_mv_f32_cuda.launches
+    iter_s = list(np.diff(stamps))
+    for k, (f, x, s) in enumerate(zip(res.f_history, res.x_history, iter_s)):
+        print(f"{tag} [gn] iterate {k}: loss {f:.6e}  {s:.3f} s  rel err "
+              f"{', '.join(f'{v:+.3e}' for v in np.asarray(x) - 1.0)}",
+              flush=True)
+    err = (np.abs(res.x * truth) - truth) / truth
+    print(f"{tag} [gn] {len(res.f_history)} iterations in {sum(iter_s):.3f} "
+          f"s ({np.mean(iter_s):.3f} s/iter), status {res.status}, K1 "
+          f"launches {k1}; result rel err (|beta|) "
+          f"{', '.join(f'{v:+.3e}' for v in err)} (tol {JOINT_TOL})",
+          flush=True)
+    failed = []
+    if k1 != 0:
+        failed.append(f"K1 launched {k1} times on the dense tier")
+    if not np.all(np.diff(res.f_history) < 0):
+        failed.append(f"loss did not fall at every step: {res.f_history}")
+    if not np.all(np.abs(err) <= np.asarray(JOINT_TOL)):
+        failed.append(f"result {res.x * truth} is not within {JOINT_TOL} of "
+                      f"the truth {truth}")
+
+    # a non-palindromic stack: the 3-field path with B != 0
+    band_kernel.band_mv_f32_cuda.launches = 0
+    p = sh_i_problem(dev, 1.0, mat=sol((0.0, 45.0)))
+    rec = timed_sweeps(p, freqs, "SOL (0, 45) sweep", tag)
+    fr = rec.pop("fr")
+    rec["worst_rel_err"] = oracle_check(p, freqs, fr, peak_points(fr),
+                                        "SOL (0, 45), 4 points incl. the "
+                                        "peak", tag)
+    rec["is_mps"] = bool(p.material.is_mps)
+    if rec["k1"] != 0 or rec["is_mps"]:
+        failed.append(f"SOL (0, 45): K1 {rec['k1']} (must be 0), is_mps "
+                      f"{rec['is_mps']} (must be False)")
+    if failed:
+        raise AssertionError(f"{tag} failed: " + "; ".join(failed))
+    return {"setup_s": setup_s, "f_history": [float(f) for f in
+                                              res.f_history],
+            "iter_s": iter_s, "s_per_iter": float(np.mean(iter_s)),
+            "status": res.status, "s_final": [float(v) for v in res.x],
+            "rel_err": [float(v) for v in err], "k1": k1, "sol_0_45": rec}
+
+
+def per_modulus(dev) -> dict:
+    """Phase 8 (b): OrthotropicD4 on the two-grid tier (n = 20916): sweeps,
+    splu, and the adjoint r + J over its 8 parameters."""
+    import torch
+
+    import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.ops import band_kernel
+
+    tag = "[families] (b)"
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    mat = pt.get_material(7920.0, "orthotropic_d4", **D4)
+    p, rec = construct(dev, 4.0, "OrthotropicD4 sh_i refine=4", tag, mat=mat)
+    if p._tier != ("band", "mg", False) or p.material.scalar_loss_factor:
+        raise AssertionError(f"{tag}: tier {p._tier}, scalar loss factor "
+                             f"{p.material.scalar_loss_factor}")
+    rec |= timed_sweeps(p, freqs, "sweep", tag)
+    fr = rec.pop("fr")
+    idx = peak_points(fr)
+    rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
+                                        "4 points incl. the peak", tag)
+    rec["f_peak"] = float(freqs[idx[1]])
+
+    # the adjoint r + J over the 8 parameters, in variables scaled to O(1)
+    # (b4 = 0 is scaled by 1e-3), with K1 counted in each sweep
+    truth = np.asarray(p.parameters, np.float64)
+    scale = np.where(truth != 0.0, truth, 1e-3)
+    x0 = truth * np.asarray(D4_START) / scale
+    rf = p.getResidualFunction(freqs, fr, kind="log_afc",
+                               scaling_params=scale)
+    core = p.getFRCore()[0]
+    counts = {"primal": 0, "adjoint": 0}
+    hooks = core.sweep_u, core.sweep_adj
+    core.sweep_u = launch_counter(hooks[0], counts, "primal")
+    core.sweep_adj = launch_counter(hooks[1], counts, "adjoint")
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(2):
+            counts.update(primal=0, adjoint=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r, J = rf.value_and_jac(x0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        core.sweep_u, core.sweep_adj = hooks
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    r, J = r.cpu().numpy(), J.cpu().numpy()
+    loss = p.getLossFunction(freqs, fr, "MSE_LOG_AFC", scaling_params=scale)
+    t0 = time.perf_counter()
+    g = loss.grad(x0).cpu().numpy()
+    grad_s = time.perf_counter() - t0
+    g_gn = 2.0 * J.T @ r / r.size
+    grad_rel = float(np.abs(g_gn - g).max() / np.abs(g).max())
+    print(f"{tag} [adjoint] log_afc r + J over {truth.size} parameters at "
+          f"theta_0 = truth x {D4_START}: first {times[0]:.3f} s, steady "
+          f"{times[1]:.3f} s; K1 launches {counts['primal']} in the primal "
+          f"sweep, {counts['adjoint']} in the adjoint sweep; peak device "
+          f"memory {peak_gb:.2f} GB; 2 J^T r / m vs MSE_LOG_AFC grad "
+          f"({grad_s:.3f} s): max rel {grad_rel:.3e} (tol {GRAD_TOL})",
+          flush=True)
+    failed = []
+    if rec["k1"] <= 0 or counts["primal"] <= 0 or counts["adjoint"] <= 0:
+        failed.append(f"K1 not launched on every path: sweep {rec['k1']}, "
+                      f"r + J {counts}")
+    if J.shape != (freqs.size, truth.size) or not (
+            np.all(np.isfinite(r)) and np.all(np.isfinite(J))):
+        failed.append(f"bad r {r.shape} or J {J.shape}")
+    if not grad_rel <= GRAD_TOL:
+        failed.append(f"2 J^T r / m disagrees with the loss gradient: "
+                      f"{grad_rel:.3e} > {GRAD_TOL}")
+    if failed:
+        raise AssertionError(f"{tag} failed: " + "; ".join(failed))
+    return rec | {"rj_first_s": times[0], "rj_steady_s": times[1],
+                  "k1_rj_primal": counts["primal"],
+                  "k1_rj_adjoint": counts["adjoint"],
+                  "rj_peak_mem_gb": peak_gb, "grad_s": grad_s,
+                  "jac_grad_rel": grad_rel}
+
+
+def pure_bending(dev) -> dict:
+    """Phase 8 (c): isotropic steel without an accelerometer, the
+    pure-bending path, at n = 956 (dense tier) and 13862 (two-grid, with K1
+    held against its plain version on the Problem's own pack)."""
+    tag = "[families] (c)"
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    out = {}
+    for refine, tier in ((1.0, ("flat", "dense", True)),
+                         (4.0, ("band", "mg", False))):
+        p, rec = construct(dev, refine, f"pure bending sh_i refine="
+                           f"{refine:g}", tag, accel=False)
+        if not p.is_symmetric_path or p._tier != tier:
+            raise AssertionError(f"{tag}: symmetric path "
+                                 f"{p.is_symmetric_path}, tier {p._tier}")
+        if tier[1] == "mg":
+            # K1 at the path's own pack: the Morley-only band, all the
+            # sweep's lanes (re and im rows) in one batch
+            import torch
+
+            chunk = p._auto_freq_chunk() or N_FREQ
+            rng = np.random.default_rng(1)
+            x = torch.as_tensor(rng.standard_normal(
+                (2 * chunk, p.n_free)).astype(np.float32), device=dev)
+            rec["k1_pack"] = compare_kernel(
+                p._band_pack, p.getFRCore()[1]["mg_band0"], x,
+                p._band_layout, f"pure-bending pack ({p.n_free} Morley band,"
+                " f32)")
+            bound, bound_by = bound_ms(p._band_pack, x.shape[0], p.n_free)
+            rec["k1_pack"] |= {"bound_ms": bound, "bound_by": bound_by}
+            print(f"[bound] pure-bending pack B={x.shape[0]}: "
+                  f"{1e3 * bound:.2f} us ({bound_by}); kernel at "
+                  f"{100 * bound / rec['k1_pack']['ms']:.1f} % of it",
+                  flush=True)
+        rec |= timed_sweeps(p, freqs, "sweep", tag)
+        fr = rec.pop("fr")
+        if not np.iscomplexobj(fr):
+            raise AssertionError(f"{tag}: the pure-bending FRF is not complex")
+        idx = peak_points(fr)
+        rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
+                                            "4 points incl. the peak", tag)
+        rec["f_peak"] = float(freqs[idx[1]])
+        if (rec["k1"] > 0) != (tier[1] == "mg"):
+            raise AssertionError(f"{tag}: K1 launched {rec['k1']} times at "
+                                 f"n={p.n_free}, tier {p._tier}")
+        out[tier[1]] = rec
+        del p
+    return out
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
 """Operator data from the JAX package, for holding the port against it.
 
-``opdata_from_jax`` takes the numpy form of the JAX ``Problem.getFRCore()[1]``
-pytree of any tier the port runs (flat or band layout; dense or two-grid
-preconditioner) and returns the port's tensor dict.  Handing the JAX band
-basis ``W64`` to the port removes ARPACK's random start vector from the
-comparison, so any difference left is the port's.
+``opdata_from_jax`` takes the JAX ``Problem.getFRCore()[1]`` pytree (or its
+numpy form) of any path and tier the port runs (3-field or symmetric; flat
+or band layout; dense or two-grid preconditioner) and returns the port's
+tensor dict.  Handing the JAX band basis ``W64`` to the port removes
+ARPACK's random start vector from the comparison, so any difference left is
+the port's.  The JAX ``trc`` entry (the material transform's constants,
+such as a laminate's Q -> (A, B, D) maps, hoisted into the pytree for XLA)
+is accepted and left out: the port's material holds its own.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import numpy as np
 import torch
 
 _F64_KEYS = ("MIn", "fIn", "ABD", "fABD", "ru", "rv", "rw", "r0", "W64",
-             "Kref64")
+             "Kref64", "Ks", "fKs", "c", "c0")
 _F32_KEYS = ("mg_band0", "mg_dinv", "mg_Pt", "mg_Kcinv", "invK32", "Kref32")
 _INDEX_KEYS = ("rows", "cols", "band_lin", "mg_slots")
 

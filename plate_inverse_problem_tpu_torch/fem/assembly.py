@@ -1,8 +1,11 @@
 """Global FEM assembly over a static sparsity pattern + Dirichlet reduction.
 
-Produces the operator inventory of the reference's FreeFEM pipeline for
-the path this package runs (the symmetric pure-bending path waits):
+Produces the same operator inventory as the reference's FreeFEM pipeline:
 
+* symmetric (pure bending) path — 6 stiffness matrices K11..K66 for the
+  anisotropic rigidities, rotational-inertia L, mass M, indicator-weighted
+  corrections, BC-lift vectors and the test-point interpolation row
+  (pyFFInterface.py:50-167);
 * unsymmetric (3-field laminate) path — membrane/coupling/bending blocks
   KA/KB/KD for the A_ij, B_ij, D_ij moduli, mass blocks with accelerometer
   corrections, BC lift and the accelerometer-disk readout operators
@@ -232,6 +235,111 @@ def _morley_element_matrices(md: dict, ind=None):
         mats["MCorrection"] = np.einsum("tq,tqa,tqb->tab", iw, phi, phi)
         mats["LCorrection"] = np.einsum("tq,tqad,tqbd->tab", iw, grad, grad)
     return mats
+
+
+# ---------------------------------------------------------------------------
+# symmetric (pure bending) path
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SymmOperator:
+    """Assembled, Dirichlet-reduced bending operator bundle
+    (counterpart of the dict returned by load_matrices_symm,
+    pyFFInterface.py:150-167, after the flattening in Problem.py:241-253)."""
+
+    pattern: SparsePattern
+    Ks: np.ndarray            # (6, nnz) flat stiffness data per modulus
+    M: np.ndarray             # (nnz,)
+    L: np.ndarray
+    MCorrection: np.ndarray
+    LCorrection: np.ndarray
+    fKs: np.ndarray           # (6, n_free) BC lifts
+    fM: np.ndarray
+    fL: np.ndarray
+    fMCorrection: np.ndarray
+    fLCorrection: np.ndarray
+    interpolation_vector: np.ndarray        # (n_free,)
+    interpolation_value_from_bc: float
+    free_idx: np.ndarray
+    constrained: np.ndarray   # mask over full DOFs
+    boundary_value: np.ndarray  # g over full DOFs
+    n_dofs_full: int
+    mesh: TriangleMesh = None
+    morley: dict = None
+
+    @property
+    def n_free(self) -> int:
+        return self.free_idx.size
+
+
+def _w_constraints(mesh: TriangleMesh, labels=(1,)):
+    """Constrained Morley DOFs + boundary values for the clamped border(s):
+    w = funcBC = 1 at labelled vertices, dw/dn = 0 on labelled edges
+    (pyFFInterface.py:24-33: on(1, u=funcBC, ux=0, uy=0) with funcBC = 1).
+    ``labels``: border label set to clamp."""
+    V, E = mesh.num_nodes, mesh.num_edges
+    constrained = np.zeros(V + E, dtype=bool)
+    g = np.zeros(V + E, dtype=np.float64)
+    labels = np.asarray(labels, dtype=mesh.node_labels.dtype)
+    vmask = np.isin(mesh.node_labels, labels)
+    emask = np.isin(mesh.edge_labels, labels)
+    constrained[:V] = vmask
+    constrained[V:] = emask
+    g[:V][vmask] = 1.0
+    return constrained, g
+
+
+def assemble_symm(mesh: TriangleMesh, test_point, indicator=None,
+                  clamped_labels=(1,)) -> SymmOperator:
+    """Assemble the pure-bending (mid-plane symmetric) operator bundle."""
+    md = build_morley(mesh)
+    n = md["n_dofs"]
+    dofs = md["dofs"]
+
+    elem = _morley_element_matrices(md, ind=indicator)
+    coo = _COOAssembly(n)
+    for name, vals in elem.items():
+        coo.add(name, dofs, dofs, vals)
+    pattern, mats = coo.finalize()
+    if indicator is None:
+        mats["MCorrection"] = np.zeros(pattern.nnz)
+        mats["LCorrection"] = np.zeros(pattern.nnz)
+
+    constrained, g = _w_constraints(mesh, clamped_labels)
+    red_pattern, red_mats, lifts, free_idx = reduce_dirichlet(
+        pattern, mats, constrained, g
+    )
+
+    # test-point interpolation row (pyFFInterface.py:36-46, 141-146)
+    tp = np.atleast_2d(np.asarray(test_point, dtype=np.float64))
+    tri_idx, _ = locate_points(mesh, tp)
+    vals, _ = morley_point_eval(md, tri_idx, tp)
+    full_row = np.zeros(n)
+    np.add.at(full_row, dofs[tri_idx[0]], vals[0])
+    interp_bc = float(full_row[constrained] @ g[constrained])
+    interp_free = full_row[free_idx]
+
+    return SymmOperator(
+        pattern=red_pattern,
+        Ks=np.stack([red_mats["K" + s] for s in MODULI_INDICES]),
+        M=red_mats["M"],
+        L=red_mats["L"],
+        MCorrection=red_mats["MCorrection"],
+        LCorrection=red_mats["LCorrection"],
+        fKs=np.stack([lifts["K" + s] for s in MODULI_INDICES]),
+        fM=lifts["M"],
+        fL=lifts["L"],
+        fMCorrection=lifts["MCorrection"],
+        fLCorrection=lifts["LCorrection"],
+        interpolation_vector=interp_free,
+        interpolation_value_from_bc=interp_bc,
+        free_idx=free_idx,
+        constrained=constrained,
+        boundary_value=g,
+        n_dofs_full=n,
+        mesh=mesh,
+        morley=md,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -68,5 +68,15 @@ class Accelerometer:
                     "transverse_sensitivity"):
             setattr(self, key, fields[key])
 
+    @staticmethod
+    def create_accelerometer(params: AccelerometerParams,
+                             accelerometer_name: str) -> None:
+        """Add (or overwrite) a named catalog entry under the package's
+        ``accelerometers/`` folder."""
+        path = _catalog_path(accelerometer_name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(asdict(params), fh, indent=4)
+
     def __str__(self):
         return f"Accelerometer with {self.__dict__}."

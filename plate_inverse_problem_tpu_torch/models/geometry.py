@@ -3,8 +3,8 @@
 Host copy of the JAX package's ``models/geometry.py`` for the template path
 (the reference's ``jax_plate/Geometry.py`` conventions: the same template
 names and accelerometer positions), built directly by ``mesh.generators``.
-The ``.edp`` / ``.msh`` file import is not ported yet (ROADMAP, Queue 1
-"remaining modules").
+The ``.edp`` / ``.msh`` file import is not ported yet (ROADMAP Queue 1,
+item B).
 """
 from __future__ import annotations
 
@@ -103,7 +103,8 @@ class Geometry:
             if os.path.splitext(str(edp_or_template))[1] in (".edp", ".msh"):
                 raise NotImplementedError(
                     "Geometry from a .edp/.msh file is not ported yet "
-                    "(ROADMAP Queue 1, remaining modules); use a template.")
+                    "(ROADMAP Queue 1, item B: .edp/.msh geometry "
+                    "import); use a template.")
             raise ValueError(
                 f"Could not find template {edp_or_template}. Valid options "
                 f"are: {TEMPLATES}."
@@ -143,6 +144,16 @@ class Geometry:
         g._mesh = None
         g._refine = self._refine / factor
         return g
+
+    @property
+    def test_point(self) -> tuple[float, float]:
+        """AFC measurement point of the pure-bending path: the
+        accelerometer centre, as in the reference templates."""
+        if self.accel_x is None or self.accel_y is None:
+            raise ValueError(
+                "Readout/test point undefined: give the geometry an "
+                "accelerometer position (accel_x/accel_y).")
+        return (self.accel_x, self.accel_y)
 
     def __str__(self):
         d = {

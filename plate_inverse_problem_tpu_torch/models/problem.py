@@ -1,22 +1,27 @@
 """Problem: geometry + material + accelerometer -> FRF sweep on a device.
 
-Port of the JAX package's ``models/problem.py`` for the mixed engine's
-3-field (laminate) path on its three tiers: the flat f64 operator with the
-dense preconditioner (n < 8192), the RCM block-tridiagonal f64 operator
-with the dense preconditioner (8192 <= n <= 12288) or with the two-grid f32
-preconditioner (n > 12288).  Operator data is a plain dict of tensors under
-the JAX opdata's key names; ``getFRCore`` returns a plain function of
-(freqs, params, opdata).
+Port of the JAX package's ``models/problem.py`` for the mixed engine on
+both of its paths — the 3-field (laminate) path with the accelerometer-disk
+readout, and the symmetric pure-bending path (a mid-plane symmetric
+material and no accelerometer) with its complex test-point readout — and
+its three tiers: the flat f64 operator with the dense preconditioner (n <
+8192), the RCM block-tridiagonal f64 operator with the dense
+preconditioner (8192 <= n <= 12288) or with the two-grid f32
+preconditioner (n > 12288).  Every material family runs, per-modulus loss
+factors included.  Operator data is a plain dict of tensors under the JAX
+opdata's key names; ``getFRCore`` returns a plain function of (freqs,
+params, opdata).  ``Problem(spath=...)`` reads a ``setup.json`` folder.
 
 Options that resolve to what this port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item; nothing falls back.  The
-port's materials carry no frequency dependence (``Material.real_coeffs``
-takes no omega), so the JAX side's frequency-dependent fallback to the
-direct engine has no counterpart.
+JAX package runs a material whose transform depends on the frequency
+through its direct engine; the port has none, so it refuses one.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 import time
 import warnings
 from typing import Callable
@@ -28,14 +33,17 @@ from ..config import F32
 from ..fem.assembly import (
     MODULI_INDICES,
     _uvw_constraints,
+    _w_constraints,
     accel_indicator,
+    assemble_symm,
     assemble_unsymm,
 )
 from ..io.report import default_uid, write_log, write_report
 from ..optimize import optResult
-from .accelerometer import Accelerometer
-from .geometry import Geometry
-from .materials import Material
+from ..utils.paths import get_repo_dir
+from .accelerometer import Accelerometer, AccelerometerParams
+from .geometry import Geometry, GeometryParams
+from .materials import Material, get_material
 
 
 def _numpy(x) -> np.ndarray:
@@ -55,6 +63,14 @@ def _split_ref(reference_fr, device) -> torch.Tensor:
     else:
         r = np.stack([r, np.zeros_like(r)], axis=-1)
     return torch.as_tensor(r.astype(np.float64), device=device)
+
+
+def _re_im(fr):
+    """(Re fr, Im fr): the symmetric path's FRF is complex, the 3-field
+    path's a real magnitude (Im fr = 0)."""
+    if fr.is_complex():
+        return fr.real, fr.imag
+    return fr, torch.zeros_like(fr)
 
 
 def _ref_abs2(ref):
@@ -138,13 +154,14 @@ class LossFunction:
         self._scaling = (1.0 if scaling_params is None
                          else _as_tensor(scaling_params, dev))
 
-        # the 3-field path's FRF is a real magnitude: Im fr = 0
         if func_type == "MSE":
             def term(fr, ref):
-                return (fr - ref[..., 0]) ** 2 + ref[..., 1] ** 2
+                re, im = _re_im(fr)
+                return (re - ref[..., 0]) ** 2 + (im - ref[..., 1]) ** 2
         elif func_type == "RMSE":
             def term(fr, ref):
-                return (((fr - ref[..., 0]) ** 2 + ref[..., 1] ** 2)
+                re, im = _re_im(fr)
+                return (((re - ref[..., 0]) ** 2 + (im - ref[..., 1]) ** 2)
                         / _ref_abs2(ref))
         elif func_type == "MSE_AFC":
             def term(fr, ref):
@@ -279,14 +296,26 @@ class ResidualFunction:
 class Problem:
     """Holds geometry/material/sensor data and the assembled FEM operators,
     and produces the FRF function on ``device`` (the card unless the
-    caller asks for ``"cpu"``)."""
+    caller asks for ``"cpu"``).
+
+    With an accelerometer (or a material that is not mid-plane symmetric)
+    the plate runs the 3-field path and its FRF is the real accelerometer
+    magnitude; with ``accel=None`` and a mid-plane symmetric material it
+    runs the pure-bending path and its FRF is the complex amplitude at the
+    test point.  ``spath``: a setup folder (``setup.json``, and optional
+    ``freqs.npy`` / ``amp.npy`` / ``phase.npy`` reference data), absolute
+    or under the repository's ``setups/``; the geometry, material and
+    accelerometer given as arguments take precedence over its entries.
+    """
 
     def __init__(
         self,
-        geometry: Geometry,
-        material: Material,
-        accel: Accelerometer,
+        geometry: Geometry = None,
+        material: Material = None,
+        accel: Accelerometer = None,
+        ref_fr: tuple[np.ndarray, np.ndarray] = None,
         *,
+        spath: str | os.PathLike = None,
         device: torch.device | str = "cuda",   # "cpu" on request
         engine: str | None = "mixed",   # the mixed engine only
         f_max: float = 600.0,           # band edge of the basis [Hz]
@@ -307,6 +336,8 @@ class Problem:
         opdata: dict | None = None,     # operator data to use instead of
                                         # building it (convert.py)
     ):
+        if (geometry, accel, material, spath) == (None,) * 4:
+            raise ValueError("Cannot create a Problem object without arguments.")
         if engine not in (None, "mixed"):
             raise NotImplementedError(
                 f"engine={engine!r} is not ported yet (ROADMAP Queue 1, item "
@@ -323,8 +354,6 @@ class Problem:
         if basis == "lobpcg":
             raise NotImplementedError(
                 "basis='lobpcg' is not ported yet (ROADMAP Queue 1, item 12).")
-        if None in (geometry, material):
-            raise ValueError("A Problem needs a geometry and a material.")
         self.device = torch.device(device)
         self.f_max = f_max
         self.n_refine = n_refine
@@ -340,6 +369,13 @@ class Problem:
         self.accelerometer = accel
         self.material = material
         self.geometry = geometry
+        if spath is None:
+            if None in (geometry, material):
+                raise ValueError(
+                    "Cannot create a Problem object without `spath` argument "
+                    "if any of `geometry`, `material` arguments is `None`.")
+        else:
+            self._load_setup(spath, geometry, material, accel)
         if self.material.has_params:
             self.parameters = self.material.get_parameters()
         else:
@@ -347,53 +383,154 @@ class Problem:
                 "Some elastic moduli of a material were not provided, solving "
                 "forward problem as standalone will not be possible.",
                 RuntimeWarning)
+        if ref_fr is not None:
+            self.reference_fr = ref_fr
         rho = self.material.density
         h = self.geometry.height
         mesh = self.geometry.get_mesh()
         self.mesh = mesh
+        acc = self.accelerometer
 
-        self.is_symmetric_path = (self.material.is_mps
-                                  and self.accelerometer is None)
-        if self.is_symmetric_path:
-            raise NotImplementedError(
-                "The symmetric (pure-bending, no accelerometer) path is not "
-                "ported yet (ROADMAP Queue 1, items 3 and 6).")
-        if (self.geometry.accel_x is None or self.geometry.accel_y is None
-                or self.geometry.accel_r is None):
-            raise ValueError("The 3-field (unsymmetric) path needs an "
-                             "accelerometer disk position on the geometry.")
-        indicator = accel_indicator(self.geometry.accel_x,
-                                    self.geometry.accel_y,
-                                    self.geometry.accel_r)
+        have_accel_disk = None not in (self.geometry.accel_x,
+                                       self.geometry.accel_y,
+                                       self.geometry.accel_r)
+        indicator = (accel_indicator(self.geometry.accel_x,
+                                     self.geometry.accel_y,
+                                     self.geometry.accel_r)
+                     if have_accel_disk else None)
+        clamped = getattr(self.geometry, "clamped_labels", (1,))
 
         # inertia constants (physical form, reference Problem.py:361-374)
         self.I0 = h * rho
         self.I2 = rho * h**3 / 12.0
-        rho_corr = (self.accelerometer.mass
-                    / (np.pi * self.accelerometer.radius**2)
-                    / self.accelerometer.height)
-        self.I0Corr = self.accelerometer.height * rho_corr
-        self.I2Corr = rho_corr / 3.0 * (
-            (h / 2.0 + self.accelerometer.height) ** 3 - h**3 / 8.0)
+        if acc is not None:
+            rho_corr = acc.mass / (np.pi * acc.radius**2) / acc.height
+            self.I0Corr = acc.height * rho_corr
+            self.I2Corr = rho_corr / 3.0 * (
+                (h / 2.0 + acc.height) ** 3 - h**3 / 8.0)
+        else:
+            self.I0Corr = 0.0
+            self.I2Corr = 0.0
 
-        op = assemble_unsymm(
-            mesh, (self.geometry.accel_x, self.geometry.accel_y),
-            self.geometry.accel_r, indicator=indicator,
-            clamped_labels=getattr(self.geometry, "clamped_labels", (1,)))
+        self.is_symmetric_path = self.material.is_mps and acc is None
+        if self.is_symmetric_path:
+            op = assemble_symm(mesh, self.geometry.test_point,
+                               indicator=indicator, clamped_labels=clamped)
+            # I0 M + I2 L == rho (M + e^2/3 L) h  (Problem.py:269-271)
+            self.MInertia = self.I0 * op.M + self.I2 * op.L
+            self.fInertia = self.I0 * op.fM + self.I2 * op.fL
+        else:
+            if not have_accel_disk:
+                raise ValueError("The 3-field (unsymmetric) path needs an "
+                                 "accelerometer disk position on the "
+                                 "geometry.")
+            if acc is None:
+                raise ValueError(
+                    "A material that is not mid-plane symmetric runs the "
+                    "3-field path, whose FRF is the accelerometer readout: "
+                    "give the Problem an accelerometer.")
+            op = assemble_unsymm(
+                mesh, (self.geometry.accel_x, self.geometry.accel_y),
+                self.geometry.accel_r, indicator=indicator,
+                clamped_labels=clamped)
+            self.MInertia = (
+                self.I0 * (op.mats["M11"] + op.mats["M22"] + op.mats["M33"])
+                + self.I0Corr * (op.mats["M11C"] + op.mats["M22C"]
+                                 + op.mats["M33C"])
+                + self.I2 * op.mats["M33I2"]
+                + self.I2Corr * op.mats["M33I2C"]
+            )
+            self.fInertia = (
+                self.I0 * (op.lifts["M11"] + op.lifts["M22"] + op.lifts["M33"])
+                + self.I0Corr * (op.lifts["M11C"] + op.lifts["M22C"]
+                                 + op.lifts["M33C"])
+                + self.I2 * op.lifts["M33I2"]
+                + self.I2Corr * op.lifts["M33I2C"]
+            )
         self.op = op
-        self.MInertia = (
-            self.I0 * (op.mats["M11"] + op.mats["M22"] + op.mats["M33"])
-            + self.I0Corr * (op.mats["M11C"] + op.mats["M22C"] + op.mats["M33C"])
-            + self.I2 * op.mats["M33I2"]
-            + self.I2Corr * op.mats["M33I2C"]
-        )
-        self.fInertia = (
-            self.I0 * (op.lifts["M11"] + op.lifts["M22"] + op.lifts["M33"])
-            + self.I0Corr * (op.lifts["M11C"] + op.lifts["M22C"] + op.lifts["M33C"])
-            + self.I2 * op.lifts["M33I2"]
-            + self.I2Corr * op.lifts["M33I2C"]
-        )
         self.n_free = op.n_free
+
+    # ------------------------------------------------------------------
+
+    def _load_setup(self, spath, geometry, material, accel):
+        """setup.json folder loading (reference Problem.py:103-214)."""
+        if not isinstance(spath, (str, os.PathLike)):
+            raise TypeError(
+                "Argument `spath` should have one of the following types: "
+                f"str | os.PathLike, not {type(spath)}.")
+        if not os.path.isabs(spath):
+            spath = os.path.join(get_repo_dir(), "setups", spath)
+        if not os.path.exists(spath):
+            raise ValueError(f"Path of the setup {spath} does not exist.")
+        if not os.path.isdir(spath):
+            raise ValueError(f"Selected path {spath} is not a directory.")
+        setup_fpath = os.path.join(spath, "setup.json")
+        if not os.path.exists(setup_fpath):
+            raise FileNotFoundError(
+                f"`setup.json` file was not found in setup directory {spath}.")
+        with open(setup_fpath, "r") as file:
+            setup_params = json.load(file)
+
+        if "accelerometer" in setup_params:
+            nop = setup_params["accelerometer"]
+            if isinstance(nop, str):
+                self.accelerometer = Accelerometer(nop)
+            elif isinstance(nop, dict):
+                self.accelerometer = Accelerometer(AccelerometerParams(**nop))
+            else:
+                raise TypeError(
+                    f"In file {setup_fpath} key `accelerometer` should have a "
+                    "value with type `str` or `dict`.")
+        if "material" in setup_params:
+            nop = setup_params["material"]
+            if isinstance(nop, (str, dict)):
+                self.material = get_material(nop)
+            else:
+                raise TypeError(
+                    f"In file {setup_fpath} key `material` should have a value "
+                    "with type `str` or `dict`.")
+
+        if material is not None:
+            self.material = material
+        if accel is not None:
+            self.accelerometer = accel
+        if geometry is not None:
+            self.geometry = geometry
+        elif "geometry" in setup_params:
+            gdict = dict(setup_params["geometry"])
+            # optional mesh-resolution keys
+            g_ny = gdict.pop("ny", None)
+            g_refine = gdict.pop("refine", 1.0)
+            if "template" in gdict:
+                templ = gdict.pop("template")
+                self.geometry = Geometry(
+                    templ, accelerometer=self.accelerometer,
+                    params=GeometryParams(**gdict), ny=g_ny, refine=g_refine)
+            elif "edp" in gdict or "msh" in gdict:
+                raise NotImplementedError(
+                    f"The geometry of {setup_fpath} is a .edp/.msh file, "
+                    "whose import is not ported yet (ROADMAP Queue 1, item "
+                    "B: .edp/.msh geometry import); use a template.")
+            else:
+                raise ValueError(
+                    "Cannot create Geometry object, file "
+                    f"{setup_fpath} should contain `template`, `edp` or `msh` "
+                    "keyword inside `geometry`.")
+
+        freq_file = os.path.join(spath, "freqs.npy")
+        if os.path.exists(freq_file):
+            freqs = np.load(freq_file)
+            amp = np.load(os.path.join(spath, "amp.npy"))
+            ph_path = os.path.join(spath, "phase.npy")
+            phase = (np.load(ph_path) if os.path.exists(ph_path)
+                     else np.zeros_like(amp))
+            self.reference_fr = (freqs, amp * np.exp(1j * phase))
+
+        if None in (self.accelerometer, self.geometry, self.material):
+            raise RuntimeError(
+                "One of the `geometry`, `accelerometer`, `materials` "
+                "attributes was not provided in setup.json nor as an "
+                "argument.")
 
     # ------------------------------------------------------------------
 
@@ -406,6 +543,12 @@ class Problem:
         return memo
 
     def _build_fr_core(self):
+        if self._transform_is_freq_dependent():
+            raise NotImplementedError(
+                "The material transform depends on the frequency; the mixed "
+                "engine builds its operator once per sweep, and the direct "
+                "engine that takes such a material is not ported yet "
+                "(ROADMAP Queue 1, item 13: other engines).")
         op = self.op
         n = op.n_free
         # symmetric diagonal equilibration S = diag(1/sqrt(|K_ii(theta_ref)|))
@@ -421,11 +564,34 @@ class Problem:
         ss = scale_vec[op.pattern.rows] * scale_vec[op.pattern.cols]
         return self._mixed_core(K_ref, ss, scale_vec)
 
+    def _transform_is_freq_dependent(self) -> bool:
+        """Host probe: does the material's split transform depend on omega?
+        The built-in families do not; a custom material may (the reference
+        evaluates transform(theta, omega) at every frequency,
+        Problem.py:397-399).  Skipped without known parameters."""
+        theta = getattr(self, "parameters", None)
+        if theta is None:
+            return False
+        th = torch.as_tensor(np.asarray(theta, np.float64))
+        h = self.geometry.height
+        leaves = []
+        for om in (0.0, 1234.5):
+            if self.is_symmetric_path:
+                out = (self.material.d_split(th, h, om),)
+            else:
+                out = self.material.abd_split(th, h, om)
+            leaves.append(np.concatenate(
+                [_numpy(x).reshape(-1) for pair in out for x in pair]))
+        return not np.allclose(leaves[0], leaves[1], rtol=1e-12, atol=0.0,
+                               equal_nan=True)
+
     def _coarse_level(self, factor: float):
         """Mesh, free DOFs and constrained mask of the coarsened geometry —
         all the two-grid prolongation needs of the coarse level."""
         mesh = self.geometry.coarsened(factor).get_mesh()
-        constrained, _ = _uvw_constraints(
+        constraints = (_w_constraints if self.is_symmetric_path
+                       else _uvw_constraints)
+        constrained, _ = constraints(
             mesh, getattr(self.geometry, "clamped_labels", (1,)))
         return mesh, np.nonzero(~constrained)[0], constrained
 
@@ -448,6 +614,7 @@ class Problem:
         n = op.n_free
         h = self.geometry.height
         dev = self.device
+        symmetric = self.is_symmetric_path
 
         # the RCM block-tridiagonal layout from 8192 DOF (below it the dense
         # GEMM preconditioner dominates and the band's blocks are tiny);
@@ -495,7 +662,7 @@ class Problem:
                     f"this geometry (n_free={n}).")
             P = build_prolongation(self.mesh, c_mesh, op.free_idx, c_free,
                                    op.constrained, c_constrained,
-                                   three_field=True)
+                                   three_field=not symmetric)
             P = P[layout.perm, :].tocsr()
             P = (sp.diags(1.0 / pvec(scale_vec)) @ P).tocsr()
             rl = build_rect_band(P, layout)
@@ -509,25 +676,12 @@ class Problem:
             self._mg_rl = rl
             self._mg_Kc = Kc
 
+        def t64(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
         if self._given_opdata is not None:
             opdata = self._given_opdata
         else:
-            acc = self.accelerometer
-            eff = acc.effective_height * acc.height
-
-            def row(name):
-                R, r0 = op.readout[name]
-                return np.asarray(R.mean(axis=0)), float(r0.mean())
-
-            cu, ou = row("u")
-            cv, ov = row("v")
-            cw, ow = row("w")
-            cwx, owx = row("wx")
-            cwy, owy = row("wy")
-
-            def t64(a):
-                return torch.as_tensor(np.asarray(a, np.float64), device=dev)
-
             W64, _ = band_basis_host(K_ref_eq, M_eq, rows_h, cols_h, n,
                                      omega_max=2.0 * np.pi * self.f_max)
             rows_d = torch.as_tensor(rows_h, dtype=torch.int64, device=dev)
@@ -537,22 +691,44 @@ class Problem:
                 "cols": cols_d,
                 "MIn": t64(M_eq),
                 "fIn": t64(pvec(self.fInertia * scale_vec)),
-                "ABD": t64(np.stack([
-                    op.mat_stack(["A" + s for s in MODULI_INDICES]),
-                    op.mat_stack(["B" + s for s in MODULI_INDICES]),
-                    op.mat_stack(["D" + s for s in MODULI_INDICES]),
-                ]) * ss[None, None, :]),
-                "fABD": t64(pvec(np.stack([
-                    op.lift_stack(["A" + s for s in MODULI_INDICES]),
-                    op.lift_stack(["B" + s for s in MODULI_INDICES]),
-                    op.lift_stack(["D" + s for s in MODULI_INDICES]),
-                ]) * scale_vec[None, None, :])),
-                "ru": t64(pvec((cu - eff * cwx) * scale_vec)),
-                "rv": t64(pvec((cv - eff * cwy) * scale_vec)),
-                "rw": t64(pvec(cw * scale_vec)),
-                "r0": t64([ou - eff * owx, ov - eff * owy, ow]),
                 "W64": t64(W64),
             }
+            if symmetric:
+                opdata |= {
+                    "Ks": t64(op.Ks * ss[None, :]),                # (6, nnz)
+                    "fKs": t64(pvec(op.fKs * scale_vec[None, :])),
+                    "c": t64(pvec(op.interpolation_vector * scale_vec)),
+                    "c0": t64(op.interpolation_value_from_bc),
+                }
+            else:
+                acc = self.accelerometer
+                eff = acc.effective_height * acc.height
+
+                def row(name):
+                    R, r0 = op.readout[name]
+                    return np.asarray(R.mean(axis=0)), float(r0.mean())
+
+                cu, ou = row("u")
+                cv, ov = row("v")
+                cw, ow = row("w")
+                cwx, owx = row("wx")
+                cwy, owy = row("wy")
+                opdata |= {
+                    "ABD": t64(np.stack([
+                        op.mat_stack(["A" + s for s in MODULI_INDICES]),
+                        op.mat_stack(["B" + s for s in MODULI_INDICES]),
+                        op.mat_stack(["D" + s for s in MODULI_INDICES]),
+                    ]) * ss[None, None, :]),
+                    "fABD": t64(pvec(np.stack([
+                        op.lift_stack(["A" + s for s in MODULI_INDICES]),
+                        op.lift_stack(["B" + s for s in MODULI_INDICES]),
+                        op.lift_stack(["D" + s for s in MODULI_INDICES]),
+                    ]) * scale_vec[None, None, :])),
+                    "ru": t64(pvec((cu - eff * cwx) * scale_vec)),
+                    "rv": t64(pvec((cv - eff * cwy) * scale_vec)),
+                    "rw": t64(pvec(cw * scale_vec)),
+                    "r0": t64([ou - eff * owx, ov - eff * owy, ow]),
+                }
             if layout is not None:
                 opdata["band_lin"] = torch.as_tensor(
                     layout.lin, dtype=torch.int64, device=dev)
@@ -595,19 +771,32 @@ class Problem:
             self._pack_build_s = time.perf_counter() - t0
 
         material = self.material
-        ki_prop = material.scalar_loss_factor
-        ts = self.accelerometer.transverse_sensitivity
+        # the scalar-loss families have K_im = beta K_re exactly; per-modulus
+        # loss factors carry K_im as a third operator
+        ki_prop = bool(material.scalar_loss_factor)
         freq_chunk = self._auto_freq_chunk()
+
+        if symmetric:
+            def coefficients(params, od):
+                """(Re, Im) of the K/lift combination: the 6 bending
+                moduli against the (6, nnz) / (6, n) stacks."""
+                Dre, Dim = material.d_split(params, h)
+                return Dre, Dim, od["Ks"], od["fKs"], "k,kn->n"
+        else:
+            def coefficients(params, od):
+                (Are, Aim), (Bre, Bim), (Dre, Dim) = material.abd_split(
+                    params, h)
+                return (torch.stack([Are, Bre, Dre]),          # (3, 6)
+                        torch.stack([Aim, Bim, Dim]), od["ABD"], od["fABD"],
+                        "mk,mkn->n")
 
         def assemble(freqs, params, od):
             omegas = 2.0 * math.pi * freqs
-            (Are, Aim), (Bre, Bim), (Dre, Dim) = material.abd_split(params, h)
-            Cre = torch.stack([Are, Bre, Dre])                  # (3, 6)
-            Cim = torch.stack([Aim, Bim, Dim])
-            K_re = torch.einsum("mk,mkn->n", Cre, od["ABD"])
-            K_im = torch.einsum("mk,mkn->n", Cim, od["ABD"])
-            bK_re = torch.einsum("mk,mkn->n", Cre, od["fABD"])
-            bK_im = torch.einsum("mk,mkn->n", Cim, od["fABD"])
+            Cre, Cim, stack, lifts, eq = coefficients(params, od)
+            K_re = torch.einsum(eq, Cre, stack)
+            K_im = torch.einsum(eq, Cim, stack)
+            bK_re = torch.einsum(eq, Cre, lifts)
+            bK_im = torch.einsum(eq, Cim, lifts)
             B_re = bK_re[None, :] - (omegas ** 2)[:, None] * od["fIn"][None, :]
             B_im = bK_im[None, :].expand_as(B_re)
             return K_re, K_im, B_re, B_im, omegas
@@ -654,21 +843,33 @@ class Problem:
                                        ki_proportional=ki_prop)
             return AU_re - B_re, AU_im - B_im
 
-        def readout(U_re, U_im, od):
-            def mag2(rvec, r0):
-                yr = U_re @ rvec + r0
-                yi = U_im @ rvec
-                return yr * yr + yi * yi
+        if symmetric:
+            def readout(U_re, U_im, od):
+                """The complex amplitude c0 + U . c at the test point."""
+                return torch.complex(od["c0"] + U_re @ od["c"],
+                                     U_im @ od["c"])
+        else:
+            ts = self.accelerometer.transverse_sensitivity
 
-            u2 = mag2(od["ru"], od["r0"][0])
-            v2 = mag2(od["rv"], od["r0"][1])
-            w2 = mag2(od["rw"], od["r0"][2])
-            return torch.sqrt(ts * ts * (u2 + v2) + w2)
+            def readout(U_re, U_im, od):
+                """The accelerometer magnitude from the disk-mean u, v, w
+                rows."""
+                def mag2(rvec, r0):
+                    yr = U_re @ rvec + r0
+                    yi = U_im @ rvec
+                    return yr * yr + yi * yi
+
+                u2 = mag2(od["ru"], od["r0"][0])
+                v2 = mag2(od["rv"], od["r0"][1])
+                w2 = mag2(od["rw"], od["r0"][2])
+                return torch.sqrt(ts * ts * (u2 + v2) + w2)
 
         def core(freqs, params, od):
-            """FRF magnitude (F,) f64 at ``freqs`` (F,) for ``params``, both
-            f64 tensors on the operator data's device.  Differentiable in
-            ``params``: the backward of the sweep is one adjoint sweep."""
+            """FRF (F,) at ``freqs`` (F,) for ``params``, both f64 tensors
+            on the operator data's device: the real accelerometer magnitude
+            (3-field path) or the complex test-point amplitude (symmetric
+            path).  Differentiable in ``params``: the backward of the sweep
+            is one adjoint sweep."""
             U_re, U_im = _ImplicitSweep.apply(params, freqs, od, core)
             return readout(U_re, U_im, od)
 
@@ -684,9 +885,15 @@ class Problem:
         the reference operator of the band basis and the preconditioner."""
         op = self.op
         if getattr(self, "parameters", None) is None:
+            if self.is_symmetric_path:
+                return op.Ks.sum(axis=0)
             return sum(v for k, v in op.mats.items() if k[0] in "ABD")
-        Av, Bv, Dv = self.material.reference_coeffs(
-            np.asarray(self.parameters, np.float64), self.geometry.height)
+        theta = np.asarray(self.parameters, np.float64)
+        h = self.geometry.height
+        if self.is_symmetric_path:
+            D = self.material.reference_d(theta, h)
+            return np.einsum("k,kn->n", D, op.Ks)
+        Av, Bv, Dv = self.material.reference_coeffs(theta, h)
         out = np.zeros(op.pattern.nnz)
         for i, s in enumerate(MODULI_INDICES):
             out += (Av[i] * op.mats["A" + s] + Bv[i] * op.mats["B" + s]
@@ -705,8 +912,10 @@ class Problem:
             2 ** np.floor(np.log2(max(2.0e9 / per_lane, 8.0))), 8, 64))
 
     def getFRFunction(self) -> Callable:
-        """(freqs, params) -> FRF magnitude, an f64 tensor on the Problem's
-        device.  The callable exposes ``.core`` and ``.opdata``."""
+        """(freqs, params) -> FRF on the Problem's device: the f64
+        accelerometer magnitude (3-field path) or the complex128 test-point
+        amplitude (symmetric path).  The callable exposes ``.core`` and
+        ``.opdata``."""
         memo = getattr(self, "_fr_fn_memo", None)
         if memo is not None:
             return memo
@@ -737,12 +946,27 @@ class Problem:
 
     def solveForward(self, freqs: np.ndarray,
                      params: np.ndarray = None) -> torch.Tensor:
-        """Forward FRF magnitude for a set of frequencies [Hz]
-        (reference Problem.py:611-639), an f64 tensor on the device."""
+        """Forward FRF for a set of frequencies [Hz] (reference
+        Problem.py:611-639), a tensor on the device: real magnitude on the
+        3-field path, complex amplitude on the symmetric path."""
         if params is None:
             params = self.parameters
         self._check_band(freqs)
         return self.getFRFunction()(freqs, params)
+
+    def getSolutionMatrices(self, D, beta):
+        """Flat (K_real, K_imag, MInertia) data of the symmetric path for
+        the bending moduli ``D`` (6,) and loss factor ``beta``, f64 tensors
+        on the Problem's device (Problem.py:923-930 analog)."""
+        if not self.is_symmetric_path:
+            raise NotImplementedError(
+                "Solution matrices for the 3-field path.")
+        dev = self.device
+        D = torch.as_tensor(np.asarray(D, np.float64), device=dev)
+        Ks = torch.as_tensor(self.op.Ks, device=dev)
+        K_real = torch.einsum("k,kn->n", D, Ks)
+        K_imag = torch.einsum("k,kn->n", beta * D, Ks)
+        return K_real, K_imag, torch.as_tensor(self.MInertia, device=dev)
 
     # ------------------------------------------------------------------
 

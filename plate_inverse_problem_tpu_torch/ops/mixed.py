@@ -13,8 +13,30 @@ band f32 two-grid cycle.
 3. **Per-frequency solve**: exact band-resolvent start, then restarted
    flexible GMRES in split-complex f64 preconditioned by the band resolvent
    plus the deflated complement preconditioner (dense inverse or two-grid
-   cycle), then final band corrections through a residual-grade
-   (entrywise-combined) operator apply.
+   cycle), then final band corrections on the band projection of the true
+   residual, Z^T (b - A x) = Z^T b - (A Z)^T x.
+
+The final band corrections are where the port departs from the JAX
+package, which feeds them a full residual b - A x computed in f64 with
+the operator values combined entrywise.  At a resonance peak the solution
+is dominated by one smooth band mode, and the f64 rounding of A x there is
+eps * sum_k |A_jk x_k|, which exceeds |A x| by the stiffness spread
+lambda_max / lambda_mode; the resolvent amplifies it by the modal Q into
+the FRF.  Measured against an f64 LU solve with extended-precision
+iterative refinement (.probes/peak_floor.py, NVIDIA H100 80GB HBM3 at
+700 W): 2.1e-6-3.1e-6 at the pure-bending peak (n = 13862) and up to
+6.3e-7 at the 21k laminate peak, varying from run to run with the f64
+atomics.  The port computes the band panels K Z, M Z (and K_im Z) once
+per sweep with exact row sums (``_dd_spmv``: exact products, Rump's
+extraction), rounded once, and takes the projected residual from them with f64 dots,
+whose rounding no longer meets the stiffness spread: 3.2e-7 at that
+peak, the same in every run.
+
+The imaginary stiffness is exact in every operator apply: for the
+scalar-loss material families K_im = beta K_re, and the applies scale the
+K_re matvec; for per-modulus loss factors (``ki_proportional=False``)
+K_im is a third operator beside K_re and M.  beta = <K_re, K_im> /
+<K_re, K_re> is only the preconditioner's model of it.
 
 The JAX side vmaps the per-frequency solve; here the frequency lanes are a
 written-out leading axis of every (lanes, 2, n) re/im stack.  Its batched
@@ -43,7 +65,8 @@ _MG_REFINE = 1
 _PRECOND_REFINE = 1
 # the residual-map apply (mixed_apply) walks the nnz axis in segments of
 # _RES_SEG entries and the lanes in chunks that keep each segment's
-# (S=2, 2, lanes, seg) f64 contribution tensor under _APPLY_BUDGET bytes;
+# (S, 2, lanes, seg) f64 contribution tensor under _APPLY_BUDGET bytes (S =
+# 2 operators, K and M, or 3 with K_im);
 # the sweep's flat applies walk it in _RES_SEG segments above 2 * _RES_SEG.
 # Sized for an 80 GB card: 64-lane chunks at the 21k tier, and the
 # Jacobian's 3 forward tangents keep about 4x that live (5.2 GB peak with
@@ -51,6 +74,8 @@ _PRECOND_REFINE = 1
 # to walk several chunks and segments on a small mesh.
 _RES_SEG = 1 << 17
 _APPLY_BUDGET = 512e6
+# rows of the band basis per exact panel product (_dd_spmv)
+_DD_ROWS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -112,15 +137,15 @@ def _sel(mask, new, old):
 
 
 def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
-            r0, final_correct, final_correct_n: int, A_final,
-            basis_f32: bool = False):
+            r0, band_correct, band_correct_n: int, basis_f32: bool = False):
     """Restarted flexible (right-preconditioned) GMRES on split-complex f64
     lanes (JAX ``_pgmres`` with ``anchor=True``, ``tol_abs2=0``, a given
     start residual and final band corrections).
 
     ``bb``/``x0``/``r0``: (L, 2, n).  ``tol_rel``: (L,).  ``A_apply``/
-    ``P_apply``/``A_final``/``final_correct``: (L', 2, n) -> (L', 2, n)
-    maps taking a lane index (L',) as their second argument.  Up to
+    ``P_apply``/``band_correct``: (L', 2, n) -> (L', 2, n) maps taking a
+    lane index (L',) as their second argument; ``band_correct`` maps an
+    iterate to the iterate after one band correction.  Up to
     ``n_cycles`` cycles of ``k_max`` iterations; between cycles the TRUE
     f64 residual decides whether a lane goes on.  FLEXIBLE because the f32
     preconditioner is linear only to ~1e-7: the preconditioned vectors
@@ -152,10 +177,9 @@ def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
         c += 1
 
     # final defect corrections through the exact band resolvent, on the
-    # residual-grade apply (see A_res_apply in mixed_sweep)
-    for _ in range(final_correct_n):
-        r = bb - A_final(x, lanes)
-        x = x + final_correct(r, lanes)
+    # band projection of the true residual (see mixed_sweep)
+    for _ in range(band_correct_n):
+        x = band_correct(x, lanes)
     return x
 
 
@@ -357,34 +381,88 @@ def mixed_apply(K_re, K_im, M_flat, omegas, U_re, U_im, rows, cols, n: int,
                 ki_proportional: bool = True):
     """Batched split-complex operator application A(theta) U on (F, n)
     pairs: the exact f64 operator of ``mixed_sweep`` on the flat pattern,
-    one fused scatter pass for K and M per chunk of lanes (_APPLY_BUDGET).
+    one fused scatter pass for the operator stack per chunk of lanes
+    (_APPLY_BUDGET): [K_re, M], or [K_re, M, K_im] for per-modulus loss
+    factors (``ki_proportional=False``).
 
-    ``beta`` = <K_re, K_im> / <K_re, K_re> stays in the graph: its tangent
-    d beta is what makes the adjoint Jacobian exact for the scalar-loss
-    families (dK_im = d beta K_re + beta dK_re).  Differentiable in the
-    operator data by forward and reverse mode, at fixed U.
+    With ``ki_proportional``, ``beta`` = <K_re, K_im> / <K_re, K_re> stays
+    in the graph: its tangent d beta is what makes the adjoint Jacobian
+    exact for the scalar-loss families (dK_im = d beta K_re + beta dK_re).
+    Differentiable in the operator data by forward and reverse mode, at
+    fixed U.
 
     Returns (AU_re, AU_im), each (F, n) f64.
     """
-    if not ki_proportional:
-        raise NotImplementedError(
-            "Per-modulus loss factors (ki_proportional=False) are not "
-            "ported yet (ROADMAP Queue 1, item B: material families).")
     f64 = torch.float64
     om2 = (omegas.to(f64) ** 2)[:, None]
     Kr = K_re.to(f64)
-    beta = torch.dot(Kr, K_im.to(f64)) / torch.dot(Kr, Kr)
-    KM = torch.stack([Kr, M_flat.to(f64)])
+    ops = [Kr, M_flat.to(f64)]
+    if not ki_proportional:
+        ops.append(K_im.to(f64))
     uu = torch.stack([U_re.to(f64), U_im.to(f64)])
     seg = min(int(rows.shape[0]), _RES_SEG)
-    chunk = max(8, int(_APPLY_BUDGET // (2 * 2 * seg * 8)))
+    chunk = max(8, int(_APPLY_BUDGET // (len(ops) * 2 * seg * 8)))
     chunk = 1 << (chunk.bit_length() - 1)
-    KMx = torch.cat([_fused_apply_flat(KM, uu[:, lo:lo + chunk], rows, cols,
-                                       n, seg)
+    out = torch.cat([_fused_apply_flat(torch.stack(ops), uu[:, lo:lo + chunk],
+                                       rows, cols, n, seg)
                      for lo in range(0, uu.shape[1], chunk)], dim=2)
-    Kx, Mx = KMx[0], KMx[1]
-    return (Kx[0] - beta * Kx[1] - om2 * Mx[0],
-            Kx[1] + beta * Kx[0] - om2 * Mx[1])
+    Kx, Mx = out[0], out[1]
+    if ki_proportional:
+        beta = torch.dot(Kr, K_im.to(f64)) / torch.dot(Kr, Kr)
+        Kix = (beta * Kx[0], beta * Kx[1])
+    else:
+        Kix = out[2]
+    return (Kx[0] - Kix[1] - om2 * Mx[0],
+            Kx[1] + Kix[0] - om2 * Mx[1])
+
+
+def _split(a):
+    """Veltkamp split of a into 26-bit halves, a = hi + lo."""
+    c = 134217729.0 * a          # 2^27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_prod(a, b):
+    """a * b = p + e exactly (Dekker's TwoProduct; IEEE f64, no FMA
+    contraction across torch ops)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _dd_spmv(data, x, rows, cols, n: int):
+    """Each operator of the (S, nnz) stack ``data`` on the pattern applied
+    to the rows of x (m, n): (S, m, n) f64, every row sum exact before one
+    final rounding however much its terms cancel.
+
+    The products are split exactly, d x = p + e (TwoProduct).  Rump's
+    extraction against sigma, a power of two above 2 * d_max * max_row |p|,
+    splits p = p_hi + p_lo with every p_hi a multiple of ulp(sigma): any
+    partial sum of a row's p_hi is then a representable multiple of it, so
+    one ``index_add`` sums them exactly in any order, and the small p_lo + e
+    sum alongside to f64 accuracy of their own size.  The result is
+    S_hi + S_lo rounded once.  The rows of x go _DD_ROWS at a time."""
+    d_max = int(torch.bincount(rows, minlength=n).max())
+    lift = 2.0 ** (int(np.ceil(np.log2(d_max))) + 2)
+    out = torch.empty(data.shape[0], x.shape[0], n, dtype=torch.float64,
+                      device=x.device)
+    for k in range(data.shape[0]):
+        for lo_ in range(0, x.shape[0], _DD_ROWS):
+            p, e = _two_prod(data[k], x[lo_:lo_ + _DD_ROWS][:, cols])
+            idx = rows.expand_as(p)
+            m_row = torch.zeros(p.shape[0], n, dtype=torch.float64,
+                                device=x.device).scatter_reduce(
+                1, idx, p.abs(), "amax")
+            _, ex = torch.frexp(m_row)                  # m_row < 2^ex
+            sigma = torch.ldexp(lift * torch.ones_like(m_row), ex)[:, rows]
+            p_hi = (sigma + p) - sigma
+            s_hi = torch.zeros_like(m_row).index_add_(1, rows, p_hi)
+            s_lo = torch.zeros_like(m_row).index_add_(1, rows,
+                                                      (p - p_hi) + e)
+            out[k, lo_:lo_ + _DD_ROWS] = s_hi + s_lo
+    return out
 
 
 def _dense_apply(invK, x):
@@ -433,6 +511,12 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     FGMRES bases in f32 and feeds the preconditioner f32 (at least two
     cycles then: one cycle certifies only ~3e-7).
 
+    ``ki_proportional``: K_im = beta K_re exactly (the scalar-loss
+    material families), so the applies scale the K_re matvec; else K_im is
+    a third exact operator (per-modulus loss factors) in every apply, its
+    Galerkin projection in the band solves, and beta only the
+    preconditioner's model.
+
     ``adjoint``: solve conj(A) y = b instead of A u = b — the transpose of
     the real split-complex operator [[Ar, -Ai], [Ai, Ar]] of the complex
     symmetric A.  The same solver with the sign of the imaginary part
@@ -441,10 +525,6 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
     Returns (U_re, U_im), each (F, n) f64.
     """
-    if not ki_proportional:
-        raise NotImplementedError(
-            "Per-modulus loss factors (ki_proportional=False) are not "
-            "ported yet (ROADMAP Queue 1, item 2: material transforms).")
     if mg is not None and band is None:
         raise NotImplementedError(
             "The flat multilevel preconditioner (a multigrid without the "
@@ -456,28 +536,31 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     f32 = torch.float32
     dev = K_re.device
     # beta is only the preconditioner's model of K_im; the residuals use
-    # K_im = beta K_re exactly (scalar-loss families)
+    # the exact K_im (= beta K_re for the scalar-loss families)
     beta = torch.dot(K_re, K_im) / torch.dot(K_re, K_re)
     Kr64 = K_re.to(f64)
     Ms64 = M_flat.to(f64)
+    Ki64 = None if ki_proportional else K_im.to(f64)
     rows_l = rows.long()
     cols_l = cols.long()
 
     if band is not None:
         lay = band["layout"]
-        Kband = flat_to_band(Kr64, lay, band["lin"])
-        Mband = flat_to_band(Ms64, lay, band["lin"])
+        bands = [flat_to_band(v, lay, band["lin"])
+                 for v in (Kr64, Ms64, Ki64) if v is not None]
 
         def K_mv(x):
-            return band_mv(Kband, x, lay)
+            return band_mv(bands[0], x, lay)
 
         def M_mv(x):
-            return band_mv(Mband, x, lay)
+            return band_mv(bands[1], x, lay)
 
-        def KM_mv(uu):
-            return K_mv(uu), M_mv(uu)
+        def KMI_mv(uu):
+            """(K u, M u, K_im u or None) for a (..., n) stack."""
+            return (K_mv(uu), M_mv(uu),
+                    None if ki_proportional else band_mv(bands[2], uu, lay))
     else:
-        KM64 = torch.stack([Kr64, Ms64])
+        ops64 = torch.stack([v for v in (Kr64, Ms64, Ki64) if v is not None])
         seg = _flat_seg(int(rows_l.shape[0]))
 
         def K_mv(x):
@@ -486,10 +569,10 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         def M_mv(x):
             return spmv_flat(Ms64, rows_l, cols_l, x, n)
 
-        def KM_mv(uu):
-            # K and M in one fused scatter pass over the pattern
-            KMu = _fused_apply_flat(KM64, uu, rows_l, cols_l, n, seg)
-            return KMu[0], KMu[1]
+        def KMI_mv(uu):
+            # K, M (and K_im) in one fused scatter pass over the pattern
+            out = _fused_apply_flat(ops64, uu, rows_l, cols_l, n, seg)
+            return out[0], out[1], None if ki_proportional else out[2]
 
     # ---- per-theta band Rayleigh-Ritz, all f64 --------------------------
     KW = K_mv(W64.T.contiguous())                      # (m, n) rows = K w_i
@@ -508,14 +591,24 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     CQ = Cw_sym @ Qw
     lam_w = (Qw * CQ).sum(0) / (Qw * Qw).sum(0)
     Zw64 = W64 @ Qw                                    # (n, m) band modes
-    MZ64 = M_mv(Zw64.T.contiguous()).T                 # (n, m) M-weighted
-    KZw64 = KW.T @ Qw                                  # (n, m) = K Zw
+    # the band panels K Zw, M Zw (and K_im Zw), each entry f64-accurate in
+    # its own magnitude (exact row sums, _dd_spmv): the resolvent start's
+    # A x0 and the projected residuals of the final band corrections are
+    # f64 dots against them
+    panels = _dd_spmv(torch.stack([v for v in (Kr64, Ms64, Ki64)
+                                   if v is not None]),
+                      Zw64.T.contiguous(), rows_l, cols_l, n)
+    KZw64, MZ64 = panels[0].T, panels[1].T             # (n, m)
     # exact Galerkin projections for the resolvent start and the final
     # band corrections
     Kp64 = Zw64.T @ KZw64
     Mp64 = Zw64.T @ MZ64
     Kp64 = 0.5 * (Kp64 + Kp64.T)
     Mp64 = 0.5 * (Mp64 + Mp64.T)
+    if not ki_proportional:
+        KiZw64 = panels[2].T                           # (n, m) = K_im Zw
+        Kip64 = Zw64.T @ KiZw64
+        Kip64 = 0.5 * (Kip64 + Kip64.T)
 
     # ---- FGMRES shape knobs ---------------------------------------------
     # n_refine is the total budget spent as restarted cycles of k_cycle
@@ -570,6 +663,16 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         = +1 solves A, -1 conj(A)."""
         om2 = om * om                                   # (L,)
         sb = sign * beta
+
+        def combine(Ku, Mu, Kiu, o2):
+            """(re, im) of A u = (K_re + i sign K_im - om^2 M) u from the
+            matvecs of the (re, im) pair u (each a pair): K_im u = beta K_re
+            u for the scalar-loss families (``Kiu`` None)."""
+            if Kiu is None:
+                return (Ku[0] - sb * Ku[1] - o2 * Mu[0],
+                        Ku[1] + sb * Ku[0] - o2 * Mu[1])
+            return (Ku[0] - sign * Kiu[1] - o2 * Mu[0],
+                    Ku[1] + sign * Kiu[0] - o2 * Mu[1])
         dre = lam_w[None, :] - om2[:, None]             # (L, m)
         dim = sb * lam_w                                # (m,)
         den_d = dre * dre + dim * dim
@@ -583,15 +686,15 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         def proj_apply(y_re, y_im, li):
             """Exact projected operator Z^T A Z on (L', m) coefficients."""
             o2 = om2[li][:, None]
-            Ky_re, Ky_im = y_re @ Kp64.T, y_im @ Kp64.T
-            My_re, My_im = y_re @ Mp64.T, y_im @ Mp64.T
-            return (Ky_re - sb * Ky_im - o2 * My_re,
-                    Ky_im + sb * Ky_re - o2 * My_im)
+            Kiy = (None if ki_proportional
+                   else (y_re @ Kip64.T, y_im @ Kip64.T))
+            return combine((y_re @ Kp64.T, y_im @ Kp64.T),
+                           (y_re @ Mp64.T, y_im @ Mp64.T), Kiy, o2)
 
-        def band_coeffs(rr, li):
-            """Galerkin solve of the projected system: diagonal resolvent
-            start + 2 refinement passes against the exact m x m pencil."""
-            q_re, q_im = rr[:, 0] @ Zw64, rr[:, 1] @ Zw64
+        def band_coeffs(q_re, q_im, li):
+            """Galerkin solve of the projected system Z^T A Z y = q:
+            diagonal resolvent start + 2 refinement passes against the
+            exact m x m pencil."""
             y_re, y_im = rsolve_diag(q_re, q_im, li)
             for _ in range(2):
                 Ay_re, Ay_im = proj_apply(y_re, y_im, li)
@@ -601,38 +704,25 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
             return y_re, y_im
 
         def band_stack(rr, li):
-            y_re, y_im = band_coeffs(rr, li)
+            y_re, y_im = band_coeffs(rr[:, 0] @ Zw64, rr[:, 1] @ Zw64, li)
             return torch.stack([y_re @ Zw64.T, y_im @ Zw64.T], dim=1)
 
-        def A_apply(uu, li):
-            """Exact f64 operator on (L', 2, n): two band DGEMMs or one
-            fused flat scatter."""
-            o2 = om2[li][:, None]
-            Ku, Mu = KM_mv(uu)
-            return torch.stack([Ku[:, 0] - sb * Ku[:, 1] - o2 * Mu[:, 0],
-                                Ku[:, 1] + sb * Ku[:, 0] - o2 * Mu[:, 1]],
-                               dim=1)
+        def proj_AZ(x_re, x_im, li):
+            """Z^T A x = (A Z)^T x (A complex symmetric) from the panels,
+            for (L', n) iterates."""
+            Kix = (None if ki_proportional
+                   else (x_re @ KiZw64, x_im @ KiZw64))
+            return combine((x_re @ KZw64, x_im @ KZw64),
+                           (x_re @ MZ64, x_im @ MZ64), Kix, om2[li][:, None])
 
-        def A_res_apply(uu, li):
-            """Residual-grade exact apply: combine the flat operator values
-            ENTRYWISE per lane (A_jk = K_jk - om^2 M_jk cancels at the
-            entry level near a resonance), then one scatter pass, walked
-            in nnz segments (the (lanes, seg) temporaries stay small)."""
-            o2 = om2[li][:, None]
-            out = torch.zeros_like(uu)
-            nnz = int(rows_l.shape[0])
-            seg = _flat_seg(nnz)
-            for lo in range(0, nnz, seg):
-                r, c = rows_l[lo:lo + seg], cols_l[lo:lo + seg]
-                kd = Kr64[None, lo:lo + seg]
-                are = kd - o2 * Ms64[None, lo:lo + seg]
-                aim = sb * kd
-                g_re = uu[:, 0][:, c]
-                g_im = uu[:, 1][:, c]
-                contrib = torch.stack([are * g_re - aim * g_im,
-                                       aim * g_re + are * g_im], dim=1)
-                out.index_add_(-1, r, contrib)
-            return out
+        def A_apply(uu, li):
+            """Exact f64 operator on (L', 2, n): two (three) band DGEMMs
+            or one fused flat scatter."""
+            Ku, Mu, Kiu = KMI_mv(uu)
+            return torch.stack(combine(
+                Ku.unbind(1), Mu.unbind(1),
+                None if Kiu is None else Kiu.unbind(1),
+                om2[li][:, None]), dim=1)
 
         def P_common(rr, band_part, Zm, Pm, pc, li):
             """Band resolvent + the M-deflated complement preconditioner:
@@ -672,17 +762,26 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
         def solve(bbs):
             lanes = torch.arange(bbs.shape[0], device=dev)
-            y_re, y_im = band_coeffs(bbs, lanes)
+            Zb = bbs @ Zw64                             # (L, 2, m) = Z^T b
+            y_re, y_im = band_coeffs(Zb[:, 0], Zb[:, 1], lanes)
             x0 = torch.stack([y_re @ Zw64.T, y_im @ Zw64.T], dim=1)
-            KZy = torch.stack([y_re @ KZw64.T, y_im @ KZw64.T], dim=1)
-            MZy = torch.stack([y_re @ MZ64.T, y_im @ MZ64.T], dim=1)
-            o2 = om2[:, None]
-            Ax0 = torch.stack([KZy[:, 0] - sb * KZy[:, 1] - o2 * MZy[:, 0],
-                               KZy[:, 1] + sb * KZy[:, 0] - o2 * MZy[:, 1]],
-                              dim=1)
+            KiZy = (None if ki_proportional
+                    else (y_re @ KiZw64.T, y_im @ KiZw64.T))
+            Ax0 = torch.stack(combine(
+                (y_re @ KZw64.T, y_im @ KZw64.T),
+                (y_re @ MZ64.T, y_im @ MZ64.T), KiZy, om2[:, None]), dim=1)
+
+            def band_correct(x, li):
+                """x + Z y with Z^T A Z y = Z^T (b - A x): one final band
+                correction on the projected true residual."""
+                AZx_re, AZx_im = proj_AZ(x[:, 0], x[:, 1], li)
+                y_re, y_im = band_coeffs(Zb[li, 0] - AZx_re,
+                                         Zb[li, 1] - AZx_im, li)
+                return x + torch.stack([y_re @ Zw64.T, y_im @ Zw64.T], dim=1)
+
             return _pgmres(A_apply, P_apply, bbs, x0, tol_eff, k_cycle,
-                           n_cycles, bbs - Ax0, band_stack, band_correct_n,
-                           A_res_apply, basis_f32)
+                           n_cycles, bbs - Ax0, band_correct, band_correct_n,
+                           basis_f32)
 
         return solve
 

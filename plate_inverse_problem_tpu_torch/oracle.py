@@ -2,10 +2,21 @@
 
 Assemble the complex operator A = K(theta) - omega^2 M of the
 Dirichlet-reduced system, without equilibration or reordering, from the
-host operator bundle, and solve it with scipy's ``splu`` per frequency:
+host operator bundle of either path, and solve it with scipy's ``splu``
+per frequency, refined by ``REFINE_STEPS`` steps of iterative refinement
+whose residuals b - A u are computed in ``np.longdouble`` (80-bit on x86)
+from the same f64 data.  The refinement gives the solution of the f64
+system: a plain f64 LU solve carries eps * kappa, which at a resonance
+peak of a fine mesh reaches 1.7e-6 of the FRF (the pure-bending plate at
+n = 13862; 4.8e-7 at the 21k laminate; a host computation,
+.probes/peak_floor.py).  The complex stiffness K = K_re + i K_im comes
+from the material's split moduli, so per-modulus loss factors give a
+K_im of their own:
 
-* ``splu_frf`` — the FRF, through the accelerometer readout (the check
-  ``.probes/scale_tier.py`` and ``bench.py`` run against the JAX package);
+* ``splu_frf`` — the FRF: the accelerometer magnitude on the 3-field path,
+  the complex test-point amplitude on the symmetric path (the check
+  ``.probes/scale_tier.py`` and ``bench.py`` run against the JAX package,
+  there without the refinement);
 * ``splu_adjoint`` — the adjoint solve of the sweep's real split-complex
   system, mapped into the sweep's equilibrated, band-permuted space.
 """
@@ -13,11 +24,27 @@ from __future__ import annotations
 
 import numpy as np
 
+REFINE_STEPS = 3
 
-def _operator(problem, theta):
-    """(K, M, bK): complex f64 CSC stiffness K(theta) (with its loss
-    factor), real mass M, and the stiffness lift bK, on the free DOFs in
-    their original order."""
+
+def _moduli(problem, theta):
+    """Complex moduli at ``theta``, numpy complex128: (A, B, D) on the
+    3-field path, D on the symmetric path."""
+    import torch
+
+    th = torch.as_tensor(np.asarray(theta, np.float64))
+    h = problem.geometry.height
+    if problem.is_symmetric_path:
+        re, im = problem.material.d_split(th, h)
+        return re.numpy() + 1j * im.numpy()
+    return tuple(re.numpy() + 1j * im.numpy()
+                 for re, im in problem.material.abd_split(th, h))
+
+
+def _operator(problem, theta, dtype=np.complex128):
+    """(K, M, bK): complex stiffness K(theta) (with its loss factors) and
+    real mass M as CSC matrices, and the stiffness lift bK, on the free DOFs
+    in their original order, combined in ``dtype`` from the f64 data."""
     import scipy.sparse as sp
 
     from .fem.assembly import MODULI_INDICES
@@ -25,33 +52,73 @@ def _operator(problem, theta):
     p = problem
     op = p.op
     n = p.n_free
-    Av, Bv, Dv = p.material.reference_coeffs(theta, p.geometry.height)
-    loss = 1.0 + 1j * theta[p.material._loss_factor_index]
-    K_flat = sum(Av[i] * op.mats["A" + s] + Bv[i] * op.mats["B" + s]
-                 + Dv[i] * op.mats["D" + s]
-                 for i, s in enumerate(MODULI_INDICES)) * loss
-    bK = sum(Av[i] * op.lifts["A" + s] + Bv[i] * op.lifts["B" + s]
-             + Dv[i] * op.lifts["D" + s]
-             for i, s in enumerate(MODULI_INDICES)) * loss
+    real = np.longdouble if dtype == np.clongdouble else np.float64
+    if p.is_symmetric_path:
+        D = _moduli(p, theta).astype(dtype)
+        K_flat = D @ op.Ks.astype(real)
+        bK = D @ op.fKs.astype(real)
+    else:
+        Av, Bv, Dv = (c.astype(dtype) for c in _moduli(p, theta))
+        K_flat = sum(Av[i] * op.mats["A" + s].astype(real)
+                     + Bv[i] * op.mats["B" + s].astype(real)
+                     + Dv[i] * op.mats["D" + s].astype(real)
+                     for i, s in enumerate(MODULI_INDICES))
+        bK = sum(Av[i] * op.lifts["A" + s].astype(real)
+                 + Bv[i] * op.lifts["B" + s].astype(real)
+                 + Dv[i] * op.lifts["D" + s].astype(real)
+                 for i, s in enumerate(MODULI_INDICES))
     rows, cols = op.pattern.rows, op.pattern.cols
     K = sp.csc_matrix((K_flat, (rows, cols)), shape=(n, n))
-    M = sp.csc_matrix((p.MInertia.astype(complex), (rows, cols)), shape=(n, n))
+    M = sp.csc_matrix((p.MInertia.astype(dtype), (rows, cols)), shape=(n, n))
     return K, M, bK
 
 
-def splu_frf(problem, freqs, params=None) -> np.ndarray:
-    """|FRF| at ``freqs`` [Hz] for ``params`` (default: the material's),
-    from one f64 complex ``splu`` per frequency."""
+def _solver(problem, theta):
+    """solve(f, b, adjoint=False): the refined LU solution (longdouble) of
+    A(f) u = b, or A(f)^H u = b, for a longdouble right-hand side b."""
     import scipy.sparse.linalg as spla
 
+    K, M, _ = _operator(problem, theta)
+    Kl, Ml, _ = _operator(problem, theta, np.clongdouble)
+
+    def solve(f, b, adjoint=False):
+        A = K - (2.0 * np.pi * f) ** 2 * M
+        Al = (Kl - (2.0 * np.pi * np.longdouble(f)) ** 2 * Ml).tocsr()
+        if adjoint:
+            A, Al = A.conj().T, Al.conj().T.tocsr()
+        lu = spla.splu(A.tocsc())
+        u = lu.solve(b.astype(np.complex128)).astype(np.clongdouble)
+        for _ in range(REFINE_STEPS):
+            u = u + lu.solve((b - Al @ u).astype(np.complex128))
+        return u
+
+    return solve
+
+
+def splu_frf(problem, freqs, params=None) -> np.ndarray:
+    """FRF at ``freqs`` [Hz] for ``params`` (default: the material's), from
+    one refined f64 complex ``splu`` per frequency: |FRF| (3-field path) or
+    the complex amplitude (symmetric path)."""
     p = problem
     theta = np.asarray(p.parameters if params is None else params, np.float64)
     op = p.op
-    K, M, bK = _operator(p, theta)
+    L = np.longdouble
+    _, _, bK = _operator(p, theta, np.clongdouble)
+    fI = p.fInertia.astype(L)
+    refined = _solver(p, theta)
+
+    def solve(f):
+        return refined(f, bK - (2.0 * np.pi * L(f)) ** 2 * fI)
+
+    fr = np.atleast_1d(np.asarray(freqs, np.float64))
+    if p.is_symmetric_path:
+        c = op.interpolation_vector.astype(L)
+        c0 = op.interpolation_value_from_bc
+        return np.asarray([complex(c0 + c @ solve(f)) for f in fr])
 
     def row(name):
         R, r0 = op.readout[name]
-        return R.mean(axis=0), r0.mean()
+        return R.mean(axis=0).astype(L), L(r0.mean())
 
     cu, ou = row("u")
     cv, ov = row("v")
@@ -59,17 +126,16 @@ def splu_frf(problem, freqs, params=None) -> np.ndarray:
     cwx, owx = row("wx")
     cwy, owy = row("wy")
     acc = p.accelerometer
-    eff = acc.effective_height * acc.height
-    ts = acc.transverse_sensitivity
+    eff = L(acc.effective_height * acc.height)
+    ts = L(acc.transverse_sensitivity)
     out = []
-    for f in np.atleast_1d(np.asarray(freqs, np.float64)):
-        om = 2 * np.pi * f
-        u = spla.splu((K - om**2 * M).tocsc()).solve(bK - om**2 * p.fInertia)
+    for f in fr:
+        u = solve(f)
         uu = (cu - eff * cwx) @ u + (ou - eff * owx)
         vv = (cv - eff * cwy) @ u + (ov - eff * owy)
         ww = cw @ u + ow
-        out.append(np.sqrt((abs(uu) * ts) ** 2 + (abs(vv) * ts) ** 2
-                           + abs(ww) ** 2))
+        out.append(float(np.sqrt((abs(uu) * ts) ** 2 + (abs(vv) * ts) ** 2
+                                 + abs(ww) ** 2)))
     return np.asarray(out)
 
 
@@ -82,24 +148,19 @@ def splu_adjoint(problem, freqs, G_re, G_im, params=None):
     The sweep solves A_s u = b with A_s = S P A P^T S.  The transpose of
     its real split-complex form [[Re, -Im], [Im, Re]] is the split form of
     A_s^H, so Y solves A_s^H y = g (g = G_re + i G_im): here
-    z = A^H^-1 (P^T S^-1 g) by one f64 complex ``splu`` of A^H per
+    z = A^H^-1 (P^T S^-1 g) by one refined f64 complex ``splu`` of A^H per
     frequency, and y = S^-1 P z.
     """
-    import scipy.sparse.linalg as spla
-
     p = problem
     theta = np.asarray(p.parameters if params is None else params, np.float64)
-    K, M, _ = _operator(p, theta)
+    refined = _solver(p, theta)
     lay = p._band_layout
     perm = np.arange(p.n_free) if lay is None else lay.perm
     s = p._eq_scale[perm]                      # S in the permuted order
     g = np.asarray(G_re, np.float64) + 1j * np.asarray(G_im, np.float64)
     Y = np.empty_like(g)
     for i, f in enumerate(np.atleast_1d(np.asarray(freqs, np.float64))):
-        om = 2 * np.pi * f
-        AH = (K - om**2 * M).conj().T.tocsc()
-        w = np.empty(g.shape[1], complex)
+        w = np.empty(g.shape[1], np.clongdouble)
         w[perm] = g[i] / s
-        z = spla.splu(AH).solve(w)
-        Y[i] = z[perm] / s
+        Y[i] = (refined(f, w, adjoint=True)[perm] / s).astype(np.complex128)
     return Y.real, Y.imag

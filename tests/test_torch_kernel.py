@@ -15,6 +15,8 @@ same call on the CPU (plain K1), on one set of operator data: r to 3e-6,
 J to 1e-5 of max |J| (the f32 preconditioner rounds differently, as
 against the JAX package).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -42,17 +44,26 @@ def _parts():
     return geom, mat, acc
 
 
+@functools.lru_cache(maxsize=1)
 def _patterns():
-    """The n = 1466 plate pattern (b = 256) and a b = 64 synthetic one."""
+    """The n = 1466 plate pattern (b = 256), a b = 64 synthetic one, and
+    the pure-bending path's pattern at n = 13862 (isotropic steel without
+    the accelerometer on ``sh_i`` refine = 4: the Morley-only band of the
+    two-grid tier, whose packed tiles the sweep's K1 reads)."""
     p = pt.Problem(*_parts(), device="cpu", precond="mg",
                    operator_layout="band")
+    geom, mat, acc = _parts()
+    q = pt.Problem(pt.Geometry("sh_i", acc, pt.GeometryParams(*GP),
+                               refine=4.0), mat, None, device="cpu")
+    assert q.is_symmetric_path and q.n_free == 13862
     n, w = 400, 9
     rows = np.concatenate([np.full(min(n, i + w + 1) - max(0, i - w), i)
                            for i in range(n)])
     cols = np.concatenate([np.arange(max(0, i - w), min(n, i + w + 1))
                            for i in range(n)])
     return [(p.op.pattern.rows, p.op.pattern.cols, p.n_free, {}),
-            (rows, cols, n, {"block_multiple": 64, "min_block": 64})]
+            (rows, cols, n, {"block_multiple": 64, "min_block": 64}),
+            (q.op.pattern.rows, q.op.pattern.cols, q.n_free, {})]
 
 
 def _band(rows, lt, rng, device):
@@ -69,6 +80,8 @@ def _agree(y, y_ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 3, 128, 200])
 def test_band_kernel_matches_plain(cuda_device, B):
+    """Every pattern of ``_patterns``, the pure-bending path's band among
+    them, at B lanes."""
     for rows, cols, n, kw in _patterns():
         lt = tband.build_band_layout(rows, cols, n, **kw)
         rng = np.random.default_rng(B)

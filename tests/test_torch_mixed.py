@@ -155,8 +155,24 @@ def test_chunked_sweep_matches_one_batch(setup, sweeps, chunk):
     assert np.all(err <= 1e-8 * scale)
 
 
-def test_unported_sweep_options_raise(setup):
-    """Per-modulus loss factors are not ported: raise, never fall back."""
+def test_unported_sweep_options_raise(setup, sweeps):
+    """The sweep once refused per-modulus loss factors; it now runs them
+    with K_im as a third exact operator: on this isotropic plate, where
+    K_im = beta K_re, ``ki_proportional=False`` gives the scalar-loss sweep
+    to 1e-8 of a lane's max |U| (K_im u is applied, not scaled).  The
+    two-grid without the band layout (the flat multilevel preconditioner)
+    still raises, naming its ROADMAP item."""
     _, _, pp, x = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_sweep(pp, pp.getFRCore()[1], x, ki_proportional=False)
+    _, (Ut_re, Ut_im) = sweeps
+    od_t = pp.getFRCore()[1]
+    U_re, U_im = (u.numpy() for u in
+                  _port_sweep(pp, od_t, x, ki_proportional=False))
+    scale = np.abs(Ut_re + 1j * Ut_im).max(axis=1)
+    err = np.abs((U_re - Ut_re) + 1j * (U_im - Ut_im)).max(axis=1)
+    assert np.all(err <= 1e-8 * scale)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in x.items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        tmixed.mixed_sweep(
+            t["K_re"], t["K_im"], od_t["MIn"], t["B_re"], t["B_im"],
+            t["omegas"], od_t["rows"], od_t["cols"], pp.n_free, od_t["W64"],
+            mg={"tg_pack": pp._band_pack})

@@ -183,20 +183,54 @@ def test_unported_options_raise(kw):
         pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
 
 
-def test_unported_paths_raise():
-    geom, mat, _ = _port_parts(refine=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.Problem(geom, mat, None, device="cpu")     # symmetric path
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.get_material(1500.0, "orthotropic", E1=1e10, E2=5e9, G12=3e9,
-                        nu12=0.3, beta=0.01)
+class _FreqDepIsotropic(pt.Isotropic):
+    """A custom material whose loss factor grows with the frequency,
+    beta (1 + omega / omega_ref) (tests/test_problem.py's)."""
+
+    def abd_split(self, params, h, omega=0.0):
+        b = params[2] * (1.0 + omega / (2.0 * np.pi * 300.0))
+        return super().abd_split(torch.stack([params[0], params[1], b]), h)
+
+
+def test_unported_paths_raise(tmp_path):
+    """The paths the port once refused: the pure-bending path (no
+    accelerometer) and the other material families now build and meet the
+    splu oracle to 1e-6.  What still raises, naming its ROADMAP item: a
+    material whose transform depends on the frequency (the engines that
+    take it, item 13) and a setup folder whose geometry is a .edp/.msh file
+    (item B)."""
+    geom, mat, acc = _port_parts(refine=0.5)
+    freqs = FREQS[::3]
+    p = pt.Problem(geom, mat, None, device="cpu")     # symmetric path
+    ortho = pt.get_material(1500.0, "orthotropic", E1=1e10, E2=5e9, G12=3e9,
+                            nu12=0.3, beta=0.01)
+    q = pt.Problem(geom, ortho, acc, device="cpu")
+    assert p.is_symmetric_path and not q.is_symmetric_path
+    for r in (p, q):
+        y = r.solveForward(freqs).numpy()
+        ref = splu_frf(r, freqs)
+        assert np.all(np.abs(y - ref) <= 1e-6 * np.abs(ref))
+    fd = pt.Problem(geom, _FreqDepIsotropic(7920.0, **MAT), acc,
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+        fd.getFRCore()
+    sdir = tmp_path / "edp_setup"
+    sdir.mkdir()
+    (sdir / "setup.json").write_text(
+        '{"geometry": {"edp": "plate.edp", "height": 0.002}, '
+        '"material": "Example_material", "accelerometer": "AP1030"}')
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item B"):
+        pt.Problem(spath=str(sdir), device="cpu")
 
 
 def test_package_imports_no_jax():
     code = ("import sys, plate_inverse_problem_tpu_torch, "
             "plate_inverse_problem_tpu_torch.optimize, "
             "plate_inverse_problem_tpu_torch.ops.dense, "
-            "plate_inverse_problem_tpu_torch.io.report; "
+            "plate_inverse_problem_tpu_torch.io.report, "
+            "plate_inverse_problem_tpu_torch.models.materials, "
+            "plate_inverse_problem_tpu_torch.fem.assembly, "
+            "plate_inverse_problem_tpu_torch.oracle; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
