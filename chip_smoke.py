@@ -25,7 +25,8 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    ``[jac]``, ``[gn]``): time ``ResidualFunction("log_afc").value_and_jac``
    (first and steady call) and count K1's launches in its primal and its
    adjoint sweep (both must be > 0); hold 2 J^T r / m against the
-   MSE_LOG_AFC loss gradient (GRAD_TOL) and every column of J against a
+   MSE_LOG_AFC loss gradient (GRAD_TOL_21K; GRAD_TOL on the dense tier's
+   n = 1466 in phase 7) and every column of J against a
    central difference of r (FD_STEPS, to FD_TOL of the column's max); run
    ``solveInverse(theta_0, "MSE_LOG_AFC", "gn", use_scaling=True,
    N_steps=GN_STEPS)``, print every iterate's loss and seconds, and
@@ -35,12 +36,13 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
 7. the dense-preconditioner tier (``[dense]``), where K1 must not run:
    (a) the bench configuration as ``bench.py`` builds it (``sh_i`` refine =
    1, n = 1466, ``precond`` and ``operator_layout`` left at "auto", which
-   must resolve to the flat layout, the dense preconditioner and an f32
-   Krylov basis): a first and a steady 512-point sweep with peak memory,
-   the FRF checksum sum |FRF| within 1e-6 of the JAX CPU run's
+   must resolve to the flat layout, the dense preconditioner and the
+   port's f64 Krylov basis): a first and a steady 512-point sweep with peak
+   memory, the FRF checksum sum |FRF| within 1e-6 of the JAX CPU run's
    (``BENCH_r05.json``) and the worst relative error against the host f64
    splu at bench.py's four points within 1e-6; one steady sweep with
-   ``basis_f32=False`` held to the same 1e-6; (b) phase 6's inverse half
+   ``basis_f32=True`` (the JAX package's f32 basis) held to the same 1e-6;
+   (b) phase 6's inverse half
    on that Problem; (c) the largest dense-tier plate (refine = 3, n =
    11910, "auto": the band layout with the dense preconditioner): its
    construction with the dense f64 inverse, a first and a steady sweep
@@ -66,7 +68,28 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    = 13862, two-grid): construction, first and steady sweep, splu at 4
    points incl. the peak of the complex FRF; at 13862 K1 launches > 0 and
    K1 against its plain version on that Problem's own pack (a Morley-only
-   band).
+   band);
+9. the flat-pattern operator K3 (``csrc/csr_mv.cu``, built beside K1 in
+   phase 2) and the rest of the public API (``[slice6]``): (a) K3 against
+   its plain version (the ``index_add_`` scatter) on the card at the
+   main path's shapes — S = 2 operators on the bench pattern (n = 1466)
+   at L = 1024 and 16 lanes, S = 3 there, the 290,688- and 513,552-nnz
+   patterns of n = 11910 and 20916 at L = 1024, and the f32 variant — to
+   CSR_TOL of max |y|, with its time, the plain version's, the time of
+   one ``torch.sparse.mm`` on the same CSR (``library_ms``) and its bound;
+   (b) two steady sweeps and two MSE_LOG_AFC gradients bit-identical at n
+   = 1466 and on phase 6's 21k Problem; (c) the SOL 45 deg plate (n =
+   1466) at s and s0 (theta / truth away from the build point): splu at 4
+   points incl. the peak, and ``diagnoseSweep`` with every lane converged;
+   (d) ``examples/tpu_benchmark.py``'s workflow: construction, a
+   3000-point sweep first and steady, then ``solveInverse`` by gradient
+   descent on 200 compressed points (as called there, and with
+   ``use_scaling``) and by ``cd_mem`` with ``use_scaling`` for 5 cycles,
+   every step's loss and seconds, each result within TPUB_TOL of the JAX
+   package's CPU run of the same call (TPUB_JAX); (e)
+   ``examples/edp_import.py``'s plate with a hole, built from its script
+   text (``.edp``: clamped on label 2, read at its xtest/ytest, pure
+   bending), its 121-point sweep against splu at 4 points incl. the peak.
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -79,10 +102,12 @@ kernel in the tree, in turns.)
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -92,14 +117,19 @@ SLEEP_CYCLES = 20_000_000   # ~10 ms of device sleep ahead of a timed run
 ORACLE_TOL = 1e-6
 START = (1.05, 1.02, 1.2)     # theta_0 / truth of phase 6
 # 2 J^T r / m vs the loss gradient, relative to its max component.  The two
-# come from independent primal and adjoint sweeps, which on the card agree
-# only to the sweeps' accuracy (the f64 atomics of the scatters change each
-# sweep's last bits and FGMRES carries that to its tolerance): 7.7e-8 to
-# 2.4e-7 on an H100 at 700 W, where two calls of the gradient itself differ
-# by 6.0e-8 to 2.7e-7.  The FRF gate, 1e-6, bounds it; on the CPU at n = 1466, where
-# the sweeps are deterministic, tests/test_torch_inverse.py holds it to
-# 1e-8.
-GRAD_TOL = 1e-6
+# share the primal sweep and differ in their adjoint sweeps (the adjoint
+# right-hand sides differ), each solved to the FGMRES tolerance.  Every
+# operator apply now runs K3, which sums in one fixed order, so each sweep
+# gives the same bits in every run (phase 9 (b) checks it) and the
+# deviation is the two adjoint solves' own: at n = 1466 the CPU test
+# (tests/test_torch_inverse.py) and the card hold it to 1e-8 (7.8e-10 on
+# an H100 at 700 W).  At 21k it is the two-grid tier's solve tolerance,
+# which moves with the random ARPACK basis of the Problem: 9.9e-8 with the
+# deterministic K3 (OrthotropicD4: 1.6e-9), 7.7e-8 to 2.4e-7 in earlier
+# runs with the atomic scatter, on an H100 at 700 W; GRAD_TOL_21K rounds
+# that up.
+GRAD_TOL = 1e-8
+GRAD_TOL_21K = 3e-7
 # J column vs its central difference, of the column's max.  E and G at a
 # relative step of 1e-4, where truncation sets the deviation (CPU, n = 1466,
 # E column: 2.2e-5 at 1e-4, 2.2e-3 at 1e-3); beta at 1e-2, because its
@@ -138,6 +168,52 @@ JOINT_TOL = (1e-3, 1e-3, 1e-3, 1e-2, 1e-2)
 D4 = dict(E1=210e9, E2=200e9, G12=75e9, nu12=0.33, b1=0.003, b2=0.003,
           b3=0.004, b4=0.0)
 D4_START = (1.02, 0.98, 1.03, 0.97, 1.1, 0.9, 1.05, 1.0)   # theta_0 / truth
+# phase 9 (a): K3 against its plain version, of max |y| (the f64 sums of a
+# row run in another order and with FMAs; f32 as K1)
+CSR_TOL = {"f64": 1e-12, "f32": 1e-5}
+# H100 SXM rates the bound uses: memory, f64 and f32 FMAs on the CUDA cores
+# (NVIDIA's data sheet; K3 uses no tensor cores)
+HBM_BPS = 3.35e12
+F64_FLOPS = 34e12
+F32_FLOPS = 67e12
+# phase 9 (c): theta / truth where ROADMAP's dense-tier fault showed
+SOL45_S = (0.7, 1.3, 0.6, 1.15, 0.5)
+# phase 9 (d): examples/tpu_benchmark.py's workflow, and the JAX package's
+# own CPU run of the same calls (.probes/tpu_benchmark_jax.py, the
+# package's default CPU engine: modal), (x, niter, status) per run
+TPUB_N_FREQ = 3000
+TPUB_N_COMP = 200
+TPUB_START = (0.1, 0.1, 0.2)
+TPUB_RUNS = {"gd": ("gd", 20, False), "gd_scaled": ("gd", 20, True),
+             "cd_mem_scaled": ("cd_mem", 5, True)}
+TPUB_JAX = {
+    "gd": ((220000000000.00003, 82500000000.0, 0.054617256073671495), 19,
+           "Running"),
+    "gd_scaled": ((203958143447.65717, 92312934898.18619,
+                   0.0043248574568596695), 19, "Running"),
+    "cd_mem_scaled": ((229486910306.21732, 91518930001.49454,
+                       0.004322571981818481), 4, "Running"),
+}
+TPUB_JAX_CHECKSUM = 9390.68402986405
+TPUB_TOL = 1e-6
+# phase 9 (e): the script of examples/edp_import.py
+EDP_SCRIPT = """
+// a plate with a circular hole, clamped on its RIGHT border (label 2 --
+// note: not the templates' label 1; the on(...) clause below declares it)
+real Lx = 90e-3; real Ly = 30e-3;
+real r = 6e-3;
+real xtest = 25e-3; real ytest = 5e-3;
+int n = 8;
+border Bl(t=0., 1){x=0;        y=Ly - t*Ly; label=0;}
+border Bb(t=0., 1){x=Lx*t;     y=0;         label=0;}
+border Br(t=0., 1){x=Lx;       y=t*Ly;      label=2;}
+border Bt(t=0., 1){x=(1-t)*Lx; y=Ly;        label=0;}
+border Hole(t=0., 2*pi){x=Lx/2 + r*cos(-t); y=Ly/2 + r*sin(-t); label=0;}
+mesh Th = buildmesh(Bl(n) + Bb(3*n) + Br(n) + Bt(3*n) + Hole(2*n));
+// the physics section is FreeFEM-specific and not interpreted -- but its
+// on(...) labels ARE honored as the essential-BC location:
+problem P(u, v) = ... + on(2, u=0, ux=0, uy=0);
+"""
 
 
 def card_info() -> str:
@@ -406,20 +482,25 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=()):
-    """Phases 2-8 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-9 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources``: other versions of K1 to time beside it (A/B only)."""
     import torch
 
-    from plate_inverse_problem_tpu_torch.ops import band_kernel
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
     from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
-    # ---- 2. build the kernel ---------------------------------------------
+    # ---- 2. build the kernels, one nvcc each, both at once ----------------
     t_phases = t0 = time.perf_counter()
-    report = band_kernel.build()
-    print(f"[build] band_mv.cu -> sm_90a in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for line in ptxas_summary(report):
-        print(f"[build] {line}", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(fn) for name, fn in
+                  (("band_mv.cu", band_kernel.build),
+                   ("csr_mv.cu", csr_kernel.build))}
+        reports = {name: f.result() for name, f in builds.items()}
+    print(f"[build] band_mv.cu and csr_mv.cu -> sm_90a in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, report in reports.items():
+        for line in ptxas_summary(report):
+            print(f"[build] {name}: {line}", flush=True)
 
     # ---- construct the 21k-DOF Problem on the card -------------------------
     t0 = time.perf_counter()
@@ -464,12 +545,14 @@ def smoke(dev, card: str, ab_sources=()):
     freqs = np.linspace(40.0, 600.0, N_FREQ)
     torch.cuda.reset_peak_memory_stats()
     band_kernel.band_mv_f32_cuda.launches = 0
+    csr_kernel.csr_mv_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fr = p.solveForward(freqs)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     launches = band_kernel.band_mv_f32_cuda.launches
+    k3_sweep = csr_kernel.csr_mv_cuda.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the same sweep again: what every later sweep of a process costs
     t0 = time.perf_counter()
@@ -480,7 +563,7 @@ def smoke(dev, card: str, ab_sources=()):
     print(f"[sweep] {N_FREQ} points over 40-600 Hz: first {sweep_s:.3f} s "
           f"({N_FREQ / sweep_s:.1f} solves/s), steady {steady_s:.3f} s "
           f"({N_FREQ / steady_s:.1f} solves/s); freq_chunk={chunk}, "
-          f"band kernel launches={launches}, peak device memory "
+          f"band kernel launches={launches}, K3 {k3_sweep}, peak device memory "
           f"{peak_gb:.2f} GB", flush=True)
     if launches <= 0:
         raise AssertionError("the sweep never launched the band kernel")
@@ -502,9 +585,10 @@ def smoke(dev, card: str, ab_sources=()):
     if not worst <= ORACLE_TOL:
         raise AssertionError(f"worst rel err {worst:.3e} > {ORACLE_TOL}")
 
-    inv = inverse_half(p, freqs, fr)
+    inv = inverse_half(p, freqs, fr, grad_tol=GRAD_TOL_21K)
     dense = dense_tier(dev)
     fam = families(dev)
+    s6 = slice6(dev, p, freqs, fr)
 
     summary = {"card": card, "n_free": p.n_free, "ctor_s": ctor_s,
                "pack_build_ms": 1e3 * p._pack_build_s,
@@ -513,9 +597,18 @@ def smoke(dev, card: str, ab_sources=()):
                "solves_per_s_steady": N_FREQ / steady_s,
                "peak_mem_gb": peak_gb, "worst_rel_err": worst,
                "f_peak": float(freqs[ipk]), "k1_by_B": recs, "k1_b64": b64,
-               **inv, "dense": dense, "families": fam}
+               **inv, "dense": dense, "families": fam,
+               "slice6": {k: v for k, v in s6.items() if k != "k3"}}
     summary["phases_s"] = time.perf_counter() - t_phases
-    print(f"[time] phases 2-8 in {summary['phases_s']:.1f} s", flush=True)
+    print(f"[time] phases 2-9 in {summary['phases_s']:.1f} s", flush=True)
+    k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
+                "grad_21k": inv["k3_grad"],
+                "dense_sweep_1466": dense["bench"]["k3"],
+                "rj_1466": dense["bench_inverse"]["k3_rj"],
+                "grad_1466": dense["bench_inverse"]["k3_grad"],
+                **s6["k3"]["by_path"]}
+    if not all(v > 0 for v in k3_paths.values()):
+        raise AssertionError(f"K3 launched no time on a path: {k3_paths}")
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "band_mv_f32",
@@ -534,6 +627,16 @@ def smoke(dev, card: str, ab_sources=()):
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": slice_rec["library_ms"],
+    }, {
+        "name": "csr_mv",
+        "route": "cuda",
+        "source": "plate_inverse_problem_tpu_torch/csrc/csr_mv.cu",
+        "replaces": "plate_inverse_problem_tpu/ops/mixed.py:651 (not Pallas)",
+        "launches": s6["k3"]["launches"],
+        "launches_by_path": k3_paths,
+        **{k: s6["k3"]["headline"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }]}), flush=True)
 
 
@@ -559,9 +662,10 @@ def timed_sweeps(p, freqs, label: str, tag: str = "[dense]") -> dict:
     of the first and K1's launches over both; prints one ``tag`` line."""
     import torch
 
-    from plate_inverse_problem_tpu_torch.ops import band_kernel
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
 
     band_kernel.band_mv_f32_cuda.launches = 0
+    csr_kernel.csr_mv_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(2):
@@ -576,12 +680,13 @@ def timed_sweeps(p, freqs, label: str, tag: str = "[dense]") -> dict:
     rec = {"sweep_first_s": times[0], "sweep_steady_s": times[1],
            "solves_per_s_steady": freqs.size / times[1],
            "peak_mem_gb": peak_gb,
-           "k1": band_kernel.band_mv_f32_cuda.launches}
+           "k1": band_kernel.band_mv_f32_cuda.launches,
+           "k3": csr_kernel.csr_mv_cuda.launches}
     print(f"{tag} {label}: {freqs.size} points over 40-600 Hz: first "
           f"{times[0]:.3f} s ({freqs.size / times[0]:.1f} solves/s), steady "
           f"{times[1]:.3f} s ({rec['solves_per_s_steady']:.1f} solves/s); "
-          f"peak device memory {peak_gb:.2f} GB; K1 launches {rec['k1']}",
-          flush=True)
+          f"peak device memory {peak_gb:.2f} GB; K1 launches {rec['k1']}, "
+          f"K3 {rec['k3']}", flush=True)
     if fr.shape != freqs.shape or not np.all(np.isfinite(fr)):
         raise AssertionError(f"{label}: bad FRF: shape {fr.shape}, "
                              f"finite={np.all(np.isfinite(fr))}")
@@ -640,7 +745,7 @@ def construct(dev, refine: float, label: str, tag: str = "[dense]", **kw):
                 f"pack ({rec['pack_tiles']} tiles, "
                 f"{rec['pack_build_ms']:.1f} ms)")
     print(f"{tag} {label}: n_free={p.n_free} nnz={p.op.pattern.nnz} "
-          f"tier {p._tier} (layout, preconditioner, f32 basis)"
+          f"tier {p._tier} (layout, preconditioner, f32 Krylov basis)"
           + ("" if lay is None else f", b={lay.b} nb={lay.nb}")
           + f", m={od['W64'].shape[1]}; construction {ctor_s:.2f} s, of "
           f"which {part}", flush=True)
@@ -657,10 +762,10 @@ def dense_tier(dev) -> dict:
     out = {}
     # ---- (a) the bench configuration -------------------------------------
     p, rec = construct(dev, 1.0, "(a) bench sh_i refine=1")
-    if p._tier != ("flat", "dense", True):
+    if p._tier != ("flat", "dense", False):
         raise AssertionError(f"'auto' at n={p.n_free} resolved to {p._tier},"
                              " not the flat layout, the dense "
-                             "preconditioner and an f32 basis")
+                             "preconditioner and an f64 basis")
     rec |= timed_sweeps(p, freqs, "(a) bench sweep")
     fr = rec.pop("fr")
     checksum = float(np.abs(fr).sum())
@@ -676,14 +781,14 @@ def dense_tier(dev) -> dict:
     rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
                                         "(a) bench points")
     rec["checksum"] = checksum
-    # the same Problem data with an f64 Krylov basis: recorded only
+    # the same Problem data with the JAX package's f32 Krylov basis
     q = pt.Problem(p.geometry, p.material, p.accelerometer, device=dev,
-                   basis_f32=False, opdata=p.getFRCore()[1])
-    f64 = timed_sweeps(q, freqs, "(a) bench sweep, basis_f32=False")
-    rec["basis_f64"] = {k: f64[k] for k in ("sweep_steady_s",
+                   basis_f32=True, opdata=p.getFRCore()[1])
+    f32 = timed_sweeps(q, freqs, "(a) bench sweep, basis_f32=True")
+    rec["basis_f32"] = {k: f32[k] for k in ("sweep_steady_s",
                                            "solves_per_s_steady", "k1")}
-    rec["basis_f64"]["worst_rel_err"] = oracle_check(
-        q, freqs, f64["fr"], idx, "(a) bench points, basis_f32=False")
+    rec["basis_f32"]["worst_rel_err"] = oracle_check(
+        q, freqs, f32["fr"], idx, "(a) bench points, basis_f32=True")
     del q
     out["bench"] = rec
 
@@ -694,7 +799,7 @@ def dense_tier(dev) -> dict:
 
     # ---- (c) the largest dense-tier plate --------------------------------
     p, rec = construct(dev, 3.0, "(c) sh_i refine=3")
-    if p._tier != ("band", "dense", True):
+    if p._tier != ("band", "dense", False):
         raise AssertionError(f"'auto' at n={p.n_free} resolved to {p._tier},"
                              " not the band layout with the dense "
                              "preconditioner")
@@ -709,7 +814,7 @@ def dense_tier(dev) -> dict:
 
     inv = out["bench_inverse"]
     out["k1"] = {"dense_sweep_1466": out["bench"]["k1"],
-                 "dense_sweep_1466_basis_f64": out["bench"]["basis_f64"]["k1"],
+                 "dense_sweep_1466_basis_f32": out["bench"]["basis_f32"]["k1"],
                  "dense_rj_primal_1466": inv["k1_rj_primal"],
                  "dense_rj_adjoint_1466": inv["k1_rj_adjoint"],
                  "dense_gn_1466": inv["k1_gn"],
@@ -732,15 +837,17 @@ def launch_counter(fn, counts, key):
     return run
 
 
-def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
+def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
+                 grad_tol: float = GRAD_TOL) -> dict:
     """Phase 6 on the Problem of phases 4-5 (and on the dense tier's in
     phase 7): the adjoint r + J, its checks and Gauss-Newton from theta_0.
     ``k1``: the tier runs the two-grid, so K1 must launch in both sweeps
     and in GN; else it must not launch at all.  ``tag`` prefixes the
-    printed lines.  Returns the numbers for [summary]."""
+    printed lines; ``grad_tol`` bounds 2 J^T r / m against the gradient.
+    Returns the numbers for [summary]."""
     import torch
 
-    from plate_inverse_problem_tpu_torch.ops import band_kernel
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
 
     truth = np.asarray(p.parameters, np.float64)
     th0 = truth * np.asarray(START)
@@ -758,12 +865,14 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
         for _ in range(2):
             counts.update(primal=0, adjoint=0)
             band_kernel.band_mv_f32_cuda.launches = 0
+            csr_kernel.csr_mv_cuda.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r, J = rf.value_and_jac(th0)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             total = band_kernel.band_mv_f32_cuda.launches
+            k3_rj = csr_kernel.csr_mv_cuda.launches
     finally:
         core.sweep_u, core.sweep_adj = hooks
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -772,7 +881,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
           f"{freqs.size} points: first {times[0]:.3f} s, steady "
           f"{times[1]:.3f} s; K1 launches {counts['primal']} in the primal "
           f"sweep, {counts['adjoint']} in the adjoint sweep ({total} in "
-          f"all); peak device memory {peak_gb:.2f} GB", flush=True)
+          f"all), K3 {k3_rj}; peak device memory {peak_gb:.2f} GB", flush=True)
     # every check of the phase runs after all of its measurements
     failed = []
     if k1 and (counts["primal"] <= 0 or counts["adjoint"] <= 0):
@@ -781,22 +890,26 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
         failed.append(f"K1 launched {total} times on a tier without it")
     if total != counts["primal"] + counts["adjoint"]:
         failed.append(f"K1 launched outside the sweeps: {total} vs {counts}")
+    if k3_rj <= 0:
+        failed.append("r + J never launched K3")
     if r.shape != (freqs.size,) or J.shape != (freqs.size, truth.size) \
             or not (np.all(np.isfinite(r)) and np.all(np.isfinite(J))):
         raise AssertionError(f"bad r {r.shape} or J {J.shape}")
 
     # ---- [jac] (a) against the loss gradient, (b) against differences ---
     loss = p.getLossFunction(freqs, fr_truth, "MSE_LOG_AFC")
+    csr_kernel.csr_mv_cuda.launches = 0
     t0 = time.perf_counter()
     g = loss.grad(th0).cpu().numpy()
     grad_s = time.perf_counter() - t0
+    k3_grad = csr_kernel.csr_mv_cuda.launches
     g2 = loss.grad(th0).cpu().numpy()      # the same call again: its noise
     g_gn = 2.0 * J.T @ r / r.size
     grad_rel = float(np.abs(g_gn - g).max() / np.abs(g).max())
     grad_rerun = float(np.abs(g2 - g).max() / np.abs(g).max())
-    print(f"{tag}[jac] (a) 2 J^T r / m vs MSE_LOG_AFC grad ({grad_s:.3f} s): "
-          f"max rel {grad_rel:.3e} (tol {GRAD_TOL}); two grad calls differ "
-          f"by {grad_rerun:.3e}", flush=True)
+    print(f"{tag}[jac] (a) 2 J^T r / m vs MSE_LOG_AFC grad ({grad_s:.3f} s, "
+          f"K3 {k3_grad}): max rel {grad_rel:.3e} (tol {grad_tol}); two grad "
+          f"calls differ by {grad_rerun:.3e}", flush=True)
 
     def fd_dev(j, step):
         e = np.zeros(truth.size)
@@ -810,9 +923,11 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
           f"{FD_STEPS}: max dev / column max "
           f"{', '.join(f'{x:.3e}' for x in fd_rel)} (tol {FD_TOL}); the beta "
           f"column at step 1e-4: {fd_beta_1e4:.3e}", flush=True)
-    if not grad_rel <= GRAD_TOL:
+    if not grad_rel <= grad_tol:
         failed.append(f"2 J^T r / m disagrees with the loss gradient: "
-                      f"{grad_rel:.3e} > {GRAD_TOL}")
+                      f"{grad_rel:.3e} > {grad_tol}")
+    if k3_grad <= 0:
+        failed.append("the loss gradient never launched K3")
     if not max(fd_rel) <= FD_TOL:
         failed.append(f"J disagrees with central differences: {fd_rel} > "
                       f"{FD_TOL}")
@@ -870,6 +985,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "") -> dict:
     return {"rj_first_s": times[0], "rj_steady_s": times[1],
             "k1_rj_primal": counts["primal"],
             "k1_rj_adjoint": counts["adjoint"], "rj_peak_mem_gb": peak_gb,
+            "k3_rj": k3_rj, "k3_grad": k3_grad,
             "grad_s": grad_s, "jac_grad_rel": grad_rel,
             "grad_rerun_rel": grad_rerun, "jac_fd_rel": fd_rel,
             "jac_fd_beta_step_1e-4": fd_beta_1e4,
@@ -1041,7 +1157,7 @@ def per_modulus(dev) -> dict:
           f"{times[1]:.3f} s; K1 launches {counts['primal']} in the primal "
           f"sweep, {counts['adjoint']} in the adjoint sweep; peak device "
           f"memory {peak_gb:.2f} GB; 2 J^T r / m vs MSE_LOG_AFC grad "
-          f"({grad_s:.3f} s): max rel {grad_rel:.3e} (tol {GRAD_TOL})",
+          f"({grad_s:.3f} s): max rel {grad_rel:.3e} (tol {GRAD_TOL_21K})",
           flush=True)
     failed = []
     if rec["k1"] <= 0 or counts["primal"] <= 0 or counts["adjoint"] <= 0:
@@ -1050,9 +1166,9 @@ def per_modulus(dev) -> dict:
     if J.shape != (freqs.size, truth.size) or not (
             np.all(np.isfinite(r)) and np.all(np.isfinite(J))):
         failed.append(f"bad r {r.shape} or J {J.shape}")
-    if not grad_rel <= GRAD_TOL:
+    if not grad_rel <= GRAD_TOL_21K:
         failed.append(f"2 J^T r / m disagrees with the loss gradient: "
-                      f"{grad_rel:.3e} > {GRAD_TOL}")
+                      f"{grad_rel:.3e} > {GRAD_TOL_21K}")
     if failed:
         raise AssertionError(f"{tag} failed: " + "; ".join(failed))
     return rec | {"rj_first_s": times[0], "rj_steady_s": times[1],
@@ -1069,7 +1185,7 @@ def pure_bending(dev) -> dict:
     tag = "[families] (c)"
     freqs = np.linspace(40.0, 600.0, N_FREQ)
     out = {}
-    for refine, tier in ((1.0, ("flat", "dense", True)),
+    for refine, tier in ((1.0, ("flat", "dense", False)),
                          (4.0, ("band", "mg", False))):
         p, rec = construct(dev, refine, f"pure bending sh_i refine="
                            f"{refine:g}", tag, accel=False)
@@ -1108,6 +1224,350 @@ def pure_bending(dev) -> dict:
                                  f"n={p.n_free}, tier {p._tier}")
         out[tier[1]] = rec
         del p
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: K3 and the rest of the public API
+# ---------------------------------------------------------------------------
+
+def csr_bound_ms(csr, S: int, L: int, itemsize: int) -> tuple[float, str]:
+    """Least time of S operators on the pattern applied to L lanes on an
+    H100 SXM: the S x nnz values with a 4-byte column index each and the
+    row pointer, x read once and y written once, at HBM_BPS, against 2
+    FLOP a nonzero, operator and lane at the CUDA cores' f64 (F64_FLOPS)
+    or f32 (F32_FLOPS) rate."""
+    n, nnz = csr.n, csr.nnz
+    t_bytes = (S * nnz * itemsize + 4 * nnz + 4 * (n + 1)
+               + (1 + S) * L * n * itemsize) / HBM_BPS
+    t_ops = 2.0 * S * nnz * L / (F64_FLOPS if itemsize == 8 else F32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def compare_csr(csr, S: int, L: int, dtype: str, label: str,
+                seed: int) -> dict:
+    """K3 vs its plain version on random data (S, nnz) and x (L, n) from a
+    numpy seed on the pattern ``csr``; two launches must agree bit for bit.
+    Device times of the kernel (its x transpose included), the plain
+    version and the library call (one ``torch.sparse.mm`` of the S
+    operators stacked as one (S n, n) CSR matrix on x^T, given x^T), in
+    turns; the kernel also with the L2 flushed."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
+
+    tdt = torch.float64 if dtype == "f64" else torch.float32
+    dev = csr.col.device
+    n, nnz = csr.n, csr.nnz
+    rng = np.random.default_rng(seed)
+    data = torch.as_tensor(rng.standard_normal((S, nnz)), dtype=tdt,
+                           device=dev)
+    x = torch.as_tensor(rng.standard_normal((L, n)), dtype=tdt, device=dev)
+    seg = 1 << 17     # the plain version's (S, L, seg) contribution tensor
+
+    y_ref = ck.csr_mv_reference(data, x, csr, seg)
+    y = ck.csr_mv_cuda(data, x, csr)
+    same = bool(torch.equal(y, ck.csr_mv_cuda(data, x, csr)))
+    d = (data if csr.perm is None else data[:, csr.perm]).reshape(-1)
+    crow = torch.cat([csr.rowptr[:-1].long() + s * nnz for s in range(S)]
+                     + [torch.tensor([S * nnz], device=dev)])
+    A = torch.sparse_csr_tensor(crow, csr.col.long().repeat(S), d,
+                                size=(S * n, n))
+    xt = x.t().contiguous()
+    y_lib = torch.sparse.mm(A, xt).reshape(S, n, L).transpose(1, 2)
+    torch.cuda.synchronize()
+    scale = max(float(y_ref.abs().max()), 1e-300)
+    max_abs = float((y - y_ref).abs().max())
+    lib_rel = float((y_lib - y_ref).abs().max()) / scale
+    variants = {"ms": lambda: ck.csr_mv_cuda(data, x, csr),
+                "plain_ms": lambda: ck.csr_mv_reference(data, x, csr, seg),
+                "library_ms": lambda: torch.sparse.mm(A, xt)}
+    order = list(variants) + list(variants)[::-1]
+    times = {k: [] for k in variants}
+    for k in order:
+        times[k].append(time_ms(variants[k], reps=10)[0])
+    rec = {k: float(np.mean(v)) for k, v in times.items()}
+    bound, bound_by = csr_bound_ms(csr, S, L, 8 if dtype == "f64" else 4)
+    rec.update(label=label, S=S, L=L, n=n, nnz=nnz, dtype=dtype,
+               max_abs_err=max_abs, rel_err=max_abs / scale,
+               library_rel_err=lib_rel, deterministic=same,
+               flushed_ms=time_flushed_ms(variants["ms"], reps=10),
+               bound_ms=bound, bound_by=bound_by)
+    print(f"[slice6] (a) K3 {label}: {dtype} S={S} L={L} n={n} nnz={nnz}  "
+          f"max|dy|={max_abs:.3e} rel={rec['rel_err']:.3e} (tol "
+          f"{CSR_TOL[dtype]}), two launches identical: {same}  kernel "
+          f"{rec['ms']:.4f} ms (L2 flushed {rec['flushed_ms']:.4f})  plain "
+          f"{rec['plain_ms']:.4f} ms  library (torch.sparse.mm) "
+          f"{rec['library_ms']:.4f} ms (rel {lib_rel:.1e})  bound "
+          f"{bound:.4f} ms ({bound_by}), kernel at "
+          f"{100 * bound / rec['ms']:.1f} % of it", flush=True)
+    if not rec["rel_err"] <= CSR_TOL[dtype] or not same:
+        raise AssertionError(f"K3 disagrees at {label}: rel "
+                             f"{rec['rel_err']:.3e}, identical {same}")
+    return rec
+
+
+def k3_cases(p21) -> dict:
+    """Phase 9 (a): K3 at the main path's shapes on three patterns: the
+    bench plate's (n = 1466), n = 11910's and the 21k plate's (phase 6's
+    Problem, its flat pattern in the band layout's order)."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops.csr_kernel import build_csr
+
+    dev = torch.device("cuda")
+
+    def pattern(p):
+        rows = torch.as_tensor(p.op.pattern.rows, device=dev)
+        cols = torch.as_tensor(p.op.pattern.cols, device=dev)
+        return build_csr(rows, cols, p.n_free)
+
+    bench = pattern(sh_i_problem(dev, 1.0))
+    mid = pattern(sh_i_problem(dev, 3.0))
+    od = p21.getFRCore()[1]
+    big = build_csr(od["rows"], od["cols"], p21.n_free)
+    cases = [(bench, 2, 1024, "f64", "bench S=2 L=1024"),
+             (bench, 2, 16, "f64", "bench S=2 L=16 (Rayleigh-Ritz)"),
+             (bench, 3, 1024, "f64", "bench S=3 (with K_im)"),
+             (mid, 2, 1024, "f64", "n=11910 S=2"),
+             (big, 2, 1024, "f64", "n=20916 S=2 (residual map)"),
+             (bench, 1, 1024, "f32", "bench f32 S=1 (refinement)")]
+    recs = [compare_csr(c, S, L, dt, label, seed)
+            for seed, (c, S, L, dt, label) in enumerate(cases)]
+    return {"cases": recs, "headline": recs[0]}
+
+
+def determinism(p, freqs, fr_ref, label: str) -> dict:
+    """Phase 9 (b): two steady sweeps and two MSE_LOG_AFC gradients (at
+    theta_0 = truth x START against ``fr_ref``) on ``p`` are bit-identical."""
+    th0 = np.asarray(p.parameters, np.float64) * np.asarray(START)
+    sweeps = [p.solveForward(freqs).cpu().numpy() for _ in range(3)][1:]
+    loss = p.getLossFunction(freqs, fr_ref, "MSE_LOG_AFC")
+    grads = [loss.grad(th0).cpu().numpy() for _ in range(2)]
+    rec = {"sweeps_identical": bool(np.array_equal(*sweeps)),
+           "grads_identical": bool(np.array_equal(*grads)),
+           "sweep_max_diff": float(np.abs(sweeps[0] - sweeps[1]).max()),
+           "grad_max_diff": float(np.abs(grads[0] - grads[1]).max())}
+    print(f"[slice6] (b) {label}: two steady sweeps identical "
+          f"{rec['sweeps_identical']} (max diff {rec['sweep_max_diff']:.3e}),"
+          f" two gradients identical {rec['grads_identical']} (max diff "
+          f"{rec['grad_max_diff']:.3e})", flush=True)
+    if not (rec["sweeps_identical"] and rec["grads_identical"]):
+        raise AssertionError(f"{label}: the card is not bit-reproducible: "
+                             f"{rec}")
+    return rec
+
+
+def steady_s(p, freqs, params=None) -> float:
+    """One synchronised sweep's seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.solveForward(freqs, params)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def dense_fault(dev) -> dict:
+    """Phase 9 (c): the dense tier away from the build point."""
+    import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.oracle import splu_frf
+
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    truth = np.asarray(JOINT_TRUE)
+    mat = pt.get_material(1550.0, "sol", angles=(45.0,), E1=truth[0],
+                          E2=truth[1], G12=truth[2], nu12=truth[3],
+                          beta=truth[4])
+    p = sh_i_problem(dev, 1.0, mat=mat)
+    out = {}
+    for name, s in (("s", SOL45_S), ("s0", JOINT_S0)):
+        th = truth * np.asarray(s)
+        fr = p.solveForward(freqs, th).cpu().numpy()
+        d = p.diagnoseSweep(freqs, th)
+        idx = peak_points(fr)
+        ref = splu_frf(p, freqs[idx], th)
+        rel = np.abs(fr[idx] - ref) / np.abs(ref)
+        rec = {"worst_rel_err": float(rel.max()),
+               "f_peak": float(freqs[idx[1]]),
+               "converged": int(d["converged"].sum()),
+               "diag_fr_is_sweep": bool(np.array_equal(d["fr"], fr))}
+        print(f"[slice6] (c) SOL 45 deg at {name} = {s} x truth, n="
+              f"{p.n_free}, tier {p._tier}: rel err vs f64 splu at "
+              + ", ".join(f"{freqs[i]:.3f} Hz {r:.3e}"
+                          for i, r in zip(idx, rel))
+              + f"; worst {rec['worst_rel_err']:.3e} (tol {ORACLE_TOL}); "
+              f"diagnoseSweep: {rec['converged']} of {freqs.size} lanes "
+              f"converged, its FRF is the sweep's: "
+              f"{rec['diag_fr_is_sweep']}", flush=True)
+        if not (rec["worst_rel_err"] <= ORACLE_TOL
+                and rec["converged"] == freqs.size
+                and rec["diag_fr_is_sweep"]):
+            raise AssertionError(f"SOL 45 deg at {name}: {rec}")
+        out[name] = rec
+    return out
+
+
+def tpu_benchmark(dev) -> dict:
+    """Phase 9 (d): examples/tpu_benchmark.py's workflow through the port,
+    held against the JAX package's CPU run of the same calls."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.io.compress import Compressor
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
+
+    tag = "[slice6] (d)"
+    band_kernel.band_mv_f32_cuda.launches = 0
+    csr_kernel.csr_mv_cuda.launches = 0
+    t0 = time.perf_counter()
+    p = sh_i_problem(dev, 1.0)
+    p.getFRCore()
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    freq = np.linspace(40.0, 600.0, TPUB_N_FREQ)
+    sweep_s = [steady_s(p, freq) for _ in range(2)]
+    fr = p.solveForward(freq).cpu().numpy()
+    checksum = float(np.abs(fr).sum())
+    cs_rel = abs(checksum - TPUB_JAX_CHECKSUM) / TPUB_JAX_CHECKSUM
+    n_comp = Compressor(freq, fr, TPUB_N_COMP, 1)(TPUB_N_COMP)[0].size
+    print(f"{tag} sh_i refine=1 n={p.n_free} tier {p._tier}: construction "
+          f"{ctor_s:.3f} s; {TPUB_N_FREQ}-point sweep first {sweep_s[0]:.3f} "
+          f"s, steady {sweep_s[1]:.3f} s; checksum {checksum!r} vs the JAX "
+          f"CPU run's {TPUB_JAX_CHECKSUM!r}: rel {cs_rel:.3e}; compressed to "
+          f"{n_comp} frequencies", flush=True)
+    failed = [] if cs_rel <= CHECKSUM_TOL else [f"checksum rel {cs_rel:.3e}"]
+
+    runs = {}
+    make = p.getLossFunction
+    for name, (opt, steps, scaled) in TPUB_RUNS.items():
+        stamps = []
+
+        def timed_loss(*a, **k):
+            loss = make(*a, **k)
+            vg = loss.value_and_grad
+
+            def value_and_grad(x):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                return vg(x)
+
+            loss.value_and_grad = value_and_grad
+            return loss
+
+        p.getLossFunction = timed_loss
+        try:
+            res = p.solveInverse(
+                list(TPUB_START), "MSE_LOG_AFC", opt, ref_fr=[freq, fr],
+                use_rel=True, use_scaling=scaled,
+                compression=(True, TPUB_N_COMP), log=False, report=False,
+                N_steps=steps, h=0.001, f_min=1e-10)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        finally:
+            del p.getLossFunction
+        step_s = list(np.diff(stamps))
+        for k, (f, s) in enumerate(zip(res.f_history, step_s)):
+            print(f"{tag} {name} step {k}: loss {f:.10e}  {s:.4f} s",
+                  flush=True)
+        x_jax, niter_jax, status_jax = TPUB_JAX[name]
+        rel = np.abs(np.asarray(res.x) - x_jax) / np.abs(x_jax)
+        print(f"{tag} {name}: {opt} use_scaling={scaled}, {len(step_s)} "
+              f"steps in {sum(step_s):.3f} s ({np.mean(step_s):.4f} s/step), "
+              f"niter {res.niter}, status {res.status}; x "
+              f"{np.asarray(res.x)!r}, rel to the JAX CPU run "
+              f"{', '.join(f'{v:.3e}' for v in rel)} (tol {TPUB_TOL})",
+              flush=True)
+        if not (np.all(rel <= TPUB_TOL) and res.niter == niter_jax
+                and res.status == status_jax):
+            failed.append(f"{name}: rel {rel}, niter {res.niter}, "
+                          f"status {res.status}")
+        runs[name] = {"x": [float(v) for v in res.x],
+                      "f_history": [float(f) for f in res.f_history],
+                      "step_s": step_s, "rel_to_jax": [float(v) for v in rel]}
+    k1 = band_kernel.band_mv_f32_cuda.launches
+    k3 = csr_kernel.csr_mv_cuda.launches
+    print(f"{tag} K3 launches {k3}, K1 {k1} over the workflow", flush=True)
+    if k3 <= 0 or k1 != 0:
+        failed.append(f"K3 {k3} (must be > 0), K1 {k1} (must be 0)")
+    if failed:
+        raise AssertionError(f"{tag} failed: " + "; ".join(failed))
+    return {"ctor_s": ctor_s, "sweep_first_s": sweep_s[0],
+            "sweep_steady_s": sweep_s[1], "checksum": checksum,
+            "n_comp": int(n_comp), "runs": runs, "k3": k3}
+
+
+def edp_plate(dev) -> dict:
+    """Phase 9 (e): examples/edp_import.py's plate through the port."""
+    import warnings
+
+    import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.oracle import splu_frf
+
+    tag = "[slice6] (e)"
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke", "plate_with_hole.edp")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(EDP_SCRIPT)
+    with warnings.catch_warnings():
+        # the script's FE section is named and skipped; the sweep leaves
+        # the basis band (f_max 600 Hz), as in the example
+        warnings.simplefilter("ignore", RuntimeWarning)
+        geom = pt.Geometry(path, height=2e-3)
+        mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9,
+                              beta=0.003)
+        p = pt.Problem(geom, mat, None, device=dev)
+        freqs = np.linspace(60.0, 900.0, 121)
+        sweep_s = [steady_s(p, freqs) for _ in range(2)]
+        fr = p.solveForward(freqs).cpu().numpy()
+    idx = [3, int(np.argmax(np.abs(fr))), 60, 120]
+    ref = splu_frf(p, freqs[idx])
+    rel = np.abs(fr[idx] - ref) / np.abs(ref)
+    rec = {"n_free": p.n_free, "nnz": int(p.op.pattern.nnz),
+           "clamped_labels": list(geom.clamped_labels),
+           "test_point": list(geom.test_point), "tier": list(p._tier),
+           "sweep_first_s": sweep_s[0], "sweep_steady_s": sweep_s[1],
+           "f_peak": float(freqs[idx[1]]), "worst_rel_err": float(rel.max())}
+    print(f"{tag} plate with a hole from its .edp script: clamped labels "
+          f"{geom.clamped_labels}, test point {geom.test_point}, n="
+          f"{p.n_free} nnz={p.op.pattern.nnz}, tier {p._tier}, pure bending "
+          f"{p.is_symmetric_path}; 121-point sweep first {sweep_s[0]:.3f} s,"
+          f" steady {sweep_s[1]:.3f} s; rel err vs f64 splu at "
+          + ", ".join(f"{freqs[i]:.1f} Hz {r:.3e}" for i, r in zip(idx, rel))
+          + f"; worst {rec['worst_rel_err']:.3e} (tol {ORACLE_TOL})",
+          flush=True)
+    if not (rec["worst_rel_err"] <= ORACLE_TOL and p.is_symmetric_path
+            and tuple(geom.clamped_labels) == (2,)
+            and np.iscomplexobj(fr)):
+        raise AssertionError(f"{tag} failed: {rec}")
+    return rec
+
+
+def slice6(dev, p21, freqs, fr21) -> dict:
+    """Phase 9 on ``dev``; ``p21``/``fr21``: phase 6's 21k Problem and its
+    FRF at the truth.  Returns the numbers for [summary] and K3's record
+    for the kernels' line under "k3"."""
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+
+    k3 = k3_cases(p21)
+    bench = sh_i_problem(dev, 1.0)
+    fr_bench = bench.solveForward(freqs).cpu().numpy()
+    csr_kernel.csr_mv_cuda.launches = 0
+    det = {"bench_1466": determinism(bench, freqs, fr_bench, "n=1466"),
+           "k3_1466": csr_kernel.csr_mv_cuda.launches}
+    del bench
+    csr_kernel.csr_mv_cuda.launches = 0
+    det["sh_i_21k"] = determinism(p21, freqs, fr21, f"n={p21.n_free}")
+    det["k3_21k"] = csr_kernel.csr_mv_cuda.launches
+    out = {"k3_cases": k3["cases"], "determinism": det,
+           "dense_fault": dense_fault(dev), "tpu_benchmark": tpu_benchmark(dev),
+           "edp": edp_plate(dev)}
+    out["k3"] = {"headline": k3["headline"],
+                 "launches": out["tpu_benchmark"]["k3"],
+                 "by_path": {"tpu_benchmark_1466": out["tpu_benchmark"]["k3"],
+                             "determinism_1466": det["k3_1466"],
+                             "determinism_21k": det["k3_21k"]}}
     return out
 
 

@@ -1,17 +1,20 @@
-"""Plate geometry: template -> static mesh + plate parameters.
+"""Plate geometry: template / file -> static mesh + plate parameters.
 
-Host copy of the JAX package's ``models/geometry.py`` for the template path
-(the reference's ``jax_plate/Geometry.py`` conventions: the same template
-names and accelerometer positions), built directly by ``mesh.generators``.
-The ``.edp`` / ``.msh`` file import is not ported yet (ROADMAP Queue 1,
-item B).
+Host copy of the JAX package's ``models/geometry.py`` (the reference's
+``jax_plate/Geometry.py`` conventions: the same template names and
+accelerometer positions), built directly by ``mesh.generators``.  A path
+to a FreeFEM ``.edp`` script is accepted too — its ``real <name> =
+<value>;`` parameter lines are parsed, its ``buildmesh`` domain is meshed
+by ``mesh.edp`` and its ``on(...)`` labels clamp the plate; a ``.msh``
+file gives exact-mesh import.
 """
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass
 
-from ..mesh import TriangleMesh, generate_plate_mesh
+from ..mesh import TriangleMesh, generate_plate_mesh, load_msh
 from .accelerometer import Accelerometer
 
 TEMPLATES = ["sh_r", "sh_i", "symm"]
@@ -26,6 +29,27 @@ class GeometryParams:
     height: float
     accel_x: float = None
     accel_y: float = None
+
+
+def _parse_edp_params(text: str) -> dict[str, float]:
+    """Extract ``real <name> = <value>;`` parameter lines from an .edp script.
+
+    Expressions like ``100*1e-3`` or ``Ly/2 - rAccel`` go through the
+    AST-whitelist evaluator (mesh/edp._eval) — .edp files are untrusted
+    input, so no Python ``eval``."""
+    from ..mesh.edp import _eval, _strip_comments
+
+    out: dict[str, float] = {}
+    text = _strip_comments(text)
+    # \b, not ^: FreeFEM allows several statements per line
+    # (``real Lx = 0.1; real Ly = 0.02;``)
+    for m in re.finditer(r"\breal\s+(\w+)\s*=\s*([^;]+);", text):
+        name, expr = m.group(1), m.group(2).strip()
+        try:
+            out[name] = float(_eval(expr, dict(out)))
+        except Exception:
+            continue
+    return out
 
 
 class Geometry:
@@ -47,13 +71,17 @@ class Geometry:
         accelerometer: Accelerometer = None,
         params: GeometryParams = None,
         *,
+        height: float = None,
         ny: int | None = None,
         refine: float = 1.0,
         clamped_labels: tuple[int, ...] | None = None,
     ):
+        self.template = None
         self._mesh: TriangleMesh | None = None
-        # Dirichlet border label set: explicit kwarg, else the templates'
-        # label 1 (symm.edp:26, pyFFInterface.py:52-65).
+        self.current_file = None
+        # Dirichlet border label set.  Resolution order: explicit kwarg; a
+        # user .edp script's own on(...) clauses (parsed below); the
+        # templates' label 1 (symm.edp:26, pyFFInterface.py:52-65).
         self.clamped_labels = (
             tuple(int(x) for x in clamped_labels)
             if clamped_labels is not None else (1,))
@@ -99,12 +127,74 @@ class Geometry:
                     )
                 params.accel_y = 0.0
 
+        elif isinstance(edp_or_template, (str, os.PathLike)) and os.path.exists(
+            edp_or_template
+        ):
+            ext = os.path.splitext(edp_or_template)[1]
+            self.current_file = str(edp_or_template)
+            if ext == ".msh":
+                self._mesh = load_msh(self.current_file)
+                if params is None and height is None:
+                    raise ValueError(
+                        "Height of the plate should be specified via `params` "
+                        "arg or `height` kwarg when loading from a file."
+                    )
+                if params is None:
+                    params = GeometryParams(None, None, height, None, None)
+            elif ext == ".edp":
+                with open(edp_or_template, "r") as fh:
+                    text = fh.read()
+                # loud, not silent: name any varf/fespace/solve/... sections
+                # the geometry interpreter skips (the reference would have
+                # executed them via FreeFEM; here fem/ and ops/ replace them)
+                from ..mesh.edp import warn_ignored_fe_statements
+
+                warn_ignored_fe_statements(text, source=self.current_file)
+                vals = _parse_edp_params(text)
+                if params is None and height is None:
+                    raise ValueError(
+                        "Height of the plate should be specified via `params` "
+                        "arg or `height` kwarg when loading from a file."
+                    )
+                if params is None:
+                    params = GeometryParams(
+                        vals.get("Lx"), vals.get("Ly"), height,
+                        vals.get("offsetAccelX"), vals.get("offsetAccelY"),
+                    )
+                self._edp_vals = vals
+                if clamped_labels is None:
+                    from ..mesh.edp import parse_dirichlet_labels
+
+                    found = parse_dirichlet_labels(text)
+                    if found:
+                        self.clamped_labels = found
+                # mesh the script's buildmesh domain directly (arbitrary
+                # borders/holes — the reference would hand this to FreeFEM,
+                # Geometry.py:115-145)
+                try:
+                    from ..mesh.edp import mesh_from_edp
+
+                    self._mesh = mesh_from_edp(text)
+                    # keep the script: .edp geometries re-mesh at scaled
+                    # border densities, so they stay coarsenable (the
+                    # two-grid preconditioner needs a coarser level)
+                    self._edp_text = text
+                    self._edp_density = 1.0
+                except Exception as err:
+                    import warnings
+
+                    warnings.warn(
+                        f"Could not mesh the .edp buildmesh domain ({err}); "
+                        "falling back to the rectangle template with the "
+                        "script's parsed Lx/Ly/accel parameters.",
+                        RuntimeWarning,
+                    )
+                    self.template = "sh_r"
+            else:
+                raise ValueError(f"Unsupported geometry file extension {ext!r}.")
         else:
             if os.path.splitext(str(edp_or_template))[1] in (".edp", ".msh"):
-                raise NotImplementedError(
-                    "Geometry from a .edp/.msh file is not ported yet "
-                    "(ROADMAP Queue 1, item B: .edp/.msh geometry "
-                    "import); use a template.")
+                raise FileNotFoundError(f"Could not find file {edp_or_template}.")
             raise ValueError(
                 f"Could not find template {edp_or_template}. Valid options "
                 f"are: {TEMPLATES}."
@@ -115,7 +205,7 @@ class Geometry:
         self.height = params.height
         self.accel_x = params.accel_x
         self.accel_y = params.accel_y
-        self.accel_r = accelerometer.radius
+        self.accel_r = accelerometer.radius if accelerometer is not None else None
         self._ny = ny
         self._refine = refine
 
@@ -123,7 +213,15 @@ class Geometry:
 
     def get_mesh(self) -> TriangleMesh:
         """Build (or return the cached) static mesh."""
+        if self._mesh is None and getattr(self, "_edp_text", None) is not None:
+            from ..mesh.edp import mesh_from_edp
+
+            self._mesh = mesh_from_edp(
+                self._edp_text,
+                density_scale=getattr(self, "_edp_density", 1.0))
         if self._mesh is None:
+            if self.template is None:
+                raise RuntimeError("Geometry has neither a template nor a mesh.")
             self._mesh = generate_plate_mesh(
                 self.template,
                 self.length,
@@ -136,29 +234,57 @@ class Geometry:
             )
         return self._mesh
 
+    @property
+    def can_coarsen(self) -> bool:
+        """True when a coarser mesh of the same domain can be generated —
+        template-based and .edp-script geometries; .msh imports have no
+        parametric description to regenerate from."""
+        return (self.template is not None
+                or getattr(self, "_edp_text", None) is not None)
+
     def coarsened(self, factor: float = 2.0) -> "Geometry":
-        """A coarser Geometry of the same domain (multigrid hierarchies):
-        the template re-generated at ``refine/factor``."""
+        """A coarser Geometry of the same domain (multigrid hierarchies).
+
+        Template geometries re-generate at ``refine/factor``; .edp
+        geometries re-mesh the script's buildmesh domain with border
+        densities scaled by ``1/factor`` (linear density — DOF count drops
+        ~factor^2, matching the template behavior)."""
+        if not self.can_coarsen:
+            raise ValueError(
+                "Only template- or .edp-based geometries can be coarsened "
+                "(.msh imports have no parametric description); use "
+                "precond='dense' for this Problem.")
         g = Geometry.__new__(Geometry)
         g.__dict__.update(self.__dict__)
         g._mesh = None
-        g._refine = self._refine / factor
+        if self.template is not None:
+            g._refine = self._refine / factor
+        else:
+            g._edp_density = getattr(self, "_edp_density", 1.0) / factor
         return g
 
     @property
     def test_point(self) -> tuple[float, float]:
-        """AFC measurement point of the pure-bending path: the
+        """AFC measurement point of the pure-bending path.
+
+        A user ``.edp`` may define its own ``xtest``/``ytest`` (the
+        reference reads them from the script — symm.edp:13-14,
+        pyFFInterface.py:36-46); honor those when present, else the
         accelerometer centre, as in the reference templates."""
+        vals = getattr(self, "_edp_vals", None) or {}
+        if "xtest" in vals and "ytest" in vals:
+            return (float(vals["xtest"]), float(vals["ytest"]))
         if self.accel_x is None or self.accel_y is None:
             raise ValueError(
                 "Readout/test point undefined: give the geometry an "
-                "accelerometer position (accel_x/accel_y).")
+                "accelerometer position (accel_x/accel_y) or define "
+                "xtest/ytest in the .edp script.")
         return (self.accel_x, self.accel_y)
 
     def __str__(self):
         d = {
             k: v
             for k, v in self.__dict__.items()
-            if not k.startswith("_")
+            if not k.startswith("_") and k != "current_file"
         }
         return f"Geometry with {d}."

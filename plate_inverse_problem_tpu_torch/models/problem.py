@@ -10,7 +10,11 @@ preconditioner (8192 <= n <= 12288) or with the two-grid f32
 preconditioner (n > 12288).  Every material family runs, per-modulus loss
 factors included.  Operator data is a plain dict of tensors under the JAX
 opdata's key names; ``getFRCore`` returns a plain function of (freqs,
-params, opdata).  ``Problem(spath=...)`` reads a ``setup.json`` folder.
+params, opdata).  ``Problem(spath=...)`` reads a ``setup.json`` folder,
+whose geometry may be a template, a FreeFEM ``.edp`` script or a ``.msh``
+mesh.  ``diagnoseSweep`` returns the sweep's per-frequency convergence
+signal; ``solveInverse`` runs Gauss-Newton, gradient descent and
+coordinate descent, on a compressed reference FRF if asked.
 
 Options that resolve to what this port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item; nothing falls back.  The
@@ -126,7 +130,8 @@ class _ImplicitSweep(torch.autograd.Function):
         Y_re, Y_im = core.sweep_adj(freqs, th, od, g_re, g_im)
         with torch.enable_grad():
             th = th.requires_grad_(True)
-            R_re, R_im = core.apply_res(freqs, th, od, U_re, U_im)
+            R_re, R_im = core.apply_res(freqs, th, od, U_re.detach(),
+                                        U_im.detach())
             psi = (Y_re * R_re).sum() + (Y_im * R_im).sum()
             (g,) = torch.autograd.grad(psi, th)
         return -g, None, None, None
@@ -315,9 +320,15 @@ class Problem:
         accel: Accelerometer = None,
         ref_fr: tuple[np.ndarray, np.ndarray] = None,
         *,
+        cpu: int | None = 0,            # accepted for reference API
+                                        # parity; unused
         spath: str | os.PathLike = None,
         device: torch.device | str = "cuda",   # "cpu" on request
         engine: str | None = "mixed",   # the mixed engine only
+        chunk: int = 16,                # the direct engine's frequency
+                                        # chunk (not ported)
+        n_modes: int | None = None,     # the modal engine's truncation
+                                        # (not ported)
         f_max: float = 600.0,           # band edge of the basis [Hz]
         n_refine: int = 16,             # TOTAL Krylov budget
         k_cycle: int | None = None,     # FGMRES cycle length (None = 8)
@@ -331,8 +342,9 @@ class Problem:
         operator_layout: str = "auto",  # 'flat' / 'band'; auto: band from
                                         # 8192 DOF
         basis: str = "arpack",          # how the band basis is computed
-        basis_f32: bool | None = None,  # f32 Krylov basis storage (None:
-                                        # on the dense tier)
+        basis_f32: bool | None = None,  # f32 Krylov basis storage (the
+                                        # JAX package's on its dense tier;
+                                        # None: f64 on every tier)
         opdata: dict | None = None,     # operator data to use instead of
                                         # building it (convert.py)
     ):
@@ -342,6 +354,11 @@ class Problem:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported yet (ROADMAP Queue 1, item "
                 "13: other engines); the port runs the mixed engine.")
+        if chunk != 16 or n_modes is not None:
+            raise NotImplementedError(
+                "chunk= and n_modes= set the direct and modal engines, which "
+                "are not ported yet (ROADMAP Queue 1, item F.13: other "
+                "engines); the port runs the mixed engine.")
         if precond not in ("auto", "dense", "mg"):
             raise ValueError(f"Unknown precond {precond!r}; valid options: "
                              "'auto', 'dense', 'mg'.")
@@ -507,10 +524,18 @@ class Problem:
                     templ, accelerometer=self.accelerometer,
                     params=GeometryParams(**gdict), ny=g_ny, refine=g_refine)
             elif "edp" in gdict or "msh" in gdict:
-                raise NotImplementedError(
-                    f"The geometry of {setup_fpath} is a .edp/.msh file, "
-                    "whose import is not ported yet (ROADMAP Queue 1, item "
-                    "B: .edp/.msh geometry import); use a template.")
+                gfile = gdict.pop("edp", None) or gdict.pop("msh", None)
+                gdict.pop("msh", None)
+                if not os.path.isabs(gfile):
+                    gfile = os.path.join(spath, gfile)
+                if "length" in gdict:
+                    self.geometry = Geometry(
+                        gfile, accelerometer=self.accelerometer,
+                        params=GeometryParams(**gdict))
+                else:
+                    self.geometry = Geometry(
+                        gfile, accelerometer=self.accelerometer,
+                        height=gdict["height"])
             else:
                 raise ValueError(
                     "Cannot create Geometry object, file "
@@ -605,6 +630,7 @@ class Problem:
             permute_pattern, permute_vector, rect_band_tensor,
         )
         from ..ops.band_kernel import pack_band_tiles
+        from ..ops.csr_kernel import build_csr
         from ..ops.dense import inv_refined
         from ..ops.mg import _dinv_lmax, _pin_dead, build_prolongation
         from ..ops.mixed import band_basis_host, mixed_apply, mixed_sweep
@@ -624,14 +650,28 @@ class Problem:
         precond = self.precond
         if precond == "auto":
             precond = "mg" if n > 12288 else "dense"
+        if precond == "mg" and not self.geometry.can_coarsen:
+            # the two-grid regenerates a coarser mesh; a .msh import cannot.
+            # "auto" takes the dense preconditioner (any n, slower above
+            # ~12k DOF); an explicit 'mg' is a user error
+            if self.precond == "mg":
+                raise ValueError(
+                    "precond='mg' needs a coarsenable geometry (template or "
+                    ".edp script); this mesh-imported geometry has none. "
+                    "Use precond='dense'.")
+            warnings.warn(
+                f"n_free={n} would use the mg preconditioner, but this "
+                "mesh-imported geometry cannot be coarsened; falling back "
+                "to the dense complement preconditioner (slower above "
+                "~12k DOF).", RuntimeWarning)
+            precond = "dense"
         if precond == "mg" and not use_band:
             raise NotImplementedError(
                 "precond='mg' on the flat layout (operator_layout='flat', or "
                 "'auto' below 8192 DOF) needs the flat multilevel "
                 "preconditioner, which is not ported yet (ROADMAP Queue 1, "
                 "item 14); the port's two-grid runs on the band layout.")
-        basis_f32 = (precond == "dense" if self.basis_f32 is None
-                     else bool(self.basis_f32))
+        basis_f32 = bool(self.basis_f32)
         self._tier = ("band" if use_band else "flat", precond, basis_f32)
         if use_band:
             layout = build_band_layout(op.pattern.rows, op.pattern.cols, n)
@@ -770,6 +810,10 @@ class Problem:
             self._band_pack = pack
             self._pack_build_s = time.perf_counter() - t0
 
+        # the CSR copy of the flat pattern, built once: K3 runs the flat
+        # operator, the residual map and the panels' row sums on it
+        csr = build_csr(opdata["rows"], opdata["cols"], n)
+
         material = self.material
         # the scalar-loss families have K_im = beta K_re exactly; per-modulus
         # loss factors carry K_im as a third operator
@@ -801,7 +845,8 @@ class Problem:
             B_im = bK_im[None, :].expand_as(B_re)
             return K_re, K_im, B_re, B_im, omegas
 
-        def solve(K_re, K_im, B_re, B_im, omegas, od, adjoint):
+        def solve(K_re, K_im, B_re, B_im, omegas, od, adjoint,
+                  diagnostics=False):
             band = (None if layout is None
                     else {"layout": layout, "lin": od["band_lin"]})
             mg = None if precond != "mg" else {
@@ -819,7 +864,7 @@ class Problem:
                     basis_f32=basis_f32, n_refine=self.n_refine,
                     refine_tol=self.refine_tol, freq_chunk=freq_chunk,
                     ki_proportional=ki_prop, k_cycle=self.k_cycle,
-                    adjoint=adjoint)
+                    adjoint=adjoint, csr=csr, diagnostics=diagnostics)
 
         def sweep(freqs, params, od):
             """Primal sweep (U_re, U_im), each (F, n) f64, outside any
@@ -840,7 +885,7 @@ class Problem:
             K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
             AU_re, AU_im = mixed_apply(K_re, K_im, od["MIn"], omegas, U_re,
                                        U_im, od["rows"], od["cols"], n,
-                                       ki_proportional=ki_prop)
+                                       ki_proportional=ki_prop, csr=csr)
             return AU_re - B_re, AU_im - B_im
 
         if symmetric:
@@ -873,11 +918,21 @@ class Problem:
             U_re, U_im = _ImplicitSweep.apply(params, freqs, od, core)
             return readout(U_re, U_im, od)
 
+        def core_diag(freqs, params, od):
+            """(FRF, rn, rn_fin, rn0, tol): the primal sweep with its
+            convergence signal (``mixed_sweep(diagnostics=True)``), outside
+            any autograd graph."""
+            K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
+            U_re, U_im, *info = solve(K_re, K_im, B_re, B_im, omegas, od,
+                                      False, diagnostics=True)
+            return (readout(U_re, U_im, od), *info)
+
         # the pieces the adjoint Gauss-Newton Jacobian and the gradient need
         core.sweep_u = sweep
         core.sweep_adj = sweep_adj
         core.apply_res = apply_res
         core.readout_ui = readout
+        core.diag = core_diag
         return core, opdata
 
     def _reference_stiffness_flat(self) -> np.ndarray:
@@ -944,15 +999,64 @@ class Problem:
                 "Recreate the Problem with f_max >= the sweep maximum.",
                 RuntimeWarning)
 
-    def solveForward(self, freqs: np.ndarray,
-                     params: np.ndarray = None) -> torch.Tensor:
+    def solveForward(self, freqs: np.ndarray, params: np.ndarray = None,
+                     polish_peaks=False) -> torch.Tensor:
         """Forward FRF for a set of frequencies [Hz] (reference
         Problem.py:611-639), a tensor on the device: real magnitude on the
         3-field path, complex amplitude on the symmetric path."""
+        if polish_peaks not in (False, None):
+            raise NotImplementedError(
+                "polish_peaks is not ported yet (ROADMAP Queue 1, item F.17: "
+                "oracle.polish_peaks).")
         if params is None:
             params = self.parameters
         self._check_band(freqs)
         return self.getFRFunction()(freqs, params)
+
+    def diagnoseSweep(self, freqs, params: np.ndarray = None) -> dict:
+        """Per-frequency convergence signal of the mixed engine's sweep
+        (JAX ``Problem.diagnoseSweep``): the identical solve, with its
+        convergence bookkeeping returned.  A dict of numpy arrays over the
+        sweep:
+
+        * ``fr`` — the FRF values (as :meth:`solveForward` gives them);
+        * ``residual_norm`` — the TRUE f64 residual norm the Krylov loop
+          exited with (what its stopping test compared);
+        * ``final_residual_norm`` — the true residual of the returned
+          iterate after the final band corrections, which trade residual
+          norm in benign directions for resonance-amplified solution error
+          (report it, do not gate on it);
+        * ``initial_residual_norm`` — the residual norm of the band-
+          resolvent start;
+        * ``target`` — the amplification-aware norm target of the solve;
+        * ``converged`` — the solve reached its target or reduced the
+          residual of its start by 9 orders of magnitude.
+        """
+        if params is None:
+            params = self.parameters
+        self._check_band(freqs)
+        core, od = self.getFRCore()
+        dev = self.device
+        out = core.diag(torch.as_tensor(np.asarray(freqs, np.float64),
+                                        device=dev),
+                        _as_tensor(params, dev), od)
+        y, rn, rn_fin, rn0, tol = (_numpy(v) for v in out)
+        return {
+            "fr": y,
+            "residual_norm": rn,
+            "final_residual_norm": rn_fin,
+            "initial_residual_norm": rn0,
+            "target": tol,
+            "converged": (rn <= tol * (1.0 + 1e-12)) | (rn <= 1e-9 * rn0),
+        }
+
+    def getModePicture(self, freq: float, use_freefem: bool = False,
+                       params: np.ndarray = None, ax=None):
+        """The plate's deflection shape at one frequency (JAX
+        ``Problem.getModePicture``): not ported yet."""
+        raise NotImplementedError(
+            "getModePicture is not ported yet (ROADMAP Queue 1, item D.4: "
+            "a host LU of one frequency and a lazy matplotlib plot).")
 
     def getSolutionMatrices(self, D, beta):
         """Flat (K_real, K_imag, MInertia) data of the symmetric path for
@@ -1003,7 +1107,13 @@ class Problem:
                      log: bool = True, case_name: str = "", uid: str = None,
                      extra_info: str = "", **opt_kwargs) -> optResult:
         """Inverse solve from an initial guess (reference Problem.py:641-914)
-        by Gauss-Newton ('gn' / 'gauss_newton') on the adjoint Jacobian.
+        by Gauss-Newton ('gn' / 'gauss_newton') on the adjoint Jacobian, or
+        by the first-order host loops on the loss gradient: gradient
+        descent ('gd' / 'grad_descent'), coordinate descent ('cd' /
+        'coord_descent') and its adaptive-step variant ('cd_mem' /
+        'coord_descent_mem', ``optimize_cd_mem2`` as in the JAX package).
+        ``compression=(True, k)`` first reduces the reference FRF to k
+        points (``io.compress.Compressor``, algorithm ``comp_alg``).
 
         ``arg0`` is a 1-D start point: absolute, or with ``use_rel``
         relative corrections on the Problem's own parameters, theta_0 =
@@ -1028,19 +1138,27 @@ class Problem:
         if len(compression) != 2:
             raise ValueError("`compression` tuple should have 2 elements, "
                              f"not {len(compression)}.")
-        if compression[0]:
-            raise NotImplementedError(
-                "FRF compression (compression=(True, k)) is not ported yet "
-                "(ROADMAP Queue 1, item F.17: io/compress.py).")
-        if optimizer not in ("gn", "gauss_newton"):
-            known = ("trust_region", "tr", "coord_descent", "cd",
-                     "coord_descent_mem", "cd_mem", "grad_descent", "gd",
-                     "newton", "lbfgs", "de", "shgo")
-            if optimizer in known:
+        from ..optimize import (
+            optimize_cd, optimize_cd_mem2, optimize_gauss_newton, optimize_gd)
+
+        local = {"gauss_newton": "GN", "gn": "GN",
+                 "coord_descent": optimize_cd, "cd": optimize_cd,
+                 "coord_descent_mem": optimize_cd_mem2,
+                 "cd_mem": optimize_cd_mem2,
+                 "grad_descent": optimize_gd, "gd": optimize_gd}
+        if optimizer not in local:
+            if optimizer in ("trust_region", "tr", "newton", "lbfgs", "de",
+                             "shgo"):
                 raise NotImplementedError(
                     f"Optimizer {optimizer!r} is not ported yet (ROADMAP "
-                    "Queue 1, item D); the port runs Gauss-Newton ('gn').")
+                    "Queue 1, item D); the port runs 'gn', 'gd', 'cd' and "
+                    "'cd_mem'.")
             raise ValueError(f"Optimizer type `{optimizer}` is not supported!")
+        if compression[0]:
+            from ..io.compress import Compressor
+
+            comp = Compressor(ref_fr[0], ref_fr[1], compression[1], comp_alg)
+            ref_fr[0], ref_fr[1] = comp(compression[1])
 
         guess = np.asarray(arg0, dtype=np.float64)
         if guess.ndim == 2:
@@ -1070,18 +1188,24 @@ class Problem:
             scaling_params = np.ones_like(start)
             x0 = start
 
-        kind = {"MSE": "complex", "RMSE": "complex", "MSE_AFC": "afc",
-                "MSE_LOG_AFC": "log_afc"}.get(loss_type)
-        if kind is None:
-            raise ValueError(f'Function type "{loss_type}" is not supported!')
-        resfn = self.getResidualFunction(
-            ref_fr[0], ref_fr[1], kind=kind,
-            scaling_params=scaling_params if use_scaling else None)
-
-        from ..optimize import optimize_gauss_newton
+        if local[optimizer] == "GN":
+            kind = {"MSE": "complex", "RMSE": "complex", "MSE_AFC": "afc",
+                    "MSE_LOG_AFC": "log_afc"}.get(loss_type)
+            if kind is None:
+                raise ValueError(
+                    f'Function type "{loss_type}" is not supported!')
+            objective = self.getResidualFunction(
+                ref_fr[0], ref_fr[1], kind=kind,
+                scaling_params=scaling_params if use_scaling else None)
+            optimizer_func = optimize_gauss_newton
+        else:
+            objective = self.getLossFunction(
+                ref_fr[0], ref_fr[1], loss_type,
+                scaling_params if use_scaling else None)
+            optimizer_func = local[optimizer]
 
         t_start = time.perf_counter()
-        result = optimize_gauss_newton(resfn, x0, **opt_kwargs)
+        result = optimizer_func(objective, x0, **opt_kwargs)
         elapsed = (time.perf_counter() - t_start) / 60
         if use_scaling:
             result = result._replace(x=result.x * scaling_params)
@@ -1100,10 +1224,15 @@ class Problem:
                 return np.array2string(np.array(s), separator=", ",
                                        precision=5)
 
+            comp_str = ""
+            if compression[0]:
+                comp_str = (f"Using compression algorithm {comp_alg} with "
+                            f"{compression[1]} points.\n")
             f0 = result.f_history[0] if len(result.f_history) else float("nan")
             rep_str = (
                 f"{self.accelerometer}\n{self.material}\n{self.geometry}\n"
                 + extra_info
+                + comp_str
                 + f"Starting parameters: {a2s(np.asarray(x0) * scaling_params)}.\n"
                 f"With relative error: {a2s(rel_err1)}.\n"
                 f"Initial loss: {f0}.\n"

@@ -111,25 +111,32 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile ``csrc/band_mv.cu`` (if the library is missing or older than
-    the source) and load it.  Returns the compiler's report of the build
-    (kept beside the library: registers, shared memory, spills)."""
-    global _lib
-    log = _LIB_PATH + ".log"
-    if (not os.path.exists(_LIB_PATH) or not os.path.exists(log)
-            or os.path.getmtime(_LIB_PATH) < os.path.getmtime(SOURCE)):
+def compile_source(source: str, lib_path: str) -> str:
+    """Compile ``source`` with nvcc into the shared library ``lib_path`` if
+    the library is missing or older than the source; returns the
+    compiler's report (registers, shared memory, spills), kept beside the
+    library."""
+    log = lib_path + ".log"
+    if (not os.path.exists(lib_path) or not os.path.exists(log)
+            or os.path.getmtime(lib_path) < os.path.getmtime(source)):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stderr}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
         with open(log, "w") as fh:
             fh.write(res.stdout + res.stderr)
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, lib_path)
     with open(log) as fh:
-        report = fh.read()
+        return fh.read()
+
+
+def build() -> str:
+    """Compile ``csrc/band_mv.cu`` (``compile_source``) and load it.
+    Returns the compiler's report of the build."""
+    global _lib
+    report = compile_source(SOURCE, _LIB_PATH)
     if _lib is None:
         lib = ctypes.CDLL(_LIB_PATH)
         lib.band_mv_f32_launch.argtypes = [

@@ -1,10 +1,10 @@
-"""Mixed-precision frequency sweep: f64-grade FRFs, f32 Krylov work.
+"""Mixed-precision frequency sweep: f64-grade FRFs, f32 two-grid work.
 
 Port of the JAX package's ``ops/mixed.py`` for its three tiers: the exact
-f64 operator on the flat pattern (scatter SpMV) or in the RCM
-block-tridiagonal layout, preconditioned by the dense inverse of the
-reference stiffness (n <= 12288; f64 in the port, ops/dense.py) or by the
-band f32 two-grid cycle.
+f64 operator on the flat pattern (K3, the CSR kernel of ops/csr_kernel.py)
+or in the RCM block-tridiagonal layout, preconditioned by the dense inverse
+of the reference stiffness (n <= 12288; f64 in the port, ops/dense.py) or
+by the band f32 two-grid cycle.
 
 1. **Band basis** (host, init-time): the lowest ``m`` M-orthonormal modes of
    the equilibrated reference pencil, from ARPACK shift-invert in f64.
@@ -14,7 +14,14 @@ band f32 two-grid cycle.
    flexible GMRES in split-complex f64 preconditioned by the band resolvent
    plus the deflated complement preconditioner (dense inverse or two-grid
    cycle), then final band corrections on the band projection of the true
-   residual, Z^T (b - A x) = Z^T b - (A Z)^T x.
+   residual, Z^T (b - A x) = Z^T b - (A Z)^T x.  The Krylov bases are f64
+   on every tier (the JAX package stores them in f32 on its dense tier,
+   which off the build point left lanes 1.5e-6 to 2.1e-6 off an f64 LU
+   solve on the SOL 45 deg plate at n = 1466, tests/test_torch_diag.py).
+   A lane that is still unconverged when its budget is spent (true
+   residual above its target and less than 9 orders of magnitude below
+   its start, the rule of ``diagnoseSweep``) gets the budget again, its
+   own lanes only; the JAX package stops there.
 
 The final band corrections are where the port departs from the JAX
 package, which feeds them a full residual b - A x computed in f64 with
@@ -26,11 +33,11 @@ the FRF.  Measured against an f64 LU solve with extended-precision
 iterative refinement (.probes/peak_floor.py, NVIDIA H100 80GB HBM3 at
 700 W): 2.1e-6-3.1e-6 at the pure-bending peak (n = 13862) and up to
 6.3e-7 at the 21k laminate peak, varying from run to run with the f64
-atomics.  The port computes the band panels K Z, M Z (and K_im Z) once
-per sweep with exact row sums (``_dd_spmv``: exact products, Rump's
-extraction), rounded once, and takes the projected residual from them with f64 dots,
-whose rounding no longer meets the stiffness spread: 3.2e-7 at that
-peak, the same in every run.
+atomics of the scatter that ran then.  The port computes the band panels
+K Z, M Z (and K_im Z) once per sweep with exact row sums (``_dd_spmv``:
+exact products, Rump's extraction), rounded once, and takes the projected
+residual from them with f64 dots, whose rounding no longer meets the
+stiffness spread: 3.2e-7 at that peak, the same in every run.
 
 The imaginary stiffness is exact in every operator apply: for the
 scalar-loss material families K_im = beta K_re, and the applies scale the
@@ -53,8 +60,8 @@ import torch
 
 from .band import band_mv, flat_to_band
 from .band_kernel import band_mv_f32
+from .csr_kernel import build_csr, csr_apply, csr_mv
 from .mg import twogrid_apply
-from .scatter import spmv_flat
 
 # f32 refinement rounds around the two-grid cycle (each round costs one
 # extra f32 band matvec + cycle and squares the cycle's error)
@@ -137,7 +144,8 @@ def _sel(mask, new, old):
 
 
 def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
-            r0, band_correct, band_correct_n: int, basis_f32: bool = False):
+            r0, band_correct, band_correct_n: int, basis_f32: bool = False,
+            diag: bool = False, n_rescue: int = 0):
     """Restarted flexible (right-preconditioned) GMRES on split-complex f64
     lanes (JAX ``_pgmres`` with ``anchor=True``, ``tol_abs2=0``, a given
     start residual and final band corrections).
@@ -156,31 +164,58 @@ def _pgmres(A_apply, P_apply, bb, x0, tol_rel, k_max: int, n_cycles: int,
     iterates and the true residuals stay f64, so only the subspace's
     representation is f32: it caps one cycle's residual gain at ~3e-7 and
     the f64 restarts square that down (GMRES-IR).
+
+    ``n_rescue``: up to that many more cycles for the lanes that are still
+    unconverged by the diagnostics rule after ``n_cycles`` (residual above
+    the target and above 1e-9 |r0|); a lane at its target, or whose target
+    sits below the f64 floor after 9 orders of progress, stops.
+
+    ``diag`` (JAX ``return_info``): also return, per lane, the TRUE f64
+    residual norm the last cycle exited with, the residual norm of the
+    returned iterate after the band corrections (one more operator apply),
+    the initial residual norm |r0| and the residual target: (x, rn, rn_fin,
+    rn0, tol).
     """
     L = bb.shape[0]
     lanes = torch.arange(L, device=bb.device)
-    tol2 = (tol_rel * torch.sqrt((r0 * r0).sum((1, 2)))) ** 2
+    r0n2 = (r0 * r0).sum((1, 2))
+    tol2 = (tol_rel * torch.sqrt(r0n2)) ** 2
     active = torch.ones(L, dtype=torch.bool, device=bb.device)
     x, r, rn2, tol2 = _pgmres_cycle(A_apply, P_apply, bb, x0, r0, tol2,
                                     tol_rel, k_max, True, active, lanes,
                                     basis_f32)
     c = 1
-    while c < n_cycles:
+    while c < n_cycles + n_rescue:
         active = rn2 > tol2
+        if c >= n_cycles:
+            active = active & (rn2 > 1e-18 * r0n2)
         if not bool(active.any()):
             break
-        xn, rnew, rn2n, tol2n = _pgmres_cycle(
-            A_apply, P_apply, bb, x, r, tol2, tol_rel, k_max, False, active,
-            lanes, basis_f32)
-        x, r = _sel(active, xn, x), _sel(active, rnew, r)
-        rn2, tol2 = _sel(active, rn2n, rn2), _sel(active, tol2n, tol2)
+        if c < n_cycles:
+            xn, rnew, rn2n, tol2n = _pgmres_cycle(
+                A_apply, P_apply, bb, x, r, tol2, tol_rel, k_max, False,
+                active, lanes, basis_f32)
+            x, r = _sel(active, xn, x), _sel(active, rnew, r)
+            rn2, tol2 = _sel(active, rn2n, rn2), _sel(active, tol2n, tol2)
+        else:
+            # a rescue cycle runs on its few lanes alone, compacted: its
+            # bases and dots cost what those lanes need
+            i = torch.nonzero(active).squeeze(1)
+            x[i], r[i], rn2[i], tol2[i] = _pgmres_cycle(
+                A_apply, P_apply, bb[i], x[i], r[i], tol2[i], tol_rel[i],
+                k_max, False, torch.ones_like(i, dtype=torch.bool), lanes[i],
+                basis_f32)
         c += 1
 
     # final defect corrections through the exact band resolvent, on the
     # band projection of the true residual (see mixed_sweep)
     for _ in range(band_correct_n):
         x = band_correct(x, lanes)
-    return x
+    if not diag:
+        return x
+    r_fin = bb - A_apply(x, lanes)
+    return (x, torch.sqrt(rn2), torch.sqrt((r_fin * r_fin).sum((1, 2))),
+            torch.sqrt(r0n2), torch.sqrt(tol2))
 
 
 def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
@@ -357,33 +392,15 @@ def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
 # the mixed sweep
 # ---------------------------------------------------------------------------
 
-def _fused_apply_flat(stacked_data, uu, rows, cols, n: int,
-                      seg: int | None = None):
-    """(S, nnz) operator stack applied to (..., n): output (S, ..., n).
-
-    The nnz axis is walked in segments of ``seg`` entries, each segment's
-    (S, ..., seg) contribution tensor short-lived.  Out-of-place
-    ``index_add``, so forward- and reverse-mode AD both run through it."""
-    if seg is None:
-        seg = _RES_SEG
-    S, nnz = stacked_data.shape
-    bshape = (S,) + (1,) * (uu.dim() - 1)
-    out = torch.zeros((S,) + uu.shape[:-1] + (n,), dtype=stacked_data.dtype,
-                      device=uu.device)
-    for lo in range(0, nnz, seg):
-        contrib = stacked_data[:, lo:lo + seg].reshape(bshape + (-1,)) \
-            * uu[..., cols[lo:lo + seg]][None]
-        out = out.index_add(-1, rows[lo:lo + seg], contrib)
-    return out
-
-
 def mixed_apply(K_re, K_im, M_flat, omegas, U_re, U_im, rows, cols, n: int,
-                ki_proportional: bool = True):
+                ki_proportional: bool = True, csr=None):
     """Batched split-complex operator application A(theta) U on (F, n)
     pairs: the exact f64 operator of ``mixed_sweep`` on the flat pattern,
-    one fused scatter pass for the operator stack per chunk of lanes
-    (_APPLY_BUDGET): [K_re, M], or [K_re, M, K_im] for per-modulus loss
-    factors (``ki_proportional=False``).
+    one K3 pass (``csr_kernel.csr_apply`` on ``csr``, the pattern's CSR
+    copy; built here when None) for the operator stack per chunk of lanes
+    (_APPLY_BUDGET, which bounds the reverse mode's gathers): [K_re, M], or
+    [K_re, M, K_im] for per-modulus loss factors
+    (``ki_proportional=False``).
 
     With ``ki_proportional``, ``beta`` = <K_re, K_im> / <K_re, K_re> stays
     in the graph: its tangent d beta is what makes the adjoint Jacobian
@@ -400,11 +417,13 @@ def mixed_apply(K_re, K_im, M_flat, omegas, U_re, U_im, rows, cols, n: int,
     if not ki_proportional:
         ops.append(K_im.to(f64))
     uu = torch.stack([U_re.to(f64), U_im.to(f64)])
+    if csr is None:
+        csr = build_csr(rows, cols, n)
     seg = min(int(rows.shape[0]), _RES_SEG)
     chunk = max(8, int(_APPLY_BUDGET // (len(ops) * 2 * seg * 8)))
     chunk = 1 << (chunk.bit_length() - 1)
-    out = torch.cat([_fused_apply_flat(torch.stack(ops), uu[:, lo:lo + chunk],
-                                       rows, cols, n, seg)
+    data = torch.stack(ops)
+    out = torch.cat([csr_apply(data, uu[:, lo:lo + chunk], csr, seg)
                      for lo in range(0, uu.shape[1], chunk)], dim=2)
     Kx, Mx = out[0], out[1]
     if ki_proportional:
@@ -432,19 +451,25 @@ def _two_prod(a, b):
     return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
 
 
-def _dd_spmv(data, x, rows, cols, n: int):
-    """Each operator of the (S, nnz) stack ``data`` on the pattern applied
-    to the rows of x (m, n): (S, m, n) f64, every row sum exact before one
-    final rounding however much its terms cancel.
+def _dd_spmv(data, x, rows, cols, n: int, csr=None):
+    """Each operator of the (S, nnz) stack ``data`` on the pattern (rows,
+    cols) — ``csr``, its CSR copy, built here when None — applied to the
+    rows of x (m, n): (S, m, n) f64, every row sum exact
+    before one final rounding however much its terms cancel.
 
     The products are split exactly, d x = p + e (TwoProduct).  Rump's
     extraction against sigma, a power of two above 2 * d_max * max_row |p|,
     splits p = p_hi + p_lo with every p_hi a multiple of ulp(sigma): any
     partial sum of a row's p_hi is then a representable multiple of it, so
-    one ``index_add`` sums them exactly in any order, and the small p_lo + e
-    sum alongside to f64 accuracy of their own size.  The result is
-    S_hi + S_lo rounded once.  The rows of x go _DD_ROWS at a time."""
-    d_max = int(torch.bincount(rows, minlength=n).max())
+    one row sum takes them exactly in any order, and the small p_lo + e
+    sum alongside to f64 accuracy of their own size, both in one K3 pass
+    (``csr_mv`` of the two stacks on x = 1: a fixed order, so the same bits
+    in every run).  The result is S_hi + S_lo rounded once.  The rows of x
+    go _DD_ROWS at a time."""
+    if csr is None:
+        csr = build_csr(rows, cols, n)
+    ones = torch.ones(1, n, dtype=torch.float64, device=x.device)
+    d_max = int(csr.rowptr.diff().max())
     lift = 2.0 ** (int(np.ceil(np.log2(d_max))) + 2)
     out = torch.empty(data.shape[0], x.shape[0], n, dtype=torch.float64,
                       device=x.device)
@@ -458,10 +483,8 @@ def _dd_spmv(data, x, rows, cols, n: int):
             _, ex = torch.frexp(m_row)                  # m_row < 2^ex
             sigma = torch.ldexp(lift * torch.ones_like(m_row), ex)[:, rows]
             p_hi = (sigma + p) - sigma
-            s_hi = torch.zeros_like(m_row).index_add_(1, rows, p_hi)
-            s_lo = torch.zeros_like(m_row).index_add_(1, rows,
-                                                      (p - p_hi) + e)
-            out[k, lo_:lo_ + _DD_ROWS] = s_hi + s_lo
+            sums = csr_mv(torch.cat([p_hi, (p - p_hi) + e]), ones, csr)[:, 0]
+            out[k, lo_:lo_ + _DD_ROWS] = sums[:p.shape[0]] + sums[p.shape[0]:]
     return out
 
 
@@ -480,10 +503,10 @@ def _flat_seg(nnz: int) -> int:
 
 def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
                 W64, *, band=None, mg=None, invK=None, K_ref32=None,
-                basis_f32: bool | None = None, n_refine: int = 16,
+                basis_f32: bool = False, n_refine: int = 16,
                 refine_tol: float = 3e-7, freq_chunk: int | None = None,
                 ki_proportional: bool = True, k_cycle: int | None = None,
-                adjoint: bool = False):
+                adjoint: bool = False, csr=None, diagnostics: bool = False):
     """f64-grade frequency sweep, split-complex interface.
 
     K_re/K_im/M_flat (nnz,) f64 flat operator data on the pattern
@@ -496,7 +519,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
     * ``band`` {"layout": BandLayout, "lin": (nnz,) int64 device scatter
       targets}: the exact operator runs as f64 block-tridiagonal GEMMs;
-      without it, as the fused flat scatter over (rows, cols);
+      without it, as K3 on the flat pattern (rows, cols);
     * ``mg``, the two-grid data {"tg_pack" (the f32 K_ref band packed by
       ops/band_kernel.pack_band_tiles), "dinv", "Pt", "Kc_inv", "slots",
       "lmax", "rl", "layout"} (band layout only): the complement
@@ -507,9 +530,11 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
       f32 refinement rounds through ``K_ref32`` (nnz,) f32 on the pattern
       when that is given.
 
-    ``basis_f32`` (None: the dense tier's, ``mg is None``) stores the
-    FGMRES bases in f32 and feeds the preconditioner f32 (at least two
-    cycles then: one cycle certifies only ~3e-7).
+    ``basis_f32`` stores the FGMRES bases in f32 and feeds the
+    preconditioner f32 (at least two cycles then: one cycle certifies only
+    ~3e-7), as the JAX package does on its dense tier; the port keeps them
+    in f64 by default, which on an H100 is no slower at n = 1466 and
+    11910 and leaves fewer lanes unconverged (PERF.md).
 
     ``ki_proportional``: K_im = beta K_re exactly (the scalar-loss
     material families), so the applies scale the K_re matvec; else K_im is
@@ -523,7 +548,14 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     flipped everywhere; the preconditioner (real, on Re K_ref) and the
     difficulty sort do not depend on the sign.
 
-    Returns (U_re, U_im), each (F, n) f64.
+    ``csr``: the pattern's CSR copy (``csr_kernel.build_csr``; built here
+    when None), on which K3 runs every flat operator apply and the row sums
+    of the exact band panels.
+
+    Returns (U_re, U_im), each (F, n) f64; with ``diagnostics`` (the JAX
+    package's diagnostics path: the same solve) also the per-lane
+    convergence signal of ``_pgmres``, (U_re, U_im, rn, rn_fin, rn0, tol),
+    each norm (F,) in the units of b.
     """
     if mg is not None and band is None:
         raise NotImplementedError(
@@ -541,42 +573,36 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     Kr64 = K_re.to(f64)
     Ms64 = M_flat.to(f64)
     Ki64 = None if ki_proportional else K_im.to(f64)
-    rows_l = rows.long()
-    cols_l = cols.long()
+    if csr is None:
+        csr = build_csr(rows, cols, n)
 
     if band is not None:
         lay = band["layout"]
         bands = [flat_to_band(v, lay, band["lin"])
                  for v in (Kr64, Ms64, Ki64) if v is not None]
 
-        def K_mv(x):
-            return band_mv(bands[0], x, lay)
-
-        def M_mv(x):
-            return band_mv(bands[1], x, lay)
+        def KM_mv(x):
+            return band_mv(bands[0], x, lay), band_mv(bands[1], x, lay)
 
         def KMI_mv(uu):
             """(K u, M u, K_im u or None) for a (..., n) stack."""
-            return (K_mv(uu), M_mv(uu),
+            return (*KM_mv(uu),
                     None if ki_proportional else band_mv(bands[2], uu, lay))
     else:
         ops64 = torch.stack([v for v in (Kr64, Ms64, Ki64) if v is not None])
-        seg = _flat_seg(int(rows_l.shape[0]))
+        seg = _flat_seg(csr.nnz)
 
-        def K_mv(x):
-            return spmv_flat(Kr64, rows_l, cols_l, x, n)
-
-        def M_mv(x):
-            return spmv_flat(Ms64, rows_l, cols_l, x, n)
+        def KM_mv(x):
+            out = csr_mv(ops64[:2], x, csr, seg)
+            return out[0], out[1]
 
         def KMI_mv(uu):
-            # K, M (and K_im) in one fused scatter pass over the pattern
-            out = _fused_apply_flat(ops64, uu, rows_l, cols_l, n, seg)
+            # K, M (and K_im) in one K3 pass over the pattern
+            out = csr_mv(ops64, uu, csr, seg)
             return out[0], out[1], None if ki_proportional else out[2]
 
     # ---- per-theta band Rayleigh-Ritz, all f64 --------------------------
-    KW = K_mv(W64.T.contiguous())                      # (m, n) rows = K w_i
-    MW = M_mv(W64.T.contiguous())
+    KW, MW = KM_mv(W64.T.contiguous())                 # (m, n) rows = K w_i
     Kw = KW @ W64
     Mw = MW @ W64
     Kw = 0.5 * (Kw + Kw.T)
@@ -597,7 +623,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     # f64 dots against them
     panels = _dd_spmv(torch.stack([v for v in (Kr64, Ms64, Ki64)
                                    if v is not None]),
-                      Zw64.T.contiguous(), rows_l, cols_l, n)
+                      Zw64.T.contiguous(), csr.rows, csr.cols, n, csr)
     KZw64, MZ64 = panels[0].T, panels[1].T             # (n, m)
     # exact Galerkin projections for the resolvent start and the final
     # band corrections
@@ -612,10 +638,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
     # ---- FGMRES shape knobs ---------------------------------------------
     # n_refine is the total budget spent as restarted cycles of k_cycle
-    # iterations.  The f32 basis is the JAX package's on the dense tier;
-    # the two-grid tier keeps an f64 basis (f32 stalls at 20k+ DOF)
-    if basis_f32 is None:
-        basis_f32 = mg is None
+    # iterations
     # final true-residual band corrections: each contracts the Ritz-pair
     # defect ~100x, which the two-grid tier's 21k+ DOF need twice
     band_correct_n = 2 if mg is not None else 1
@@ -649,7 +672,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
             y = _dense_apply(invK, xd)
             if K_ref32 is not None:
                 for _ in range(_PRECOND_REFINE):
-                    r = xd - spmv_flat(K_ref32, rows_l, cols_l, y, n)
+                    r = xd - csr_mv(K_ref32[None], y, csr)[0]
                     y = y + _dense_apply(invK, r)
             return y.to(x.dtype)
 
@@ -717,7 +740,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
         def A_apply(uu, li):
             """Exact f64 operator on (L', 2, n): two (three) band DGEMMs
-            or one fused flat scatter."""
+            or one K3 pass over the flat pattern."""
             Ku, Mu, Kiu = KMI_mv(uu)
             return torch.stack(combine(
                 Ku.unbind(1), Mu.unbind(1),
@@ -781,7 +804,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
             return _pgmres(A_apply, P_apply, bbs, x0, tol_eff, k_cycle,
                            n_cycles, bbs - Ax0, band_correct, band_correct_n,
-                           basis_f32)
+                           basis_f32, diagnostics, n_rescue=n_cycles)
 
         return solve
 
@@ -804,8 +827,16 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     amp_f = (lam_w[None, :] / den_f).max(1).values
     order = torch.argsort(amp_f, stable=True)
     U = torch.empty_like(bb)
+    info = torch.empty(4, F, dtype=f64, device=dev)     # rn, rn_fin, rn0, tol
     for lo in range(0, F, chunk):
         sel = order[lo:lo + chunk]
-        U[sel] = solve_chunk(om64[sel], -1.0 if adjoint else 1.0)(bb[sel])
+        out = solve_chunk(om64[sel], -1.0 if adjoint else 1.0)(bb[sel])
+        if diagnostics:
+            out, *norms = out
+            info[:, sel] = torch.stack(norms)
+        U[sel] = out
     U = U * scale[:, None, None]
+    if diagnostics:
+        rn, rn_fin, rn0, tol = info * scale
+        return U[:, 0], U[:, 1], rn, rn_fin, rn0, tol
     return U[:, 0], U[:, 1]

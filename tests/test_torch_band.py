@@ -1,6 +1,6 @@
 """The port's band layer (plate_inverse_problem_tpu_torch/ops/band.py and the
-band kernel's plain version) and flat matvec (ops/scatter.py) held against
-the JAX package on the CPU.
+band kernel's plain version) and flat matvec (the plain version of K3,
+ops/csr_kernel.py) held against the JAX package on the CPU.
 
 Inputs come from numpy seeds and go through both packages.  Tolerances:
 
@@ -21,7 +21,7 @@ from plate_inverse_problem_tpu.ops.pallas_band import band_mv_pallas
 from plate_inverse_problem_tpu.ops.scatter import spmv_flat as jspmv_flat
 from plate_inverse_problem_tpu_torch.ops import band as tband
 from plate_inverse_problem_tpu_torch.ops import band_kernel
-from plate_inverse_problem_tpu_torch.ops.scatter import spmv_flat
+from plate_inverse_problem_tpu_torch.ops.csr_kernel import scatter_mv
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -173,8 +173,10 @@ def test_rect_band_matches_jax(plate_layout):
 
 @pytest.mark.parametrize("transpose", [False, True])
 def test_spmv_flat_matches_jax(plate_layout, transpose):
-    """The flat COO matvec against the JAX package's, f64, batched lanes;
-    <= 1e-14 of the row abs-sum (f64 sums in another order)."""
+    """The flat COO matvec (K3's plain version) against the JAX package's
+    ``spmv_flat``, f64, batched lanes, A^T through the pattern's rows and
+    columns swapped; <= 1e-14 of the row abs-sum (f64 sums in another
+    order)."""
     rows, cols, n = plate_layout
     rng = np.random.default_rng(13)
     vals = rng.standard_normal(rows.size)
@@ -182,10 +184,10 @@ def test_spmv_flat_matches_jax(plate_layout, transpose):
     y_j = np.asarray(jspmv_flat(jnp.asarray(vals), jnp.asarray(rows),
                                 jnp.asarray(cols), jnp.asarray(X), n,
                                 transpose=transpose))
-    y_t = spmv_flat(torch.from_numpy(vals), torch.from_numpy(rows).long(),
-                    torch.from_numpy(cols).long(), torch.from_numpy(X), n,
-                    transpose=transpose).numpy()
     r, c = (cols, rows) if transpose else (rows, cols)
+    y_t = scatter_mv(torch.from_numpy(vals)[None], torch.from_numpy(X),
+                     torch.from_numpy(r).long(), torch.from_numpy(c).long(),
+                     n)[0].numpy()
     scale = np.zeros((2, 3, n))
     for idx in np.ndindex(2, 3):
         np.add.at(scale[idx], r, np.abs(vals) * np.abs(X[idx][c]))

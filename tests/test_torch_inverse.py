@@ -345,15 +345,12 @@ def _unported_calls():
         "loss_MSE_in_gn": solve(loss_type="MSE"),
         "bounds_box": lambda pp, ref, th0: solve()(
             pp, ref, np.stack([0.9 * th0, 1.1 * th0], axis=1)),
-        "compression": solve(compression=(True, 8)),
         "joint_residual_fwd": lambda pp, ref, th0: pt.JointResidual(
             [lambda x: x]).value_and_jac(th0),
         "gn_plain_callable": lambda pp, ref, th0: pt.optimize_gauss_newton(
             lambda x: x, th0),
     }
-    for opt in ("trust_region", "tr", "coord_descent", "cd",
-                "coord_descent_mem", "cd_mem", "grad_descent", "gd",
-                "newton", "lbfgs", "de", "shgo"):
+    for opt in ("trust_region", "tr", "newton", "lbfgs", "de", "shgo"):
         calls[f"optimizer_{opt}"] = solve(optimizer=opt)
     return calls
 

@@ -1,19 +1,24 @@
-"""The port's hand-written CUDA band kernel on the card.
+"""The port's hand-written CUDA kernels on the card: K1, the f32 band
+matvec (``csrc/band_mv.cu``), and K3, the stacked CSR matvec of the flat
+pattern (``csrc/csr_mv.cu``).
 
 These tests need an NVIDIA GPU and nvcc; without one they skip.  They import
 no jax, so they run on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_kernel.py -q
 
-The kernel reads the band's packed nonzero tiles (``pack_band_tiles``); its
-plain version reads the same pack.  Tolerances: the kernel against its plain
-version to 1e-5 of max |y| (the f32 sums of a row run in another order);
-the FRF against the host f64 splu oracle to 1e-6 relative (the repo's gate;
-f64 atomics in the residual scatter add run-to-run last-bit noise far below
-it); the adjoint Gauss-Newton residual and Jacobian on the card against the
-same call on the CPU (plain K1), on one set of operator data: r to 3e-6,
-J to 1e-5 of max |J| (the f32 preconditioner rounds differently, as
-against the JAX package).
+K1 reads the band's packed nonzero tiles (``pack_band_tiles``); its plain
+version reads the same pack.  K3 reads the pattern's CSR copy
+(``build_csr``); its plain version is the ``index_add_`` scatter.
+Tolerances: K1 against its plain version to 1e-5 of max |y| (the f32 sums
+of a row run in another order); K3 to 1e-12 of max |y| in f64 and 1e-5 in
+f32, two launches and two sweeps bit for bit (it sums in one fixed order);
+K3's autograd Function on the card against the CPU's to 1e-12; the FRF
+against the host f64 splu oracle to 1e-6 relative (the repo's gate); the
+adjoint Gauss-Newton residual and Jacobian on the card against the same
+call on the CPU (plain K1), on one set of operator data: r to 3e-6, J to
+1e-5 of max |J| (the f32 preconditioner rounds differently, as against
+the JAX package).
 """
 import functools
 
@@ -24,6 +29,7 @@ import torch
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu_torch.ops import band as tband
 from plate_inverse_problem_tpu_torch.ops import band_kernel
+from plate_inverse_problem_tpu_torch.ops import csr_kernel
 from plate_inverse_problem_tpu_torch.ops.band_kernel import pack_band_tiles
 from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
@@ -78,30 +84,29 @@ def _agree(y, y_ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3, 128, 200])
-def test_band_kernel_matches_plain(cuda_device, B):
+def test_band_kernel_matches_plain(cuda_device):
     """Every pattern of ``_patterns``, the pure-bending path's band among
-    them, at B lanes."""
-    for rows, cols, n, kw in _patterns():
-        lt = tband.build_band_layout(rows, cols, n, **kw)
-        rng = np.random.default_rng(B)
-        pack = pack_band_tiles(_band(rows, lt, rng, cuda_device), lt)
-        x = torch.as_tensor(rng.standard_normal((B, n)),
-                            dtype=torch.float32, device=cuda_device)
-        n0 = band_kernel.band_mv_f32_cuda.launches
-        y = band_kernel.band_mv_f32(pack, x, lt)
-        y_ref = band_kernel.band_mv_f32_reference(pack, x, lt)
-        torch.cuda.synchronize()
-        assert band_kernel.band_mv_f32_cuda.launches == n0 + 1
-        assert _agree(y, y_ref)
+    them, at B = 1, 3, 128 and 200 lanes."""
+    for B in (1, 3, 128, 200):
+        for rows, cols, n, kw in _patterns():
+            lt = tband.build_band_layout(rows, cols, n, **kw)
+            rng = np.random.default_rng(B)
+            pack = pack_band_tiles(_band(rows, lt, rng, cuda_device), lt)
+            x = torch.as_tensor(rng.standard_normal((B, n)),
+                                dtype=torch.float32, device=cuda_device)
+            n0 = band_kernel.band_mv_f32_cuda.launches
+            y = band_kernel.band_mv_f32(pack, x, lt)
+            y_ref = band_kernel.band_mv_f32_reference(pack, x, lt)
+            torch.cuda.synchronize()
+            assert band_kernel.band_mv_f32_cuda.launches == n0 + 1
+            assert _agree(y, y_ref)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [2, 37, 130])
-def test_band_kernel_ragged(cuda_device, B):
+def test_band_kernel_ragged(cuda_device):
     """n not a multiple of the 16-row tile (nor of 4, so x rows are not
-    16-byte aligned), B not a multiple of the lane tile: a narrow random
-    band, n = 1001, b = 64."""
+    16-byte aligned), B = 2, 37, 130 not a multiple of the lane tile: a
+    narrow random band, n = 1001, b = 64."""
     n, w = 1001, 21
     rows = np.concatenate([np.full(min(n, i + w + 1) - max(0, i - w), i)
                            for i in range(n)])
@@ -110,16 +115,17 @@ def test_band_kernel_ragged(cuda_device, B):
     lt = tband.build_band_layout(rows, cols, n, block_multiple=64,
                                  min_block=64)
     assert n % 16 and n % 4
-    rng = np.random.default_rng(B)
-    band = _band(rows, lt, rng, cuda_device)
-    pack = pack_band_tiles(band, lt)
-    x = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32,
-                        device=cuda_device)
-    y = band_kernel.band_mv_f32_cuda(pack, x, lt)
-    y_ref = band_kernel.band_mv_f32_reference(pack, x, lt)
-    torch.cuda.synchronize()
-    assert _agree(y, y_ref)
-    assert _agree(y, tband.band_mv(band, x, lt))
+    for B in (2, 37, 130):
+        rng = np.random.default_rng(B)
+        band = _band(rows, lt, rng, cuda_device)
+        pack = pack_band_tiles(band, lt)
+        x = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32,
+                            device=cuda_device)
+        y = band_kernel.band_mv_f32_cuda(pack, x, lt)
+        y_ref = band_kernel.band_mv_f32_reference(pack, x, lt)
+        torch.cuda.synchronize()
+        assert _agree(y, y_ref)
+        assert _agree(y, tband.band_mv(band, x, lt))
 
 
 @pytest.mark.cuda
@@ -218,3 +224,94 @@ def test_residual_jacobian_on_card_matches_cpu(cuda_device):
     r_c, J_c = r_c.numpy(), J_c.numpy()
     assert np.abs(r_g - r_c).max() <= 3e-6
     assert np.abs(J_g - J_c).max() <= 1e-5 * np.abs(J_c).max()
+
+
+def _csr_cases(device):
+    """The bench plate's pattern (n = 1466, in CSR order) and a shuffled
+    random one with an empty row (n = 1001), each with its CSR copy."""
+    rows, cols, n, _ = _patterns()[0]
+    rng = np.random.default_rng(5)
+    m = 1001
+    A = (rng.random((m, m)) < 0.01) | np.eye(m, dtype=bool)
+    A[m // 2] = False
+    r, c = np.nonzero(A)
+    perm = rng.permutation(r.size)
+    out = []
+    for rr, cc, nn in ((rows, cols, n), (r[perm], c[perm], m)):
+        out.append(csr_kernel.build_csr(torch.as_tensor(rr, device=device),
+                                        torch.as_tensor(cc, device=device),
+                                        nn))
+    assert out[0].perm is None and out[1].perm is not None
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,S,L", [(torch.float64, 2, 1024),
+                                       (torch.float64, 3, 16),
+                                       (torch.float32, 6, 37)])
+def test_csr_kernel_matches_plain(cuda_device, dtype, S, L):
+    """K3 against its plain version: S operators (6: two launches of the
+    kernel's groups of 4), L lanes, f64 and f32; two launches give the same
+    bits."""
+    for csr in _csr_cases(cuda_device):
+        rng = np.random.default_rng(S * L)
+        data = torch.as_tensor(rng.standard_normal((S, csr.nnz)),
+                               dtype=dtype, device=cuda_device)
+        x = torch.as_tensor(rng.standard_normal((L, csr.n)), dtype=dtype,
+                            device=cuda_device)
+        n0 = csr_kernel.csr_mv_cuda.launches
+        y = csr_kernel.csr_mv(data, x, csr)
+        y_ref = csr_kernel.csr_mv_reference(data, x, csr)
+        torch.cuda.synchronize()
+        # one kernel per group of up to 4 operators
+        assert csr_kernel.csr_mv_cuda.launches == n0 + (S + 3) // 4
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        assert float((y - y_ref).abs().max()) <= tol * float(
+            y_ref.abs().max())
+        assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x, csr))
+
+
+@pytest.mark.cuda
+def test_csr_kernel_sweeps_repeat_bit_for_bit(cuda_device):
+    """The dense tier's sweep (n = 1466, K3 in every operator apply) gives
+    the same bits twice, and its FRF meets the splu oracle."""
+    p = pt.Problem(*_parts(), device=cuda_device)
+    freqs = np.linspace(60.0, 420.0, 16)
+    csr_kernel.csr_mv_cuda.launches = 0
+    y1 = p.solveForward(freqs).cpu().numpy()
+    assert csr_kernel.csr_mv_cuda.launches > 0
+    y2 = p.solveForward(freqs).cpu().numpy()
+    np.testing.assert_array_equal(y1, y2)
+    assert np.all(np.abs(y1 - splu_frf(p, freqs)) <= 1e-6 * y1)
+
+
+@pytest.mark.cuda
+def test_csr_apply_autograd_on_card_matches_cpu(cuda_device):
+    """K3's autograd Function on the card — the jvp under jacfwd (its vmap
+    rule folds the tangents into the operator stack) and the backward —
+    against the same Function on the CPU."""
+    csr_c = _csr_cases("cpu")[1]
+    csr_g = _csr_cases(cuda_device)[1]
+    rng = np.random.default_rng(9)
+    base = rng.standard_normal((3, 2, csr_c.nnz))
+    x = rng.standard_normal((2, 40, csr_c.n))
+
+    def run(csr, device):
+        b = torch.as_tensor(base, device=device)
+        xx = torch.as_tensor(x, device=device)
+
+        def f(t):
+            data = torch.einsum("p,psk->sk", t ** 2 + t, b)
+            return csr_kernel.csr_apply(data, xx, csr)
+
+        th = torch.tensor([0.3, -1.2, 0.7], dtype=torch.float64,
+                          device=device)
+        J = torch.func.jacfwd(f)(th)
+        t = th.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((f(t) * xx.sum()).sum(), t)
+        return J.cpu(), g.cpu()
+
+    n0 = csr_kernel.csr_mv_cuda.launches
+    for a, b in zip(run(csr_g, cuda_device), run(csr_c, "cpu")):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+    assert csr_kernel.csr_mv_cuda.launches > n0

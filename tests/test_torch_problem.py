@@ -197,8 +197,9 @@ def test_unported_paths_raise(tmp_path):
     accelerometer) and the other material families now build and meet the
     splu oracle to 1e-6.  What still raises, naming its ROADMAP item: a
     material whose transform depends on the frequency (the engines that
-    take it, item 13) and a setup folder whose geometry is a .edp/.msh file
-    (item B)."""
+    take it, item 13).  A setup folder whose geometry is an .edp script
+    (item B, ported) now loads; one naming a missing .msh file raises
+    FileNotFoundError."""
     geom, mat, acc = _port_parts(refine=0.5)
     freqs = FREQS[::3]
     p = pt.Problem(geom, mat, None, device="cpu")     # symmetric path
@@ -216,10 +217,24 @@ def test_unported_paths_raise(tmp_path):
         fd.getFRCore()
     sdir = tmp_path / "edp_setup"
     sdir.mkdir()
+    (sdir / "plate.edp").write_text(
+        "real Lx = 0.1; real Ly = 0.02; int n = 6;\n"
+        "border B1(t=0, 1){x=Lx*t; y=0; label=0;}\n"
+        "border B2(t=0, 1){x=Lx; y=Ly*t; label=1;}\n"
+        "border B3(t=0, 1){x=Lx*(1-t); y=Ly; label=0;}\n"
+        "border B4(t=0, 1){x=0; y=Ly*(1-t); label=0;}\n"
+        "mesh Th = buildmesh(B1(5*n) + B2(n) + B3(5*n) + B4(n));\n")
     (sdir / "setup.json").write_text(
-        '{"geometry": {"edp": "plate.edp", "height": 0.002}, '
+        '{"geometry": {"edp": "plate.edp", "length": 0.1, "width": 0.02, '
+        '"height": 0.002, "accel_x": 0.01, "accel_y": 0.0}, '
         '"material": "Example_material", "accelerometer": "AP1030"}')
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item B"):
+    e = pt.Problem(spath=str(sdir), device="cpu")
+    assert e.geometry.current_file == str(sdir / "plate.edp")
+    assert e.geometry.clamped_labels == (1,) and e.geometry.can_coarsen
+    (sdir / "setup.json").write_text(
+        '{"geometry": {"msh": "missing.msh", "height": 0.002}, '
+        '"material": "Example_material", "accelerometer": "AP1030"}')
+    with pytest.raises(FileNotFoundError):
         pt.Problem(spath=str(sdir), device="cpu")
 
 
@@ -230,7 +245,10 @@ def test_package_imports_no_jax():
             "plate_inverse_problem_tpu_torch.io.report, "
             "plate_inverse_problem_tpu_torch.models.materials, "
             "plate_inverse_problem_tpu_torch.fem.assembly, "
-            "plate_inverse_problem_tpu_torch.oracle; "
+            "plate_inverse_problem_tpu_torch.oracle, "
+            "plate_inverse_problem_tpu_torch.ops.csr_kernel, "
+            "plate_inverse_problem_tpu_torch.mesh.edp, "
+            "plate_inverse_problem_tpu_torch.io.compress; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
