@@ -7,9 +7,9 @@ steel, AP1030, 512 points over 40-600 Hz: a first and three steady
 synchronised sweeps, then one steady sweep under ``torch.profiler``:
 device busy time (the CUDA kernels' self time), the idle share of the mean
 steady sweep, device time by kernel kind (K3 on its own line), the kernel
-launches, and K3's launches in the sweep.  Prints one line per plate and
-kind, then one JSON line; the profiler's kernel table goes to ``--out``
-(default build/profile/).
+launches, and K3's launches in the sweep (by regime).  Prints one line per
+plate and kind, then one JSON line; the profiler's kernel table goes to
+``--out`` (default build/profile/).
 
 Run from the repository root:
 
@@ -30,7 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 N_FREQ = 512
-KINDS = [("K3 csr_mv", ("csr_mv_kernel",)),
+KINDS = [("K3 csr_mv", ("csr_mv_",)),
          ("gemm", ("gemm", "gemv", "cutlass", "dot_kernel")),
          ("index/scatter/gather", ("index", "scatter", "gather")),
          ("transpose/copy", ("copy", "Copy", "transpose")),
@@ -99,7 +99,7 @@ def main() -> int:
         p.getFRCore()
         first = cs.steady_s(p, freqs)
         steady = [cs.steady_s(p, freqs) for _ in range(3)]
-        csr_kernel.csr_mv_cuda.launches = 0
+        csr_kernel.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             cs.steady_s(p, freqs)
@@ -107,12 +107,15 @@ def main() -> int:
         tables.append(ev.pop("_table"))
         r = {"n_free": p.n_free, "tier": list(p._tier), "sweep_first_s": first,
              "sweep_steady_s": steady,
-             "k3_launches": csr_kernel.csr_mv_cuda.launches, **ev}
+             "k3_launches": csr_kernel.csr_mv_cuda.launches,
+             "k3_by_regime": dict(csr_kernel.csr_mv_cuda.launches_by_regime),
+             **ev}
         print(f"[k3_profile] n={p.n_free} tier {p._tier}: sweep first "
               f"{first:.4f} s, steady {', '.join(f'{t:.4f}' for t in steady)}"
               f" s; device busy {ev['device_busy_ms']:.2f} ms of "
               f"{ev['wall_ms']:.2f} ms (idle {100 * ev['idle_share']:.1f} %),"
-              f" {ev['kernel_launches']} launches, K3 {r['k3_launches']}",
+              f" {ev['kernel_launches']} launches, K3 {r['k3_launches']} "
+              f"{r['k3_by_regime']}",
               flush=True)
         for kind, ms in ev["device_ms_by_kind"].items():
             print(f"[k3_profile]   {kind:22s} {ms:9.3f} ms "

@@ -74,9 +74,15 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    its plain version (the ``index_add_`` scatter) on the card at the
    main path's shapes — S = 2 operators on the bench pattern (n = 1466)
    at L = 1024 and 16 lanes, S = 3 there, the 290,688- and 513,552-nnz
-   patterns of n = 11910 and 20916 at L = 1024, and the f32 variant — to
-   CSR_TOL of max |y|, with its time, the plain version's, the time of
-   one ``torch.sparse.mm`` on the same CSR (``library_ms``) and its bound;
+   patterns of n = 11910 and 20916 at L = 1024, the f32 variant, the
+   panels' row sums (S = 32 on x = 1, L = 1) on the bench and 21k
+   patterns and the vmap-folded residual-map stack (S = 24, L = 1024) on
+   the 21k one — to CSR_TOL of max |y|, two launches bit for bit, with its
+   time (the wrapper's whole call; the wide kernel also on x transposed
+   by a copy, the copy timed), the plain version's, the time of
+   one ``torch.sparse.mm`` on the same CSR (``library_ms``) and its bound
+   (the plan's index bytes), and K3's launches by regime (one lane,
+   narrow, wide) on the bench and 21k sweeps, r + J and the gradient;
    (b) two steady sweeps and two MSE_LOG_AFC gradients bit-identical at n
    = 1466 and on phase 6's 21k Problem; (c) the SOL 45 deg plate (n =
    1466) at s and s0 (theta / truth away from the build point): splu at 4
@@ -97,7 +103,9 @@ are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Run from the repository root:  python3 chip_smoke.py
 (``--ab SOURCE``, repeatable, also builds another version of K1, with the
 earlier dense-band or the packed C interface, and times it beside the
-kernel in the tree, in turns.)
+kernel in the tree, in turns; ``--ab-csr SOURCE`` does the same for K3
+with the first cut's C interface, at every phase 9 (a) case, and requires
+its bits to be the kernel's.)
 """
 from __future__ import annotations
 
@@ -231,7 +239,10 @@ def ptxas_summary(report: str) -> list[str]:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"ILi(\d+)ELb(\d)E", line)
-            name = f"<S={m[1]}, vec={m[2]}>" if m else "kernel"
+            k = re.search(r"(csr_mv_\w+?_kernel)I(\w)(?:Li(\d+)E)?", line)
+            name = (f"<S={m[1]}, vec={m[2]}>" if m else
+                    f"{k[1]}<{k[2]}{', ' + k[3] if k[3] else ''}>" if k
+                    else "kernel")
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -464,6 +475,12 @@ def main() -> int:
                          "dense-band or the packed C interface) and time it "
                          "beside the kernel in the tree, in turns; may be "
                          "repeated")
+    ap.add_argument("--ab-csr", metavar="SOURCE", action="append",
+                    default=[],
+                    help="also build this version of K3 (the first cut's C "
+                         "interface) and time it beside the kernel in the "
+                         "tree at every phase 9 (a) case, in turns, "
+                         "requiring the same bits; may be repeated")
     args = ap.parse_args()
 
     # ---- 1. the card ------------------------------------------------------
@@ -474,16 +491,17 @@ def main() -> int:
     print(card, flush=True)   # as nvidia-smi gives it: "<name>, <limit> W"
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    smoke(torch.device("cuda"), card, args.ab)
+    smoke(torch.device("cuda"), card, args.ab, args.ab_csr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def smoke(dev, card: str, ab_sources=()):
+def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     """Phases 2-9 on ``dev``; prints the kernels' JSON record last.
-    ``ab_sources``: other versions of K1 to time beside it (A/B only)."""
+    ``ab_sources`` / ``ab_csr_sources``: other versions of K1 / K3 to time
+    beside them (A/B only)."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
@@ -491,11 +509,13 @@ def smoke(dev, card: str, ab_sources=()):
 
     # ---- 2. build the kernels, one nvcc each, both at once ----------------
     t_phases = t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(2 + len(ab_csr_sources)) as pool:
         builds = {name: pool.submit(fn) for name, fn in
                   (("band_mv.cu", band_kernel.build),
                    ("csr_mv.cu", csr_kernel.build))}
+        ab_csr = [pool.submit(load_ab_csr, src) for src in ab_csr_sources]
         reports = {name: f.result() for name, f in builds.items()}
+        ab_csr = [f.result() for f in ab_csr]
     print(f"[build] band_mv.cu and csr_mv.cu -> sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, report in reports.items():
@@ -545,7 +565,7 @@ def smoke(dev, card: str, ab_sources=()):
     freqs = np.linspace(40.0, 600.0, N_FREQ)
     torch.cuda.reset_peak_memory_stats()
     band_kernel.band_mv_f32_cuda.launches = 0
-    csr_kernel.csr_mv_cuda.launches = 0
+    csr_kernel.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fr = p.solveForward(freqs)
@@ -553,6 +573,7 @@ def smoke(dev, card: str, ab_sources=()):
     sweep_s = time.perf_counter() - t0
     launches = band_kernel.band_mv_f32_cuda.launches
     k3_sweep = csr_kernel.csr_mv_cuda.launches
+    k3_sweep_regimes = dict(csr_kernel.csr_mv_cuda.launches_by_regime)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the same sweep again: what every later sweep of a process costs
     t0 = time.perf_counter()
@@ -588,7 +609,16 @@ def smoke(dev, card: str, ab_sources=()):
     inv = inverse_half(p, freqs, fr, grad_tol=GRAD_TOL_21K)
     dense = dense_tier(dev)
     fam = families(dev)
-    s6 = slice6(dev, p, freqs, fr)
+    s6 = slice6(dev, p, freqs, fr, ab_csr)
+    census = {"bench_sweep": dense["bench"]["k3_by_regime"],
+              "sweep_21k": k3_sweep_regimes,
+              "rj_21k": inv["k3_rj_by_regime"],
+              "grad_21k": inv["k3_grad_by_regime"],
+              "rj_1466": dense["bench_inverse"]["k3_rj_by_regime"],
+              "grad_1466": dense["bench_inverse"]["k3_grad_by_regime"]}
+    print("[k3] launches by regime (L1: one lane, narrow: 2-31 lanes, wide: "
+          "32 or more): " + "; ".join(f"{k} {v}" for k, v in census.items()),
+          flush=True)
 
     summary = {"card": card, "n_free": p.n_free, "ctor_s": ctor_s,
                "pack_build_ms": 1e3 * p._pack_build_s,
@@ -634,6 +664,7 @@ def smoke(dev, card: str, ab_sources=()):
         "replaces": "plate_inverse_problem_tpu/ops/mixed.py:651 (not Pallas)",
         "launches": s6["k3"]["launches"],
         "launches_by_path": k3_paths,
+        "launches_by_regime": census,
         **{k: s6["k3"]["headline"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -665,7 +696,7 @@ def timed_sweeps(p, freqs, label: str, tag: str = "[dense]") -> dict:
     from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
 
     band_kernel.band_mv_f32_cuda.launches = 0
-    csr_kernel.csr_mv_cuda.launches = 0
+    csr_kernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(2):
@@ -681,7 +712,8 @@ def timed_sweeps(p, freqs, label: str, tag: str = "[dense]") -> dict:
            "solves_per_s_steady": freqs.size / times[1],
            "peak_mem_gb": peak_gb,
            "k1": band_kernel.band_mv_f32_cuda.launches,
-           "k3": csr_kernel.csr_mv_cuda.launches}
+           "k3": csr_kernel.csr_mv_cuda.launches,
+           "k3_by_regime": dict(csr_kernel.csr_mv_cuda.launches_by_regime)}
     print(f"{tag} {label}: {freqs.size} points over 40-600 Hz: first "
           f"{times[0]:.3f} s ({freqs.size / times[0]:.1f} solves/s), steady "
           f"{times[1]:.3f} s ({rec['solves_per_s_steady']:.1f} solves/s); "
@@ -865,7 +897,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
         for _ in range(2):
             counts.update(primal=0, adjoint=0)
             band_kernel.band_mv_f32_cuda.launches = 0
-            csr_kernel.csr_mv_cuda.launches = 0
+            csr_kernel.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r, J = rf.value_and_jac(th0)
@@ -873,6 +905,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
             times.append(time.perf_counter() - t0)
             total = band_kernel.band_mv_f32_cuda.launches
             k3_rj = csr_kernel.csr_mv_cuda.launches
+            k3_rj_regimes = dict(csr_kernel.csr_mv_cuda.launches_by_regime)
     finally:
         core.sweep_u, core.sweep_adj = hooks
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -898,11 +931,12 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
 
     # ---- [jac] (a) against the loss gradient, (b) against differences ---
     loss = p.getLossFunction(freqs, fr_truth, "MSE_LOG_AFC")
-    csr_kernel.csr_mv_cuda.launches = 0
+    csr_kernel.reset_launches()
     t0 = time.perf_counter()
     g = loss.grad(th0).cpu().numpy()
     grad_s = time.perf_counter() - t0
     k3_grad = csr_kernel.csr_mv_cuda.launches
+    k3_grad_regimes = dict(csr_kernel.csr_mv_cuda.launches_by_regime)
     g2 = loss.grad(th0).cpu().numpy()      # the same call again: its noise
     g_gn = 2.0 * J.T @ r / r.size
     grad_rel = float(np.abs(g_gn - g).max() / np.abs(g).max())
@@ -986,6 +1020,8 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
             "k1_rj_primal": counts["primal"],
             "k1_rj_adjoint": counts["adjoint"], "rj_peak_mem_gb": peak_gb,
             "k3_rj": k3_rj, "k3_grad": k3_grad,
+            "k3_rj_by_regime": k3_rj_regimes,
+            "k3_grad_by_regime": k3_grad_regimes,
             "grad_s": grad_s, "jac_grad_rel": grad_rel,
             "grad_rerun_rel": grad_rerun, "jac_fd_rel": fd_rel,
             "jac_fd_beta_step_1e-4": fd_beta_1e4,
@@ -1233,26 +1269,76 @@ def pure_bending(dev) -> dict:
 
 def csr_bound_ms(csr, S: int, L: int, itemsize: int) -> tuple[float, str]:
     """Least time of S operators on the pattern applied to L lanes on an
-    H100 SXM: the S x nnz values with a 4-byte column index each and the
-    row pointer, x read once and y written once, at HBM_BPS, against 2
-    FLOP a nonzero, operator and lane at the CUDA cores' f64 (F64_FLOPS)
-    or f32 (F32_FLOPS) rate."""
+    H100 SXM: the S x nnz values, the plan's index bytes (a one-byte slot a
+    nonzero, the tiles' row and column lists, ``rowptr``), x read once and
+    y written once, at HBM_BPS, against 2 FLOP a nonzero, operator and lane
+    at the CUDA cores' f64 (F64_FLOPS) or f32 (F32_FLOPS) rate."""
     n, nnz = csr.n, csr.nnz
-    t_bytes = (S * nnz * itemsize + 4 * nnz + 4 * (n + 1)
+    t_bytes = (S * nnz * itemsize + csr.plan_bytes
                + (1 + S) * L * n * itemsize) / HBM_BPS
     t_ops = 2.0 * S * nnz * L / (F64_FLOPS if itemsize == 8 else F32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def compare_csr(csr, S: int, L: int, dtype: str, label: str,
-                seed: int) -> dict:
+def load_ab_csr(source: str):
+    """Build another version of K3 from ``source`` (the first cut's C
+    interface ``csr_mv_f64_launch`` / ``csr_mv_f32_launch(data, rowptr,
+    col, xt, y, S, L, n, nnz, stream)``, x transposed to (n, L)), for an
+    A/B beside the kernel in the tree (it is not part of the port), and
+    return (name, run), ``run(data, x, csr) -> y`` with its transposed copy
+    of x."""
+    import ctypes
+
+    import torch
+    from plate_inverse_problem_tpu_torch.ops import band_kernel
+
+    name = os.path.splitext(os.path.basename(source))[0]
+    lib_path = os.path.join(band_kernel.BUILD_DIR, f"libab_csr_{name}.so")
+    os.makedirs(band_kernel.BUILD_DIR, exist_ok=True)
+    res = subprocess.run([band_kernel._nvcc(), *band_kernel.NVCC_FLAGS,
+                          "-o", lib_path, source],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    fns = {}
+    for dt, tdt in (("f64", torch.float64), ("f32", torch.float32)):
+        fn = getattr(lib, f"csr_mv_{dt}_launch")
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[tdt] = fn
+
+    def run(data, x, csr):
+        S, n = data.shape[0], csr.n
+        L = x.numel() // n
+        y = torch.empty((S, L, n), dtype=x.dtype, device=x.device)
+        d = (data if csr.perm is None else data[:, csr.perm]).contiguous()
+        xt = x.reshape(L, n).t().contiguous()
+        rc = fns[x.dtype](d.data_ptr(), csr.rowptr.data_ptr(),
+                          csr.col.data_ptr(), xt.data_ptr(), y.data_ptr(),
+                          S, L, n, csr.nnz,
+                          torch.cuda.current_stream().cuda_stream)
+        if rc < 0:
+            raise RuntimeError(f"{source}: cudaError {-rc}")
+        return y
+
+    return name, run
+
+
+def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
+                ab=(), ones: bool = False) -> dict:
     """K3 vs its plain version on random data (S, nnz) and x (L, n) from a
-    numpy seed on the pattern ``csr``; two launches must agree bit for bit.
-    Device times of the kernel (its x transpose included), the plain
-    version and the library call (one ``torch.sparse.mm`` of the S
-    operators stacked as one (S n, n) CSR matrix on x^T, given x^T), in
-    turns; the kernel also with the L2 flushed."""
+    numpy seed (x = 1 with ``ones``, the panels' row sums) on the pattern
+    ``csr``; two launches must agree bit for bit, and so must the A/B
+    kernels ``ab`` ((name, run) pairs, the first cut's).  Device times of
+    the kernel (the wrapper's whole call; for the wide kernel also on x
+    transposed by a copy, ``nl_ms``, the copy included), the plain
+    version, the library call (one
+    ``torch.sparse.mm`` of the S operators stacked as one (S n, n) CSR
+    matrix on x^T, given x^T) and the A/B kernels, in turns; the kernel
+    also with the L2 flushed."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
@@ -1260,11 +1346,15 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str,
     tdt = torch.float64 if dtype == "f64" else torch.float32
     dev = csr.col.device
     n, nnz = csr.n, csr.nnz
+    itemsize = 8 if dtype == "f64" else 4
     rng = np.random.default_rng(seed)
     data = torch.as_tensor(rng.standard_normal((S, nnz)), dtype=tdt,
                            device=dev)
-    x = torch.as_tensor(rng.standard_normal((L, n)), dtype=tdt, device=dev)
-    seg = 1 << 17     # the plain version's (S, L, seg) contribution tensor
+    x = (torch.ones(L, n, dtype=tdt, device=dev) if ones else
+         torch.as_tensor(rng.standard_normal((L, n)), dtype=tdt, device=dev))
+    # the plain version's (S, L, seg) contribution tensor stays under 2 GB
+    seg = max(1024, min(nnz, 2**31 // (S * L * itemsize)))
+    kind = ck.regime(L)
 
     y_ref = ck.csr_mv_reference(data, x, csr, seg)
     y = ck.csr_mv_cuda(data, x, csr)
@@ -1280,61 +1370,92 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str,
     scale = max(float(y_ref.abs().max()), 1e-300)
     max_abs = float((y - y_ref).abs().max())
     lib_rel = float((y_lib - y_ref).abs().max()) / scale
+    del y_lib
     variants = {"ms": lambda: ck.csr_mv_cuda(data, x, csr),
                 "plain_ms": lambda: ck.csr_mv_reference(data, x, csr, seg),
                 "library_ms": lambda: torch.sparse.mm(A, xt)}
+    if kind == "wide":
+        # the first cut's layout: x transposed to (n, L) by a copy (timed),
+        # the kernel reading the (L, n) view of it by its strides
+        variants["nl_ms"] = lambda: ck.csr_mv_cuda(
+            data, x.t().contiguous().t(), csr)
+        same = same and bool(torch.equal(y, variants["nl_ms"]()))
+    ab_same = {}
+    for name, fn in ab:
+        ab_same[name] = bool(torch.equal(y, fn(data, x, csr)))
+        variants[f"{name}_ms"] = (lambda fn=fn: fn(data, x, csr))
     order = list(variants) + list(variants)[::-1]
     times = {k: [] for k in variants}
     for k in order:
         times[k].append(time_ms(variants[k], reps=10)[0])
     rec = {k: float(np.mean(v)) for k, v in times.items()}
-    bound, bound_by = csr_bound_ms(csr, S, L, 8 if dtype == "f64" else 4)
+    bound, bound_by = csr_bound_ms(csr, S, L, itemsize)
     rec.update(label=label, S=S, L=L, n=n, nnz=nnz, dtype=dtype,
+               regime=kind,
                max_abs_err=max_abs, rel_err=max_abs / scale,
                library_rel_err=lib_rel, deterministic=same,
+               ab_identical=ab_same,
                flushed_ms=time_flushed_ms(variants["ms"], reps=10),
                bound_ms=bound, bound_by=bound_by)
-    print(f"[slice6] (a) K3 {label}: {dtype} S={S} L={L} n={n} nnz={nnz}  "
-          f"max|dy|={max_abs:.3e} rel={rec['rel_err']:.3e} (tol "
-          f"{CSR_TOL[dtype]}), two launches identical: {same}  kernel "
-          f"{rec['ms']:.4f} ms (L2 flushed {rec['flushed_ms']:.4f})  plain "
-          f"{rec['plain_ms']:.4f} ms  library (torch.sparse.mm) "
-          f"{rec['library_ms']:.4f} ms (rel {lib_rel:.1e})  bound "
-          f"{bound:.4f} ms ({bound_by}), kernel at "
-          f"{100 * bound / rec['ms']:.1f} % of it", flush=True)
-    if not rec["rel_err"] <= CSR_TOL[dtype] or not same:
+    others = "".join(f"  {k[:-3]} {v:.4f} ms" for k, v in rec.items()
+                     if k.endswith("_ms") and k not in (
+                         "ms", "plain_ms", "library_ms", "flushed_ms",
+                         "bound_ms"))
+    print(f"[slice6] (a) K3 {label}: {dtype} S={S} L={L} n={n} nnz={nnz} "
+          f"({kind})  max|dy|={max_abs:.3e} rel={rec['rel_err']:.3e} (tol "
+          f"{CSR_TOL[dtype]}), two launches identical: {same}"
+          + (f", A/B identical: {ab_same}" if ab else "")
+          + f"  kernel {rec['ms']:.4f} ms (L2 flushed "
+          f"{rec['flushed_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  library"
+          f" (torch.sparse.mm) {rec['library_ms']:.4f} ms (rel "
+          f"{lib_rel:.1e}){others}  bound {bound:.4f} ms ({bound_by}), "
+          f"kernel at {100 * bound / rec['ms']:.1f} % of it", flush=True)
+    if not rec["rel_err"] <= CSR_TOL[dtype] or not same \
+            or not all(ab_same.values()):
         raise AssertionError(f"K3 disagrees at {label}: rel "
-                             f"{rec['rel_err']:.3e}, identical {same}")
+                             f"{rec['rel_err']:.3e}, identical {same}, "
+                             f"A/B identical {ab_same}")
     return rec
 
 
-def k3_cases(p21) -> dict:
+def k3_cases(p21, ab=()) -> dict:
     """Phase 9 (a): K3 at the main path's shapes on three patterns: the
     bench plate's (n = 1466), n = 11910's and the 21k plate's (phase 6's
-    Problem, its flat pattern in the band layout's order)."""
+    Problem, its flat pattern in the band layout's order); ``ab``: the
+    A/B kernels of ``--ab-csr``."""
     import torch
 
-    from plate_inverse_problem_tpu_torch.ops.csr_kernel import build_csr
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
 
     dev = torch.device("cuda")
 
     def pattern(p):
         rows = torch.as_tensor(p.op.pattern.rows, device=dev)
         cols = torch.as_tensor(p.op.pattern.cols, device=dev)
-        return build_csr(rows, cols, p.n_free)
+        return ck.build_csr(rows, cols, p.n_free)
 
     bench = pattern(sh_i_problem(dev, 1.0))
     mid = pattern(sh_i_problem(dev, 3.0))
     od = p21.getFRCore()[1]
-    big = build_csr(od["rows"], od["cols"], p21.n_free)
+    big = ck.build_csr(od["rows"], od["cols"], p21.n_free)
+    for c in (bench, mid, big):
+        print(f"[slice6] (a) K3 plan n={c.n}: {c.n_tiles} tiles of at most "
+              f"{ck.TILE_ROWS} rows, {c.tile_cols.numel()} staged columns "
+              f"(max {c.max_cols} a tile, {c.nnz / c.tile_cols.numel():.2f} "
+              f"nonzeros each), {c.plan_bytes / 1e6:.3f} MB of index data; "
+              f"build_csr {1e3 * c.plan_s:.1f} ms on the host", flush=True)
     cases = [(bench, 2, 1024, "f64", "bench S=2 L=1024"),
              (bench, 2, 16, "f64", "bench S=2 L=16 (Rayleigh-Ritz)"),
              (bench, 3, 1024, "f64", "bench S=3 (with K_im)"),
              (mid, 2, 1024, "f64", "n=11910 S=2"),
              (big, 2, 1024, "f64", "n=20916 S=2 (residual map)"),
-             (bench, 1, 1024, "f32", "bench f32 S=1 (refinement)")]
-    recs = [compare_csr(c, S, L, dt, label, seed)
+             (bench, 1, 1024, "f32", "bench f32 S=1 (refinement)"),
+             (bench, 32, 1, "f64", "bench S=32 L=1 (panel row sums)"),
+             (big, 32, 1, "f64", "n=20916 S=32 L=1 (panel row sums)"),
+             (big, 24, 1024, "f64", "n=20916 S=24 (folded tangents)")]
+    recs = [compare_csr(c, S, L, dt, label, seed, ab, ones=L == 1)
             for seed, (c, S, L, dt, label) in enumerate(cases)]
+    torch.cuda.empty_cache()
     return {"cases": recs, "headline": recs[0]}
 
 
@@ -1419,7 +1540,7 @@ def tpu_benchmark(dev) -> dict:
 
     tag = "[slice6] (d)"
     band_kernel.band_mv_f32_cuda.launches = 0
-    csr_kernel.csr_mv_cuda.launches = 0
+    csr_kernel.reset_launches()
     t0 = time.perf_counter()
     p = sh_i_problem(dev, 1.0)
     p.getFRCore()
@@ -1544,20 +1665,21 @@ def edp_plate(dev) -> dict:
     return rec
 
 
-def slice6(dev, p21, freqs, fr21) -> dict:
+def slice6(dev, p21, freqs, fr21, ab_csr=()) -> dict:
     """Phase 9 on ``dev``; ``p21``/``fr21``: phase 6's 21k Problem and its
-    FRF at the truth.  Returns the numbers for [summary] and K3's record
-    for the kernels' line under "k3"."""
+    FRF at the truth; ``ab_csr``: the A/B kernels of ``--ab-csr``.  Returns
+    the numbers for [summary] and K3's record for the kernels' line under
+    "k3"."""
     from plate_inverse_problem_tpu_torch.ops import csr_kernel
 
-    k3 = k3_cases(p21)
+    k3 = k3_cases(p21, ab_csr)
     bench = sh_i_problem(dev, 1.0)
     fr_bench = bench.solveForward(freqs).cpu().numpy()
-    csr_kernel.csr_mv_cuda.launches = 0
+    csr_kernel.reset_launches()
     det = {"bench_1466": determinism(bench, freqs, fr_bench, "n=1466"),
            "k3_1466": csr_kernel.csr_mv_cuda.launches}
     del bench
-    csr_kernel.csr_mv_cuda.launches = 0
+    csr_kernel.reset_launches()
     det["sh_i_21k"] = determinism(p21, freqs, fr21, f"n={p21.n_free}")
     det["k3_21k"] = csr_kernel.csr_mv_cuda.launches
     out = {"k3_cases": k3["cases"], "determinism": det,

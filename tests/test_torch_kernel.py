@@ -12,7 +12,9 @@ version reads the same pack.  K3 reads the pattern's CSR copy
 (``build_csr``); its plain version is the ``index_add_`` scatter.
 Tolerances: K1 against its plain version to 1e-5 of max |y| (the f32 sums
 of a row run in another order); K3 to 1e-12 of max |y| in f64 and 1e-5 in
-f32, two launches and two sweeps bit for bit (it sums in one fixed order);
+f32 with each of its three kernels, one launch a call, two launches and
+two sweeps bit for bit (it sums in one fixed order), and the same bits
+from a non-contiguous x;
 K3's autograd Function on the card against the CPU's to 1e-12; the FRF
 against the host f64 splu oracle to 1e-6 relative (the repo's gate); the
 adjoint Gauss-Newton residual and Jacobian on the card against the same
@@ -250,9 +252,9 @@ def _csr_cases(device):
                                        (torch.float64, 3, 16),
                                        (torch.float32, 6, 37)])
 def test_csr_kernel_matches_plain(cuda_device, dtype, S, L):
-    """K3 against its plain version: S operators (6: two launches of the
-    kernel's groups of 4), L lanes, f64 and f32; two launches give the same
-    bits."""
+    """K3 against its plain version: S operators (6: three of the kernel's
+    groups of 2 in registers, still one launch), L lanes, f64 and f32; two
+    launches give the same bits."""
     for csr in _csr_cases(cuda_device):
         rng = np.random.default_rng(S * L)
         data = torch.as_tensor(rng.standard_normal((S, csr.nnz)),
@@ -263,12 +265,47 @@ def test_csr_kernel_matches_plain(cuda_device, dtype, S, L):
         y = csr_kernel.csr_mv(data, x, csr)
         y_ref = csr_kernel.csr_mv_reference(data, x, csr)
         torch.cuda.synchronize()
-        # one kernel per group of up to 4 operators
-        assert csr_kernel.csr_mv_cuda.launches == n0 + (S + 3) // 4
+        # one kernel a call, whatever S
+        assert csr_kernel.csr_mv_cuda.launches == n0 + 1
         tol = 1e-12 if dtype == torch.float64 else 1e-5
         assert float((y - y_ref).abs().max()) <= tol * float(
             y_ref.abs().max())
         assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x, csr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 3, 16, 33, 1024])
+def test_csr_kernel_regimes(cuda_device, dtype, L):
+    """Each of K3's kernels (one lane, narrow and wide lanes) at S in {1, 2,
+    5, 32} on the bench pattern and a shuffled one: against the plain
+    version, one launch a call counted under its regime, two calls bit for
+    bit, and a non-contiguous x (a transposed view, read by its strides)
+    giving the same bits."""
+    kind = csr_kernel.regime(L)
+    for csr in _csr_cases(cuda_device):
+        for S in (1, 2, 5, 32):
+            rng = np.random.default_rng(S * L + csr.n)
+            data = torch.as_tensor(rng.standard_normal((S, csr.nnz)),
+                                   dtype=dtype, device=cuda_device)
+            x = torch.as_tensor(rng.standard_normal((L, csr.n)),
+                                dtype=dtype, device=cuda_device)
+            n0 = csr_kernel.csr_mv_cuda.launches
+            r0 = csr_kernel.csr_mv_cuda.launches_by_regime[kind]
+            y = csr_kernel.csr_mv_cuda(data, x, csr)
+            torch.cuda.synchronize()
+            assert csr_kernel.csr_mv_cuda.launches == n0 + 1
+            assert csr_kernel.csr_mv_cuda.launches_by_regime[kind] == r0 + 1
+            # the plain version's (S, L, seg) products kept under ~1 GB
+            seg = max(1, 2**27 // (S * L))
+            y_ref = csr_kernel.csr_mv_reference(data, x, csr, seg)
+            tol = 1e-12 if dtype == torch.float64 else 1e-5
+            assert float((y - y_ref).abs().max()) <= tol * float(
+                y_ref.abs().max())
+            assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x, csr))
+            x_t = x.t().contiguous().t()           # strides (1, L)
+            assert not x_t.is_contiguous() or L == 1
+            assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x_t, csr))
 
 
 @pytest.mark.cuda
