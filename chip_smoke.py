@@ -95,7 +95,21 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    package's CPU run of the same call (TPUB_JAX); (e)
    ``examples/edp_import.py``'s plate with a hole, built from its script
    text (``.edp``: clamped on label 2, read at its xtest/ytest, pure
-   bending), its 121-point sweep against splu at 4 points incl. the peak.
+   bending), its 121-point sweep against splu at 4 points incl. the peak;
+10. the rest of the inverse API (``[slice8]``): (a) on phase 6's 21k
+   Problem the forward-mode ``ResidualFunction("log_afc",
+   jac_mode="fwd").value_and_jac`` (the lanes chunk policy), first and
+   steady, with K1 and K3 launches and peak memory, against the adjoint r
+   and J (FWD_R_TOL, FWD_R_CHUNK_TOL, FWD_J_RTOL / FWD_J_ATOL), two calls
+   bit for bit, freq_chunk = 64 against the unchunked J, and
+   ``kind="complex"`` against central differences of r; (b) the same
+   over OrthotropicD4's 8 parameters on phase 8 (b)'s Problem; (c) on the
+   bench plate the MSE_LOG_AFC Hessian (HESS_SYM_TOL, against central
+   differences of the gradient), ``_data_grad`` timed beside K3 on its
+   inputs, ``solveInverse`` by trust region, Newton and L-BFGS to SO_TOL
+   of the truth and by Gauss-Newton on MSE to GN_MSE_FIT of its start's
+   loss, ``de`` and ``shgo`` on a bounds box; (d) the ``getModePicture``
+   field at the first resonance against the sweep's own w (MODE_TOL).
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -204,6 +218,58 @@ TPUB_JAX = {
 }
 TPUB_JAX_CHECKSUM = 9390.68402986405
 TPUB_TOL = 1e-6
+# phase 10 (a): the forward-mode Jacobian against the adjoint one: r to
+# 1e-12 relative (the primal is solved as its own batch in both modes), J
+# to 1e-6 relative + 1e-8 of its max (the JAX package's own bounds,
+# tests/test_problem.py:326-352); the freq_chunk run regroups the lanes of
+# the sweep; kind='complex' against central differences of r at FD_STEPS,
+# to FD_TOL of the column max (phase 6's check of the adjoint J)
+FWD_R_TOL = 1e-12
+# with a freq_chunk each block's primal is a sweep of its own lanes (64 of
+# the 512), whose batched products may round otherwise: two converged
+# solves of one lane differ by at most twice the residual target, refine_tol
+# = 3e-7 of the right-hand side, hence 1e-6 of max |r|
+FWD_R_CHUNK_TOL = 1e-6
+FWD_J_RTOL = 1e-6
+FWD_J_ATOL = 1e-8
+FWD_CHUNK = 64
+# phase 10 (c): the bench Hessian (MSE_LOG_AFC, x = theta / theta_0 = 1).
+# Asymmetry: the tangent and tangent-adjoint sweeps' own error.  Columns vs
+# central differences of the port's gradient at step HESS_FD_STEP in x, to
+# HESS_FD_TOL of the column max.  Truncation, h^2 / 6 x the third
+# derivative: the E column's resonance makes it 1.6e-2 at h = 1e-3 and
+# 1.4e-4 at 1e-4 (.probes/second_order_probe.py on an H100 at 700 W; G and
+# beta <= 5.2e-6).  Solve error: each gradient's sweeps stop at the residual
+# target refine_tol = 3e-7 (relative, amplification-weighted), so its
+# error is up to ~3e-7 of its scale, but at x +- h the FGMRES runs the same
+# steps, a polynomial in the operator, and the quotient sees only that
+# error's smooth change; a change of step count between x - h and x + h
+# would add up to refine_tol / h = 3e-3 of the gradient's scale and fail
+# the check.
+HESS_SYM_TOL = 1e-8
+HESS_FD_STEP = 1e-4
+HESS_FD_TOL = 1e-3
+# step budgets from theta_0 and the distance to the truth trust region,
+# Newton and L-BFGS must reach (18, 22-23 and 39-42 steps on an H100 at
+# 700 W).
+# Gauss-Newton on MSE fits the data but cannot reach the truth in any such
+# budget: the absolute residual is the resonance peaks', which fix the
+# plate's bending stiffness, a combination of E and G, so its normal
+# matrix is near-singular along an E-G valley that the damped steps crawl
+# down (30 steps end 1.1e-2 / 7.8e-2 off in E / G from theta_0, and 5.2e-3
+# / 3.2e-2 from truth x (1.01, 1.005, 1.05), at a loss 1e-7 of the
+# start's; .probes/second_order_probe.py, H100 at 700 W).  The JAX
+# package's own CPU run of the call (exact LU) follows the same path: 15
+# steps end at 2.56e-8 of the start's loss, 30 at +1.13e-2 / +7.77e-2 in
+# E / G (.probes/second_order_jax_gn_mse.log).  Its check is the JAX
+# package's GN test's: the loss falls at every step, to GN_MSE_FIT of its
+# start (2.56e-8 after 15 steps on an H100 at 700 W, as in the JAX run; the
+# 16th step reaches 2.8e-9).
+SO_STEPS = {"tr": 30, "newton": 30, "lbfgs": 60, "gn": 15}
+SO_TOL = 1e-4
+GN_MSE_FIT = 1e-7
+# (d) the getModePicture field against the sweep's own w DOFs
+MODE_TOL = 1e-6
 # phase 9 (e): the script of examples/edp_import.py
 EDP_SCRIPT = """
 // a plate with a circular hole, clamped on its RIGHT border (label 2 --
@@ -608,8 +674,12 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
 
     inv = inverse_half(p, freqs, fr, grad_tol=GRAD_TOL_21K)
     dense = dense_tier(dev)
-    fam = families(dev)
+    kept = {}
+    fam = families(dev, kept)
     s6 = slice6(dev, p, freqs, fr, ab_csr)
+    summary_s = time.perf_counter() - t_phases
+    print(f"[time] phases 2-9 in {summary_s:.1f} s", flush=True)
+    s8 = slice8(dev, p, freqs, fr, kept.pop("d4"))
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
               "sweep_21k": k3_sweep_regimes,
               "rj_21k": inv["k3_rj_by_regime"],
@@ -628,15 +698,19 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                "peak_mem_gb": peak_gb, "worst_rel_err": worst,
                "f_peak": float(freqs[ipk]), "k1_by_B": recs, "k1_b64": b64,
                **inv, "dense": dense, "families": fam,
-               "slice6": {k: v for k, v in s6.items() if k != "k3"}}
+               "slice6": {k: v for k, v in s6.items() if k != "k3"},
+               "slice8": {k: v for k, v in s8.items()
+                          if k not in ("k1", "k3")}}
     summary["phases_s"] = time.perf_counter() - t_phases
-    print(f"[time] phases 2-9 in {summary['phases_s']:.1f} s", flush=True)
+    summary["phases_2_9_s"] = summary_s
+    print(f"[time] phases 2-10 in {summary['phases_s']:.1f} s (phase 10: "
+          f"{summary['phases_s'] - summary_s:.1f} s)", flush=True)
     k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
                 "grad_21k": inv["k3_grad"],
                 "dense_sweep_1466": dense["bench"]["k3"],
                 "rj_1466": dense["bench_inverse"]["k3_rj"],
                 "grad_1466": dense["bench_inverse"]["k3_grad"],
-                **s6["k3"]["by_path"]}
+                **s6["k3"]["by_path"], **s8["k3"]}
     if not all(v > 0 for v in k3_paths.values()):
         raise AssertionError(f"K3 launched no time on a path: {k3_paths}")
     print(f"[summary] {json.dumps(summary)}", flush=True)
@@ -650,7 +724,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                              "rj_primal": inv["k1_rj_primal"],
                              "rj_adjoint": inv["k1_rj_adjoint"],
                              "gn": inv["k1_gn"],
-                             **dense["k1"], **fam["k1"]},
+                             **dense["k1"], **fam["k1"], **s8["k1"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
@@ -665,6 +739,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
         "launches": s6["k3"]["launches"],
         "launches_by_path": k3_paths,
         "launches_by_regime": census,
+        "data_grad": s8["data_grad"],
         **{k: s6["k3"]["headline"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -1031,12 +1106,13 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
             "k1_gn": k1_gn}
 
 
-def families(dev) -> dict:
+def families(dev, keep=None) -> dict:
     """Phase 8: the material families and the pure-bending path, (a) the
     multi-cut orthotropic identification at n = 1466, (b) per-modulus loss
     factors at n = 20916, (c) the pure-bending path at n = 956 and 13862.
-    Returns the numbers for [summary], K1's counts by path under "k1"."""
-    out = {"joint": joint_identification(dev), "d4": per_modulus(dev),
+    Returns the numbers for [summary], K1's counts by path under "k1";
+    ``keep`` (a dict) receives (b)'s Problem for phase 10."""
+    out = {"joint": joint_identification(dev), "d4": per_modulus(dev, keep),
            "symm": pure_bending(dev)}
     d4, symm = out["d4"], out["symm"]
     out["k1"] = {"families_joint_gn": out["joint"]["k1"],
@@ -1134,9 +1210,11 @@ def joint_identification(dev) -> dict:
             "rel_err": [float(v) for v in err], "k1": k1, "sol_0_45": rec}
 
 
-def per_modulus(dev) -> dict:
+def per_modulus(dev, keep=None) -> dict:
     """Phase 8 (b): OrthotropicD4 on the two-grid tier (n = 20916): sweeps,
-    splu, and the adjoint r + J over its 8 parameters."""
+    splu, and the adjoint r + J over its 8 parameters.  ``keep`` (a dict)
+    receives the Problem, its FRF at the truth, the parameter scale, the
+    start and the adjoint r + J there under "d4"."""
     import torch
 
     import plate_inverse_problem_tpu_torch as pt
@@ -1207,6 +1285,8 @@ def per_modulus(dev) -> dict:
                       f"{grad_rel:.3e} > {GRAD_TOL_21K}")
     if failed:
         raise AssertionError(f"{tag} failed: " + "; ".join(failed))
+    if keep is not None:
+        keep["d4"] = (p, fr, scale, x0, r, J)
     return rec | {"rj_first_s": times[0], "rj_steady_s": times[1],
                   "k1_rj_primal": counts["primal"],
                   "k1_rj_adjoint": counts["adjoint"],
@@ -1691,6 +1771,401 @@ def slice6(dev, p21, freqs, fr21, ab_csr=()) -> dict:
                              "determinism_1466": det["k3_1466"],
                              "determinism_21k": det["k3_21k"]}}
     return out
+
+
+# phase 10: the rest of the inverse API
+def sync_times(fn, n: int = 2):
+    """``n`` calls of ``fn`` on the card, each synchronised: (outputs,
+    seconds each, peak device memory in GB over all of them, K1 and K3
+    launches of the last call)."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
+
+    outs, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        band_kernel.band_mv_f32_cuda.launches = 0
+        csr_kernel.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (outs, times, torch.cuda.max_memory_allocated() / 1e9,
+            band_kernel.band_mv_f32_cuda.launches,
+            csr_kernel.csr_mv_cuda.launches)
+
+
+def host(rj):
+    """(r, J) tensors -> numpy."""
+    return tuple(a.cpu().numpy() for a in rj)
+
+
+def jac_dev(J, J_ref) -> float:
+    """max |J - J_ref| / (1e-6 |J_ref| + 1e-8 max |J_ref|): at most 1
+    where the JAX package's fwd-vs-adjoint tolerance holds."""
+    return float((np.abs(J - J_ref) / (FWD_J_RTOL * np.abs(J_ref)
+                                       + FWD_J_ATOL * np.abs(J_ref).max())
+                  ).max())
+
+
+def fwd_21k(p, freqs, fr_truth) -> dict:
+    """Phase 10 (a): the forward-mode Jacobian on phase 6's 21k Problem."""
+    import plate_inverse_problem_tpu_torch as pt
+
+    tag = "[slice8] (a)"
+    truth = np.asarray(p.parameters, np.float64)
+    th0 = truth * np.asarray(START)
+    core, od = p.getFRCore()
+    (ra, Ja), = sync_times(lambda: host(p.getResidualFunction(
+        freqs, fr_truth, kind="log_afc").value_and_jac(th0)), 1)[0]
+    rf = p.getResidualFunction(freqs, fr_truth, kind="log_afc",
+                               jac_mode="fwd")
+    outs, times, peak_gb, k1, k3 = sync_times(
+        lambda: host(rf.value_and_jac(th0)))
+    (r, J), (r2, J2) = outs
+    blocks = -(-freqs.size // (rf._chunk or freqs.size))
+    print(f"{tag} fwd log_afc r + J at theta_0 = truth x {START}, "
+          f"{freqs.size} points, freq_chunk {rf._chunk} (lanes policy, "
+          f"{blocks} block(s)): first {times[0]:.3f} s, steady "
+          f"{times[1]:.3f} s; K1 {k1}, K3 {k3} launches; peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    if blocks == 1:
+        ru, Ju = r, J
+    else:
+        (ru, Ju), = sync_times(lambda: host(pt.ResidualFunction(
+            core, od, freqs, fr_truth, kind="log_afc", jac_mode="fwd"
+        ).value_and_jac(th0)), 1)[0]
+    outs, t64, peak64, _, _ = sync_times(lambda: host(p.getResidualFunction(
+        freqs, fr_truth, kind="log_afc", jac_mode="fwd",
+        freq_chunk=FWD_CHUNK).value_and_jac(th0)), 1)
+    (rc, Jc), = outs
+    rfx = p.getResidualFunction(freqs, fr_truth.astype(complex),
+                                kind="complex")
+    outs, tx, peakx, _, _ = sync_times(lambda: host(rfx.value_and_jac(th0)),
+                                       1)
+    (rx, Jx), = outs
+
+    def fd_col(j):
+        e = np.zeros(truth.size)
+        e[j] = FD_STEPS[j] * th0[j]
+        fd = (rfx(th0 + e) - rfx(th0 - e)).cpu().numpy() / (2.0 * e[j])
+        return float(np.abs(fd - Jx[:, j]).max() / np.abs(Jx[:, j]).max())
+
+    fd = [fd_col(j) for j in range(truth.size)]
+    r_rel = float(np.abs(r - ra).max() / np.abs(ra).max())
+    rec = {"rj_fwd_first_s": times[0], "rj_fwd_steady_s": times[1],
+           "rj_fwd_chunk": rf._chunk, "rj_fwd_blocks": blocks,
+           "rj_fwd_peak_gb": peak_gb,
+           "k1": k1, "k3": k3, "r_vs_adjoint_rel": r_rel,
+           "chunk64_r_vs_adjoint_rel": float(
+               np.abs(rc - ra).max() / np.abs(ra).max()),
+           "J_vs_adjoint": jac_dev(J, Ja), "bits_equal": bool(
+               np.array_equal(r, r2) and np.array_equal(J, J2)),
+           "unchunked_r_vs_adjoint_rel": float(
+               np.abs(ru - ra).max() / np.abs(ra).max()),
+           "unchunked_vs_adjoint": jac_dev(Ju, Ja),
+           "chunk64_s": t64[0], "chunk64_peak_gb": peak64,
+           "chunk64_vs_unchunked": jac_dev(Jc, Ju),
+           "complex_s": tx[0], "complex_peak_gb": peakx,
+           "complex_fd_rel": fd}
+    print(f"{tag} r vs the adjoint mode's: unchunked max rel "
+          f"{rec['unchunked_r_vs_adjoint_rel']:.3e} (tol {FWD_R_TOL}), "
+          f"freq_chunk {rf._chunk} / {FWD_CHUNK} {r_rel:.3e} / "
+          f"{rec['chunk64_r_vs_adjoint_rel']:.3e} (tol {FWD_R_CHUNK_TOL}); "
+          f"J vs the adjoint J: {rec['J_vs_adjoint']:.3e} of the tolerance "
+          f"(1e-6 rel + 1e-8 of max; unchunked "
+          f"{rec['unchunked_vs_adjoint']:.3e}); two calls bit-identical: "
+          f"{rec['bits_equal']}", flush=True)
+    print(f"{tag} freq_chunk={FWD_CHUNK}: {t64[0]:.3f} s, peak "
+          f"{peak64:.2f} GB, J vs unchunked {rec['chunk64_vs_unchunked']:.3e}"
+          f" of the tolerance; kind='complex' ({rfx.jac_mode}): {tx[0]:.3f} s,"
+          f" peak {peakx:.2f} GB, J vs central differences of r at steps "
+          f"{FD_STEPS}: {', '.join(f'{x:.3e}' for x in fd)} of the column "
+          f"max (tol {FD_TOL})", flush=True)
+    print(f"{tag} first-call cost of the forward mode: first "
+          f"{times[0]:.3f} s vs steady {times[1]:.3f} s "
+          f"({times[0] - times[1]:+.3f} s)", flush=True)
+    failed = []
+    if k1 <= 0 or k3 <= 0:
+        failed.append(f"K1 {k1} / K3 {k3} launches in the fwd r + J")
+    if not rec["unchunked_r_vs_adjoint_rel"] <= FWD_R_TOL:
+        failed.append("unchunked r vs adjoint "
+                      f"{rec['unchunked_r_vs_adjoint_rel']:.3e}")
+    if not max(r_rel, rec["chunk64_r_vs_adjoint_rel"]) <= FWD_R_CHUNK_TOL:
+        failed.append(f"chunked r vs adjoint {r_rel:.3e}")
+    if not max(rec["J_vs_adjoint"], rec["unchunked_vs_adjoint"],
+               rec["chunk64_vs_unchunked"]) <= 1.0:
+        failed.append("J outside the 1e-6 / 1e-8 tolerance")
+    if not rec["bits_equal"]:
+        failed.append("two fwd r + J calls differ")
+    if not max(fd) <= FD_TOL:
+        failed.append(f"complex J vs differences {fd}")
+    if failed:
+        raise AssertionError(f"{tag} failed: " + "; ".join(failed))
+    return rec
+
+
+def fwd_d4(freqs, kept) -> dict:
+    """Phase 10 (b): the forward-mode r + J of OrthotropicD4 at 21k over its
+    8 parameters, with the lanes chunk policy, against the adjoint J of
+    phase 8 (b)."""
+    tag = "[slice8] (b)"
+    p, fr, scale, x0, ra, Ja = kept
+    rf = p.getResidualFunction(freqs, fr, kind="log_afc",
+                               scaling_params=scale, jac_mode="fwd")
+    outs, times, peak_gb, k1, k3 = sync_times(
+        lambda: host(rf.value_and_jac(x0)), 1)
+    (r, J), = outs
+    r_rel = float(np.abs(r - ra).max() / np.abs(ra).max())
+    dev = jac_dev(J, Ja)
+    blocks = -(-freqs.size // (rf._chunk or freqs.size))
+    print(f"{tag} OrthotropicD4 n={p.n_free}: fwd log_afc r + J over "
+          f"{x0.size} parameters, freq_chunk {rf._chunk} (lanes policy, "
+          f"{1 + x0.size} lanes a frequency, {blocks} block(s)): "
+          f"{times[0]:.3f} s, peak device "
+          f"memory {peak_gb:.2f} GB; K1 {k1}, K3 {k3}; r vs adjoint "
+          f"{r_rel:.3e}, J vs adjoint {dev:.3e} of the tolerance", flush=True)
+    if k1 <= 0 or k3 <= 0 or not dev <= 1.0 or not r_rel <= FWD_R_CHUNK_TOL:
+        raise AssertionError(f"{tag} failed: K1 {k1}, K3 {k3}, r {r_rel}, "
+                             f"J {dev}")
+    return {"n_free": p.n_free, "chunk": rf._chunk, "blocks": blocks,
+            "s": times[0],
+            "peak_gb": peak_gb, "k1": k1, "k3": k3, "r_vs_adjoint_rel": r_rel,
+            "J_vs_adjoint": dev}
+
+
+def first_resonance(fr) -> int:
+    """Index of the first local maximum of |FRF| in a sweep."""
+    a = np.abs(fr)
+    return int(np.flatnonzero((a[1:-1] > a[:-2]) & (a[1:-1] > a[2:]))[0] + 1)
+
+
+def sweep_vertex_w(p, freq: float) -> np.ndarray:
+    """|w| at the mesh vertices from the port's own sweep at one frequency:
+    the sweep's (equilibrated, layout-ordered) solution mapped back to the
+    free DOFs, then by ``Problem.vertex_w`` as ``mode_field``'s is."""
+    import torch
+
+    core, od = p.getFRCore()
+    U_re, U_im = core.sweep_u(
+        torch.tensor([freq], dtype=torch.float64, device=p.device),
+        torch.as_tensor(np.asarray(p.parameters, np.float64),
+                        device=p.device), od)
+    u_s = U_re[0].cpu().numpy() + 1j * U_im[0].cpu().numpy()
+    lay = p._band_layout
+    perm = np.arange(p.n_free) if lay is None else lay.perm
+    u = np.empty(p.n_free, complex)
+    u[perm] = p._eq_scale[perm] * u_s
+    return p.vertex_w(u)
+
+
+def count_data_grad(csr_kernel, calls):
+    """Wrap ``csr_kernel._data_grad`` (K3's reverse mode, plain torch) to
+    count its calls (one ``None`` each in ``calls``) and keep its first
+    inputs (the first entry); returns the original."""
+    orig = csr_kernel._data_grad
+
+    def counted(gy, x, csr, seg):
+        if not calls:
+            calls.append((gy.detach().clone(), x.detach().clone(), csr,
+                          seg))
+        calls.append(None)
+        return orig(gy, x, csr, seg)
+
+    csr_kernel._data_grad = counted
+    return orig
+
+
+def cuda_event_ms(fn, reps: int = 20) -> float:
+    """Mean time of ``fn`` on the card over ``reps`` calls, by CUDA events,
+    after a warm-up call."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def second_order_1466(dev, freqs) -> dict:
+    """Phase 10 (c) and (d) on the bench plate (n = 1466): the loss Hessian
+    and its checks, trust region, Newton, L-BFGS and Gauss-Newton on MSE
+    (the 'complex' residual) from theta_0, de and shgo on a bounds box, and
+    the getModePicture field at the first resonance."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+
+    tag = "[slice8] (c)"
+    p = sh_i_problem(dev, 1.0)
+    truth = np.asarray(p.parameters, np.float64)
+    th0 = truth * np.asarray(START)
+    fr = p.solveForward(freqs).cpu().numpy()
+    loss = p.getLossFunction(freqs, fr, "MSE_LOG_AFC", scaling_params=th0)
+    x1 = np.ones(truth.size)
+    calls = []
+    orig = count_data_grad(csr_kernel, calls)
+    try:
+        outs, times, peak_gb, _, k3_h = sync_times(
+            lambda: tuple(a.cpu().numpy()
+                          for a in loss.value_grad_hessian(x1)))
+    finally:
+        csr_kernel._data_grad = orig
+    (v, g, H), (v2, g2, H2) = outs
+    n_dg = (len(calls) - 1) // 2     # per call; calls[0] holds the inputs
+    gy, xg, csr, seg = calls[0]
+    t_dg = cuda_event_ms(lambda: csr_kernel._data_grad(gy, xg, csr, seg))
+    data = torch.ones((gy.shape[0], csr.nnz), dtype=gy.dtype,
+                      device=gy.device)
+    t_k3 = cuda_event_ms(lambda: csr_kernel.csr_mv(data, xg, csr, seg))
+    dg_rec = {"ms": t_dg, "k3_ms_same_shape": t_k3,
+              "calls_per_hessian": n_dg, "gy_shape": list(gy.shape),
+              "x_shape": list(xg.shape), "nnz": csr.nnz}
+    sym = float(np.abs(H - H.T).max() / np.abs(H).max())
+
+    def fd_col(j):
+        e = np.zeros(truth.size)
+        e[j] = HESS_FD_STEP
+        return (loss.grad(x1 + e).cpu().numpy()
+                - loss.grad(x1 - e).cpu().numpy()) / (2.0 * HESS_FD_STEP)
+
+    Hfd = np.stack([fd_col(j) for j in range(truth.size)], axis=1)
+    fd = [float(np.abs(Hfd[:, j] - H[:, j]).max() / np.abs(H[:, j]).max())
+          for j in range(truth.size)]
+    print(f"{tag} bench n={p.n_free}: MSE_LOG_AFC value, gradient and "
+          f"Hessian at theta_0 (x = theta / theta_0 = 1): first "
+          f"{times[0]:.3f} s, steady {times[1]:.3f} s, peak {peak_gb:.2f} GB,"
+          f" K3 {k3_h}; asymmetry {sym:.3e} of max (tol {HESS_SYM_TOL}); "
+          f"columns vs central differences of the gradient at step "
+          f"{HESS_FD_STEP}: {', '.join(f'{x:.3e}' for x in fd)} of the "
+          f"column max (tol {HESS_FD_TOL})", flush=True)
+    print(f"{tag} _data_grad (K3's reverse mode, plain torch): "
+          f"{n_dg} calls a Hessian, gy {dg_rec['gy_shape']}, x "
+          f"{dg_rec['x_shape']}: {t_dg:.4f} ms each; K3 on the same shapes "
+          f"(csr_mv of ones): {t_k3:.4f} ms", flush=True)
+    failed = []
+    if not sym <= HESS_SYM_TOL:
+        failed.append(f"Hessian asymmetry {sym:.3e}")
+    if not max(fd) <= HESS_FD_TOL:
+        failed.append(f"Hessian vs differences {fd}")
+    if not (np.array_equal(H, H2) and v == v2):
+        failed.append("two Hessian calls differ")
+    rec = {"n_free": p.n_free, "hessian_first_s": times[0],
+           "hessian_steady_s": times[1], "hessian_peak_gb": peak_gb,
+           "hessian_asym": sym, "hessian_fd_rel": fd,
+           "k3": {"hessian_1466": k3_h}}
+
+    runs = {"tr": ("MSE_LOG_AFC", dict(N_steps=SO_STEPS["tr"],
+                                       delta_max=0.5)),
+            "newton": ("MSE_LOG_AFC", dict(N_steps=SO_STEPS["newton"])),
+            "lbfgs": ("MSE_LOG_AFC", dict(N_steps=SO_STEPS["lbfgs"])),
+            "gn": ("MSE", dict(N_steps=SO_STEPS["gn"]))}
+    for name, (loss_type, kw) in runs.items():
+        (res,), (s,), _, _, k3 = sync_times(lambda: p.solveInverse(
+            th0, loss_type, name, ref_fr=(freqs, fr), use_scaling=True,
+            report=False, log=False, **kw), 1)
+        err = (np.abs(res.x) - truth) / truth
+        it = max(len(res.f_history), 1)
+        rec[name] = {"s": s, "iters": len(res.f_history), "s_per_iter":
+                     s / it, "status": res.status, "f": float(res.f),
+                     "rel_err": [float(e) for e in err]}
+        rec["k3"][f"{name}_1466"] = k3
+        f_hist = np.asarray(res.f_history, np.float64)
+        fit = float(res.f) / f_hist[0]
+        print(f"{tag} solveInverse {name!r} ({loss_type}) from theta_0: "
+              f"{len(res.f_history)} iterations in {s:.3f} s "
+              f"({s / it:.3f} s/iter), status {res.status}, loss "
+              f"{float(res.f):.3e} ({fit:.3e} of the start's); rel err "
+              f"(|beta|) {', '.join(f'{e:+.3e}' for e in err)} (tol "
+              + (f"{SO_TOL}" if name != "gn" else
+                 f"none: the loss to {GN_MSE_FIT} of the start's")
+              + f"); K3 {k3}", flush=True)
+        # (L-BFGS's approximate Wolfe test admits a rise of 1e-6 of the
+        # loss in a step, optax's approx_dec_rtol)
+        if name != "lbfgs" and not np.all(np.diff(f_hist) <= 0):
+            failed.append(f"{name}: the loss rose {f_hist}")
+        if name == "gn":
+            if not fit <= GN_MSE_FIT:
+                failed.append(f"gn (MSE) fits to {fit:.3e} of its start")
+        elif not np.all(np.abs(err) <= SO_TOL):
+            failed.append(f"{name} ends {err} from the truth")
+
+    bounds = np.stack([truth * 0.8, truth * 1.2], axis=1)
+    for name, kw in (("de", dict(maxiter=2, popsize=4, tol=10.0, seed=0,
+                                 polish=False)),
+                     ("shgo", dict(options={"maxiter": 2, "f_tol": 1.0}))):
+        (res,), (s,), _, _, k3 = sync_times(lambda: p.solveInverse(
+            bounds, "MSE_LOG_AFC", name, ref_fr=(freqs, fr),
+            use_scaling=True, use_constraints=name == "shgo", report=False,
+            log=False, **kw), 1)
+        ok = bool(np.all(np.isfinite(res.x)) and np.isfinite(res.f))
+        rec[name] = {"s": s, "niter": int(res.niter), "f": float(res.f),
+                     "x": [float(x) for x in res.x]}
+        rec["k3"][f"{name}_1466"] = k3
+        print(f"{tag} solveInverse {name!r} on the box truth x [0.8, 1.2] "
+              f"(the JAX test's budget): {s:.3f} s, niter {res.niter}, loss "
+              f"{float(res.f):.3e}, x / truth "
+              f"{', '.join(f'{x:.4f}' for x in res.x / truth)}; finite: {ok};"
+              f" K3 {k3}", flush=True)
+        if not ok:
+            failed.append(f"{name} gave a non-finite result")
+
+    # (d) the getModePicture field at the first resonance
+    i = first_resonance(fr)
+    t0 = time.perf_counter()
+    w_mode = p.mode_field(float(freqs[i]))
+    mode_s = time.perf_counter() - t0
+    w_sweep = sweep_vertex_w(p, float(freqs[i]))
+    mode_rel = float(np.abs(w_mode - w_sweep).max() / np.abs(w_sweep).max())
+    print(f"[slice8] (d) getModePicture field at the first resonance "
+          f"{freqs[i]:.3f} Hz: host splu {mode_s:.3f} s; vertex |w| vs the "
+          f"sweep's own w DOFs: max rel {mode_rel:.3e} (tol {MODE_TOL})",
+          flush=True)
+    rec["mode"] = {"f_hz": float(freqs[i]), "s": mode_s, "rel": mode_rel}
+    if not mode_rel <= MODE_TOL:
+        failed.append(f"mode field {mode_rel:.3e} from the sweep's")
+    if failed:
+        raise AssertionError(f"{tag} failed: " + "; ".join(failed))
+    return rec | {"data_grad": dg_rec}
+
+
+def slice8(dev, p21, freqs, fr21, kept_d4) -> dict:
+    """Phase 10 on ``dev``: (a) the forward-mode Jacobian on phase 6's 21k
+    Problem, (b) on phase 8 (b)'s OrthotropicD4 Problem (``kept_d4``), (c)
+    the loss Hessian and the second-order, quasi-Newton and global
+    optimizers on the bench plate, (d) the getModePicture field.  Returns
+    the numbers for [summary], K1's and K3's launches by path under "k1" /
+    "k3" and _data_grad's time under "data_grad"."""
+    # every part runs before a failed check of any of them raises
+    failed = []
+
+    def run(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as err:
+            failed.append(str(err))
+            return None
+
+    a = run(fwd_21k, p21, freqs, fr21)
+    b = run(fwd_d4, freqs, kept_d4)
+    c = run(second_order_1466, dev, freqs)
+    if failed:
+        raise AssertionError("phase 10 failed: " + " | ".join(failed))
+    k1 = {"rj_fwd_21k": a["k1"], f"rj_fwd_d4_{b['n_free']}": b["k1"]}
+    k3 = {"rj_fwd_21k": a["k3"], f"rj_fwd_d4_{b['n_free']}": b["k3"],
+          **c.pop("k3")}
+    if not all(v > 0 for v in k1.values()):
+        raise AssertionError(f"K1 launched no time on a 21k path: {k1}")
+    return {"fwd_21k": a, "fwd_d4": b, "bench": c, "k1": k1, "k3": k3,
+            "data_grad": c.pop("data_grad")}
 
 
 if __name__ == "__main__":

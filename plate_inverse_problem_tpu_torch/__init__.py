@@ -13,12 +13,15 @@ DOF, above it a two-grid cycle whose band matvec is a hand-written CUDA
 kernel, ``csrc/band_mv.cu``); the flat-pattern operator is a second
 hand-written kernel, ``csrc/csr_mv.cu``, which sums in one fixed order, so
 a sweep gives the same bits in every run.  The inverse problem runs on it:
-the adjoint sweep, the loss and its gradient, the adjoint Gauss-Newton
-Jacobian, ``Problem.solveInverse`` by Gauss-Newton, gradient descent and
-coordinate descent, with FRF compression; ``Problem.diagnoseSweep``
-reports each frequency's convergence.  Geometries come from templates,
-FreeFEM ``.edp`` scripts or ``.msh`` meshes.  The package imports torch,
-numpy and scipy, never jax.
+the adjoint and the forward-mode (tangent) sweeps, the loss with its
+gradient and Hessian, the adjoint and forward-mode Gauss-Newton
+Jacobians, ``Problem.solveInverse`` by Gauss-Newton, trust region,
+Newton, L-BFGS, gradient and coordinate descent and scipy's global
+optimizers, with FRF compression; ``Problem.diagnoseSweep`` reports each
+frequency's convergence and ``Problem.getModePicture`` draws a deflection
+shape.  Geometries come from templates, FreeFEM ``.edp`` scripts or
+``.msh`` meshes.  The package imports torch, numpy and scipy, never jax
+(matplotlib only inside ``getModePicture``).
 """
 from . import config
 from .convert import opdata_from_jax
@@ -45,6 +48,9 @@ from .optimize import (
     optimize_cd_mem2,
     optimize_gauss_newton,
     optimize_gd,
+    optimize_lbfgs,
+    optimize_newton,
+    optimize_trust_region,
     optResult,
 )
 
@@ -80,5 +86,8 @@ __all__ = [
     "optimize_cd_mem2",
     "optimize_gauss_newton",
     "optimize_gd",
+    "optimize_lbfgs",
+    "optimize_newton",
+    "optimize_trust_region",
     "save_msh",
 ]

@@ -124,3 +124,22 @@ class TriangleMesh:
                 self.edge_labels[ei] = label
                 self.node_labels[a] = label
                 self.node_labels[b] = label
+
+    def plot(self, ax=None, **kwargs):
+        """Plot triangles (matplotlib), analog of TriMesh.plot_triangles
+        (reference pyFreeFem/TriMesh.py:201-295)."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            ax = plt.gca()
+        ax.triplot(
+            self.nodes[:, 0], self.nodes[:, 1], self.triangles,
+            **({"color": "k", "lw": 0.4} | kwargs),
+        )
+        ax.set_aspect("equal")
+        return ax
+
+    def to_matplotlib_tri(self):
+        from matplotlib.tri import Triangulation
+
+        return Triangulation(self.nodes[:, 0], self.nodes[:, 1], self.triangles)

@@ -13,8 +13,10 @@ opdata's key names; ``getFRCore`` returns a plain function of (freqs,
 params, opdata).  ``Problem(spath=...)`` reads a ``setup.json`` folder,
 whose geometry may be a template, a FreeFEM ``.edp`` script or a ``.msh``
 mesh.  ``diagnoseSweep`` returns the sweep's per-frequency convergence
-signal; ``solveInverse`` runs Gauss-Newton, gradient descent and
-coordinate descent, on a compressed reference FRF if asked.
+signal; ``solveInverse`` runs Gauss-Newton, trust region, Newton, L-BFGS,
+gradient and coordinate descent and scipy's global optimizers, on a
+compressed reference FRF if asked; ``getModePicture`` draws the
+deflection shape at one frequency from a host LU solve.
 
 Options that resolve to what this port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item; nothing falls back.  The
@@ -105,22 +107,82 @@ def _has_adjoint_hooks(core) -> bool:
     return all(hasattr(core, a) for a in _ADJOINT_HOOKS)
 
 
+# what the forward-mode r + J holds across its sweeps (the primal and
+# tangent solutions, their right-hand sides, jacfwd's batched outputs), in
+# f64 n-vectors a lane: 9.1 (isotropic, p = 3) and 12.5 (OrthotropicD4,
+# p = 8) at n = 20916 over 128-4608 lanes (.probes/fwd_chunk_probe.py on an
+# NVIDIA H100 80GB HBM3, 700.00 W), with room
+_FWD_HELD_VECS = 16.0
+
+
+def _fwd_budget(device: torch.device) -> float:
+    """Bytes the forward-mode r + J may hold across its sweeps: a quarter of
+    the card's memory (the rest is the operator's, the sweep's own chunk's
+    and the caller's), the JAX package's 2 GB on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 4.0
+    return 2.0e9
+
+
+class _LaneSolve(torch.autograd.Function):
+    """X = A(theta)^-1 B for right-hand sides B (L, n), lane i at frequency
+    ``freqs[i]`` (``core.sweep_rhs``): the tangent solve of the forward
+    mode, not differentiable itself.  Its ``vmap`` rule folds a batch of
+    right-hand sides (the p tangents of ``jacfwd``) into the lanes of ONE
+    sweep, with the frequencies repeated, instead of p sweeps."""
+
+    @staticmethod
+    def forward(B_re, B_im, params, freqs, od, core):
+        return core.sweep_rhs(freqs, params, od, B_re, B_im)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, B_re, B_im, params, freqs, od, core):
+        if in_dims[2] is not None or in_dims[3] is not None:
+            raise NotImplementedError(
+                "_LaneSolve batches right-hand sides, not operators.")
+        nb = info.batch_size
+
+        def lanes(b, d):
+            b = b.movedim(d, 0) if d is not None else b.expand(nb, *b.shape)
+            return b.reshape(-1, b.shape[-1])
+
+        X_re, X_im = _LaneSolve.apply(lanes(B_re, in_dims[0]),
+                                      lanes(B_im, in_dims[1]), params,
+                                      freqs.repeat(nb), od, core)
+        shape = (nb, freqs.shape[0], X_re.shape[-1])
+        return (X_re.reshape(shape), X_im.reshape(shape)), (0, 0)
+
+
 class _ImplicitSweep(torch.autograd.Function):
-    """U(theta) = A(theta)^-1 b(theta) with the adjoint backward — the role
-    ``lax.custom_linear_solve`` and its ``transpose_solve`` play in the JAX
-    package.
+    """U(theta) = A(theta)^-1 b(theta) with the adjoint backward and the
+    forward-mode rule — the role ``lax.custom_linear_solve`` plays in the
+    JAX package, under ``torch.autograd`` and ``torch.func`` alike.
 
     Forward: the primal sweep, outside the graph.  Backward, for the
     cotangent G = dL/dU: one adjoint sweep conj(A) Y = G, then
     dL/dtheta = -d/dtheta [sum Y . (A(theta) U - b(theta))] at fixed U and
-    Y, by autograd through the solve-free residual map."""
+    Y, by autograd through the solve-free residual map.  Forward mode, for
+    the tangent d theta: dU = A^-1 (db - dA U), the right-hand side a
+    forward tangent of the residual map at fixed U (K3's data tangents),
+    the solve ``_LaneSolve`` — so ``jacfwd`` runs ONE sweep over its p x F
+    tangent lanes beside the shared primal.  A lane whose right-hand side
+    is all zero (a parameter that does not reach it) stays zero."""
 
     @staticmethod
-    def forward(ctx, params, freqs, od, core):
-        U_re, U_im = core.sweep_u(freqs, params, od)
+    def forward(params, freqs, od, core):
+        return core.sweep_u(freqs, params, od)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        params, freqs, od, core = inputs
+        U_re, U_im = output
         ctx.core, ctx.freqs, ctx.od = core, freqs, od
         ctx.save_for_backward(params, U_re, U_im)
-        return U_re, U_im
+        ctx.save_for_forward(params, U_re, U_im)
 
     @staticmethod
     def backward(ctx, g_re, g_im):
@@ -136,14 +198,37 @@ class _ImplicitSweep(torch.autograd.Function):
             (g,) = torch.autograd.grad(psi, th)
         return -g, None, None, None
 
+    @staticmethod
+    def jvp(ctx, d_params, _d_freqs, _d_od, _d_core):
+        params, U_re, U_im = ctx.saved_tensors
+        core, freqs, od = ctx.core, ctx.freqs, ctx.od
+        _, (dR_re, dR_im) = torch.func.jvp(
+            lambda th: core.apply_res(freqs, th, od, U_re, U_im),
+            (params,), (d_params,))
+        return _LaneSolve.apply(-dR_re, -dR_im, params, freqs, od, core)
+
+    @staticmethod
+    def vmap(info, in_dims, params, freqs, od, core):
+        # a batch of parameter vectors is a batch of operators: one sweep
+        # each
+        if in_dims[1] is not None:
+            raise NotImplementedError("_ImplicitSweep batches parameter "
+                                      "vectors, not frequency grids.")
+        outs = [_ImplicitSweep.apply(th, freqs, od, core)
+                for th in params.movedim(in_dims[0], 0)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs])), (0, 0)
+
 
 class LossFunction:
     """Scalar loss of the FRF against a reference: ``f(params) -> scalar``
-    with ``value_and_grad`` and ``grad`` (JAX ``LossFunction``).
+    with ``value_and_grad``, ``grad``, ``hessian`` and
+    ``value_grad_hessian`` (JAX ``LossFunction``).
 
     Types MSE / RMSE / MSE_AFC / MSE_LOG_AFC, each the mean of a
     per-frequency term.  The gradient costs one primal and one adjoint
-    sweep (``_ImplicitSweep``).  Values and gradients are f64 tensors on
+    sweep (``_ImplicitSweep``), the Hessian two more sweeps of p x F lanes
+    (``value_grad_hessian``).  Values and derivatives are f64 tensors on
     the operator data's device.
     """
 
@@ -197,28 +282,109 @@ class LossFunction:
         return self.value_and_grad(params)[1]
 
     def hessian(self, params):
-        raise NotImplementedError(
-            "The loss Hessian (and the trust-region and Newton optimizers "
-            "that use it) is not ported yet (ROADMAP Queue 1, item D).")
+        return self.value_grad_hessian(params)[2]
 
     def value_grad_hessian(self, params):
-        raise NotImplementedError(
-            "The loss Hessian (and the trust-region and Newton optimizers "
-            "that use it) is not ported yet (ROADMAP Queue 1, item D).")
+        """(f, gradient, dense Hessian): the trust-region and Newton model
+        oracle (JAX ``jacfwd(grad)`` through the linear solve), as an
+        explicit second-order adjoint with the p tangents batched as lanes.
+
+        With R(theta, U) = A(theta) U - b(theta), the loss l(U), its
+        gradient G = dl/dU and <a, b> the real (re, im) pairing:
+
+        * the primal sweep U and the adjoint sweep conj(A) Y = G;
+        * dR_i = d/dtheta_i R(theta, U) at fixed U (K3's data tangents), so
+          g_i = -<Y, dR_i>;
+        * ONE tangent sweep over p x F lanes: A dU_i = -dR_i;
+        * ONE adjoint sweep over p x F lanes: conj(A) dY_i = (d^2l/dU^2)
+          dU_i - Q_i, Q_i = d/dtheta_i (conj(A(theta)) Y) at fixed Y (the
+          term (dA)^H Y);
+        * H_ij = -<dY_j, dR_i> - <Q_i, dU_j> - d^2/dtheta_i dtheta_j <Y,
+          R(theta, U)> at fixed U and Y, the last by forward over reverse
+          mode through the solve-free residual map (K3's data gradient).
+
+        Four sweeps; no derivative runs through the FGMRES loop.  Values
+        are f64 tensors on the operator data's device; H is not
+        symmetrised (its asymmetry is the tangent solves' own error)."""
+        core, od, freqs = self._core, self._opdata, self._freqs
+        x = _as_tensor(params, self._device).detach()
+        sc = self._scaling
+        th = x * sc
+        p, F = x.shape[0], freqs.shape[0]
+        fr_rep = freqs.repeat(p)
+
+        def ell(U_re, U_im):
+            return self._term(core.readout_ui(U_re, U_im, od),
+                              self._ref).mean()
+
+        grad_ell = torch.func.grad_and_value(ell, argnums=(0, 1))
+        U_re, U_im = core.sweep_u(freqs, th, od)
+        (G_re, G_im), v = grad_ell(U_re, U_im)
+        Y_re, Y_im = core.sweep_adj(freqs, th, od, G_re, G_im)
+        basis = torch.eye(p, dtype=x.dtype, device=x.device)
+
+        def tangents(fn):
+            """(p, L, n) pairs: d/dx_i fn(x) for every i, in one K3 pass
+            over the folded operator stack."""
+            return torch.func.vmap(
+                lambda e: torch.func.jvp(fn, (x,), (e,))[1])(basis)
+
+        dR_re, dR_im = tangents(
+            lambda xx: core.apply_res(freqs, xx * sc, od, U_re, U_im))
+        g = -((Y_re * dR_re).sum((1, 2)) + (Y_im * dR_im).sum((1, 2)))
+
+        dU_re, dU_im = (t.reshape(p, F, -1) for t in core.sweep_rhs(
+            fr_rep, th, od, -dR_re.reshape(p * F, -1),
+            -dR_im.reshape(p * F, -1)))
+        dG_re, dG_im = torch.func.vmap(
+            lambda a, b: torch.func.jvp(lambda ur, ui: grad_ell(ur, ui)[0],
+                                        (U_re, U_im), (a, b))[1]
+        )(dU_re, dU_im)
+        Q_re, Q_im = tangents(
+            lambda xx: core.apply_op(freqs, xx * sc, od, Y_re, Y_im,
+                                     adjoint=True))
+        dY_re, dY_im = (t.reshape(p, F, -1) for t in core.sweep_adj(
+            fr_rep, th, od, (dG_re - Q_re).reshape(p * F, -1),
+            (dG_im - Q_im).reshape(p * F, -1)))
+
+        def psi(xx):
+            R_re, R_im = core.apply_res(freqs, xx * sc, od, U_re, U_im)
+            return (Y_re * R_re).sum() + (Y_im * R_im).sum()
+
+        def pair(a_re, a_im, b_re, b_im):
+            return (torch.einsum("ifn,jfn->ij", a_re, b_re)
+                    + torch.einsum("ifn,jfn->ij", a_im, b_im))
+
+        H = -(pair(dR_re, dR_im, dY_re, dY_im)
+              + pair(Q_re, Q_im, dU_re, dU_im)
+              + torch.func.jacfwd(torch.func.grad(psi))(x))
+        return v.detach(), g.detach(), H.detach()
 
 
 class ResidualFunction:
-    """Vector residual r(theta) with the adjoint Gauss-Newton Jacobian
-    (JAX ``ResidualFunction``, ``jac_mode='adjoint'``).
+    """Vector residual r(theta) with its Jacobian for Gauss-Newton (JAX
+    ``ResidualFunction``).
 
     kinds: 'log_afc' (r_i = log|fr_i| - log|ref_i|, the Gauss-Newton
-    counterpart of MSE_LOG_AFC) and 'afc' (|fr| - |ref|).  Each row is a
-    per-frequency scalar, so J costs two batched sweeps — the primal and
-    one adjoint sweep conj(A_i) y_i = dr_i/dU_i — plus p forward tangents of
-    the solve-free residual map psi_i(theta) = y_i . (A_i(theta) U_i -
-    b_i(theta)), J = -dpsi/dtheta, whatever the parameter count p.
-    ``jac_mode='auto'`` resolves to 'adjoint'.  r and J are f64 tensors on
-    the operator data's device.
+    counterpart of MSE_LOG_AFC), 'afc' (|fr| - |ref|) and 'complex' (the
+    stacked re/im of fr - ref, 2F rows).
+
+    Jacobian modes (``jac_mode``):
+
+    * 'adjoint' — each row is a per-frequency scalar, so J costs two
+      batched sweeps — the primal and one adjoint sweep conj(A_i) y_i =
+      dr_i/dU_i — plus p forward tangents of the solve-free residual map
+      psi_i(theta) = y_i . (A_i(theta) U_i - b_i(theta)), J = -dpsi/dtheta,
+      whatever the parameter count p.  Scalar kinds only.
+    * 'fwd' — the fused value-and-``jacfwd``: the primal sweep and ONE
+      tangent sweep over p x F lanes (``_ImplicitSweep``'s forward rule),
+      every kind.  ``freq_chunk`` runs it over blocks of that many
+      frequencies (the last block padded by repeating the last frequency),
+      bounding the state held across the sweeps; a chunk of F or more is
+      one block of the F frequencies.
+    * 'auto' — 'adjoint' for the scalar kinds, 'fwd' for 'complex'.
+
+    r and J are f64 tensors on the operator data's device.
     """
 
     def __init__(self, core, opdata, frequencies, reference_fr, kind="log_afc",
@@ -231,25 +397,35 @@ class ResidualFunction:
             def resid(fr, ref):
                 return torch.abs(fr) - _ref_abs(ref)
         elif kind == "complex":
-            raise NotImplementedError(
-                "The 'complex' residual kind needs the forward-mode "
-                "Jacobian, which is not ported yet (ROADMAP Queue 1, item "
-                "C: jac_mode='fwd').")
+            def resid(fr, ref):
+                re, im = _re_im(fr)
+                return torch.cat([re - ref[..., 0], im - ref[..., 1]])
         else:
             raise ValueError(f"Unknown residual kind {kind!r}.")
-        if jac_mode not in ("auto", "adjoint", "fwd"):
+        if freq_chunk is not None and kind == "complex":
+            raise ValueError(
+                "freq_chunk is only supported for per-frequency scalar "
+                "residual kinds ('log_afc', 'afc').")
+        adjoint_ok = kind in ("log_afc", "afc") and _has_adjoint_hooks(core)
+        if jac_mode == "auto":
+            jac_mode = "adjoint" if adjoint_ok else "fwd"
+        elif jac_mode == "adjoint" and not adjoint_ok:
+            raise ValueError(
+                "jac_mode='adjoint' needs a per-frequency scalar residual "
+                "kind ('log_afc'/'afc') and an engine exposing the adjoint "
+                "hooks (mixed engine cores do).")
+        elif jac_mode not in ("adjoint", "fwd"):
             raise ValueError(f"Unknown jac_mode {jac_mode!r}.")
-        if jac_mode == "fwd" or not _has_adjoint_hooks(core):
-            raise NotImplementedError(
-                "The forward-mode Jacobian (jac_mode='fwd', and any core "
-                "without the adjoint hooks) is not ported yet (ROADMAP "
-                "Queue 1, item C).")
-        if freq_chunk is not None:
-            raise NotImplementedError(
-                "freq_chunk chunks the forward-mode Jacobian, which is not "
-                "ported yet (ROADMAP Queue 1, item C: jac_mode='fwd'); the "
-                "adjoint Jacobian's memory is bounded by the sweep's and "
-                "the residual map's own chunking.")
+        if jac_mode == "adjoint" and freq_chunk is not None:
+            # the adjoint r + J never holds per-parameter solution batches,
+            # so the chunk has nothing to bound there; honouring it silently
+            # as a no-op would hide a caller's intent to cap memory
+            warnings.warn(
+                "freq_chunk only bounds the jacfwd Jacobian; the adjoint "
+                "jac_mode ignores it (memory is bounded by the engine's "
+                "sweep/apply chunking). Pass jac_mode='fwd' to chunk, or "
+                "drop freq_chunk.", RuntimeWarning, stacklevel=3)
+            freq_chunk = None
         dev = opdata["rows"].device
         self._core = core
         self._opdata = opdata
@@ -259,19 +435,49 @@ class ResidualFunction:
         self._scaling = (1.0 if scaling_params is None
                          else _as_tensor(scaling_params, dev))
         self._resid = resid
+        self._chunk = freq_chunk
         self.kind = kind
-        self.jac_mode = "adjoint"
+        self.jac_mode = jac_mode
+
+    def _full(self, params, freqs, ref):
+        fr = self._core(freqs, params * self._scaling, self._opdata)
+        return self._resid(fr, ref)
 
     def __call__(self, params):
         th = _as_tensor(params, self._device)
         with torch.no_grad():
-            fr = self._core(self._freqs, th * self._scaling, self._opdata)
-            return self._resid(fr, self._ref)
+            return self._full(th, self._freqs, self._ref)
 
     def value_and_jac(self, params):
+        params = _as_tensor(params, self._device)
+        if self.jac_mode == "adjoint":
+            return self._rj_adjoint(params)
+        F = self._freqs.shape[0]
+        if self._chunk is None or self._chunk >= F:
+            return self._rj_fwd(params, self._freqs, self._ref)
+        # every block the same size: the last one repeats the last
+        # frequency, and its copies are cut off
+        c = int(self._chunk)
+        pad = -F % c
+        fpad = torch.cat([self._freqs, self._freqs[-1:].repeat(pad)])
+        rpad = torch.cat([self._ref, self._ref[-1:].repeat(pad, 1)])
+        rs, Js = zip(*(self._rj_fwd(params, fpad[lo:lo + c], rpad[lo:lo + c])
+                       for lo in range(0, F + pad, c)))
+        return torch.cat(rs)[:F], torch.cat(Js)[:F]
+
+    def _rj_fwd(self, params, freqs, ref):
+        """(r, J) on one block of frequencies: one primal sweep shared by
+        the p tangents, whose solves run as one sweep of p x F lanes."""
+        def f(th):
+            r = self._full(th, freqs, ref)
+            return r, r
+
+        J, r = torch.func.jacfwd(f, has_aux=True)(params)
+        return r.detach(), J.detach()
+
+    def _rj_adjoint(self, params):
         core, od, freqs, ref = self._core, self._opdata, self._freqs, \
             self._ref
-        params = _as_tensor(params, self._device)
         th = params * self._scaling
         # U and Y are constants of the Jacobian formula (their theta-
         # derivatives are what the adjoint identity eliminates)
@@ -834,6 +1040,11 @@ class Problem:
                         torch.stack([Aim, Bim, Dim]), od["ABD"], od["fABD"],
                         "mk,mkn->n")
 
+        def stiffness(params, od):
+            """(K_re, K_im) flat data at ``params``."""
+            Cre, Cim, stack, _, eq = coefficients(params, od)
+            return torch.einsum(eq, Cre, stack), torch.einsum(eq, Cim, stack)
+
         def assemble(freqs, params, od):
             omegas = 2.0 * math.pi * freqs
             Cre, Cim, stack, lifts, eq = coefficients(params, od)
@@ -872,20 +1083,37 @@ class Problem:
             K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
             return solve(K_re, K_im, B_re, B_im, omegas, od, False)
 
+        def sweep_rhs(freqs, params, od, B_re, B_im, adjoint=False):
+            """A(theta) x = b (``adjoint``: conj(A) y = g, the transpose of
+            the split-complex operator) for right-hand sides (L, n), lane i
+            at frequency ``freqs[i]``: the tangent sweeps of the forward-
+            mode derivatives run their p x F lanes through it as one
+            batch."""
+            K_re, K_im = stiffness(params, od)
+            return solve(K_re, K_im, B_re, B_im, 2.0 * math.pi * freqs, od,
+                         adjoint)
+
         def sweep_adj(freqs, params, od, G_re, G_im):
             """Adjoint sweep: conj(A) y = g per frequency, the transpose of
             the split-complex operator, for right-hand sides (F, n)."""
-            K_re, K_im, _, _, omegas = assemble(freqs, params, od)
-            return solve(K_re, K_im, G_re, G_im, omegas, od, True)
+            return sweep_rhs(freqs, params, od, G_re, G_im, adjoint=True)
+
+        def apply_op(freqs, params, od, U_re, U_im, adjoint=False):
+            """A(theta) U (``adjoint``: conj(A(theta)) U) at fixed U, each
+            (L, n) f64, differentiable in ``params`` (forward and reverse
+            mode): K_im enters with the opposite sign."""
+            K_re, K_im = stiffness(params, od)
+            return mixed_apply(K_re, -K_im if adjoint else K_im, od["MIn"],
+                               2.0 * math.pi * freqs, U_re, U_im, od["rows"],
+                               od["cols"], n, ki_proportional=ki_prop,
+                               csr=csr)
 
         def apply_res(freqs, params, od, U_re, U_im):
             """The residual map A(theta) U - b(theta) at fixed U, each
             (F, n) f64, differentiable in ``params`` (forward and reverse
             mode)."""
-            K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
-            AU_re, AU_im = mixed_apply(K_re, K_im, od["MIn"], omegas, U_re,
-                                       U_im, od["rows"], od["cols"], n,
-                                       ki_proportional=ki_prop, csr=csr)
+            _, _, B_re, B_im, _ = assemble(freqs, params, od)
+            AU_re, AU_im = apply_op(freqs, params, od, U_re, U_im)
             return AU_re - B_re, AU_im - B_im
 
         if symmetric:
@@ -927,10 +1155,13 @@ class Problem:
                                       False, diagnostics=True)
             return (readout(U_re, U_im, od), *info)
 
-        # the pieces the adjoint Gauss-Newton Jacobian and the gradient need
+        # the pieces the adjoint Gauss-Newton Jacobian, the gradient and the
+        # forward-mode derivatives need
         core.sweep_u = sweep
         core.sweep_adj = sweep_adj
+        core.sweep_rhs = sweep_rhs
         core.apply_res = apply_res
+        core.apply_op = apply_op
         core.readout_ui = readout
         core.diag = core_diag
         return core, opdata
@@ -955,16 +1186,27 @@ class Problem:
                     + Dv[i] * op.mats["D" + s])
         return out
 
-    def _auto_freq_chunk(self) -> int | None:
-        """Lanes per batch, bounding the live f64 FGMRES state to ~2 GB
-        (None = one batch for small patterns)."""
+    def _auto_freq_chunk(self, lanes: int = 1) -> int | None:
+        """Frequencies per batch (None = one batch for small patterns).
+        ``lanes`` counts the solves a frequency brings.  A sweep (1 lane)
+        takes the JAX package's chunk (JAX ``Problem._auto_freq_chunk``),
+        bounding its live f64 FGMRES state to ~2 GB.  The forward-mode
+        r + J (1 + p lanes: the primal and one tangent per parameter) runs
+        its sweeps in those chunks, so its own chunk bounds only the state
+        it holds across them, ``_FWD_HELD_VECS`` f64 n-vectors a lane, to
+        ``_fwd_budget``: the largest multiple of the sweep's chunk that
+        fits, one at least."""
         if self.freq_chunk is not None:
             return self.freq_chunk
         if self.op.pattern.nnz <= 300_000:
             return None
         per_lane = (4.0 * self.n_refine + 6.0) * self.n_free * 8.0
-        return int(np.clip(
+        sweep = int(np.clip(
             2 ** np.floor(np.log2(max(2.0e9 / per_lane, 8.0))), 8, 64))
+        if lanes == 1:
+            return sweep
+        held = _FWD_HELD_VECS * self.n_free * 8.0 * lanes * sweep
+        return sweep * max(1, int(_fwd_budget(self.device) // held))
 
     def getFRFunction(self) -> Callable:
         """(freqs, params) -> FRF on the Problem's device: the f64
@@ -1050,13 +1292,64 @@ class Problem:
             "converged": (rn <= tol * (1.0 + 1e-12)) | (rn <= 1e-9 * rn0),
         }
 
+    def mode_field(self, freq: float, params: np.ndarray = None
+                   ) -> np.ndarray:
+        """Vertex deflection magnitudes |w| (mesh.num_nodes,) at one
+        frequency [Hz]: one host complex128 ``splu`` solve of the
+        Dirichlet-reduced operator (as ``oracle.py`` assembles it), mapped
+        by ``vertex_w``.  ``getModePicture`` renders these values; this
+        helper imports no matplotlib."""
+        import scipy.sparse.linalg as spla
+
+        from ..oracle import _operator
+
+        theta = np.asarray(self.parameters if params is None else params,
+                           np.float64)
+        K, M, bK = _operator(self, theta)
+        om2 = (2.0 * np.pi * float(freq)) ** 2
+        u = spla.splu((K - om2 * M).tocsc()).solve(bK - om2 * self.fInertia)
+        return self.vertex_w(u)
+
+    def vertex_w(self, u: np.ndarray) -> np.ndarray:
+        """Vertex |w| (mesh.num_nodes,) of a solution ``u`` (n_free,) on
+        the free DOFs in the Problem's DOF order, the constrained DOFs at
+        their boundary values.  The Morley vertex DOFs are the P1 nodal
+        values; on the 3-field path the w block starts at 2 x num_nodes."""
+        op = self.op
+        complete = np.array(op.boundary_value, np.float64)
+        complete[~op.constrained] = np.abs(u)
+        V = self.mesh.num_nodes
+        w_off = 0 if self.is_symmetric_path else 2 * V
+        return complete[w_off: w_off + V]
+
     def getModePicture(self, freq: float, use_freefem: bool = False,
                        params: np.ndarray = None, ax=None):
-        """The plate's deflection shape at one frequency (JAX
-        ``Problem.getModePicture``): not ported yet."""
-        raise NotImplementedError(
-            "getModePicture is not ported yet (ROADMAP Queue 1, item D.4: "
-            "a host LU of one frequency and a lazy matplotlib plot).")
+        """Deflection-magnitude contour at one frequency (reference
+        Problem.py:521-608, JAX ``Problem.getModePicture``): the vertex |w|
+        of ``mode_field`` drawn on the mesh with matplotlib (imported here,
+        and only here).  ``use_freefem`` selects the reference's FreeFEM
+        window; there is no FreeFEM process, so it warns and draws the same
+        field with matplotlib.  Returns the vertex values."""
+        if use_freefem:
+            warnings.warn(
+                "use_freefem=True: no FreeFEM process in this framework; "
+                "rendering the same P1 deflection field with matplotlib "
+                "instead", stacklevel=2)
+        vertex_vals = self.mode_field(freq, params)
+
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            ax = plt.gca()
+        tri = self.mesh.to_matplotlib_tri()
+        cf = ax.tricontourf(tri, vertex_vals, 2000, cmap="coolwarm",
+                            norm="symlog", antialiased=False)
+        ax.set_aspect("equal")
+        plt.colorbar(cf, ax=ax, orientation="horizontal", location="bottom",
+                     pad=0.05)
+        self.mesh.plot(ax=ax, alpha=0.4)
+        ax.axis("off")
+        return vertex_vals
 
     def getSolutionMatrices(self, D, beta):
         """Flat (K_real, K_imag, MInertia) data of the symmetric path for
@@ -1090,11 +1383,21 @@ class Problem:
                             freq_chunk: int | None = None,
                             jac_mode: str = "auto") -> ResidualFunction:
         """Vector-residual factory for Gauss-Newton
-        (``optimize.optimize_gauss_newton``); the adjoint Jacobian, see
-        :class:`ResidualFunction`."""
+        (``optimize.optimize_gauss_newton``), see :class:`ResidualFunction`.
+        ``freq_chunk`` bounds the forward-mode Jacobian's memory for large
+        sweeps x many parameters; left None, the forward mode of a scalar
+        kind takes ``_auto_freq_chunk(lanes=1 + p)`` (None below 300k
+        pattern entries, as in the JAX package).  ``jac_mode``: 'adjoint' |
+        'fwd' | 'auto'."""
         assert np.shape(frequencies)[0] == np.shape(reference_fr)[0]
         self._check_band(frequencies)
         core, opdata = self.getFRCore()
+        adjoint_selected = (jac_mode in ("auto", "adjoint")
+                            and kind in ("log_afc", "afc")
+                            and _has_adjoint_hooks(core))
+        if freq_chunk is None and kind != "complex" and not adjoint_selected:
+            freq_chunk = self._auto_freq_chunk(
+                lanes=1 + len(np.asarray(self.parameters)))
         return ResidualFunction(core, opdata, frequencies, reference_fr,
                                 kind, scaling_params, freq_chunk=freq_chunk,
                                 jac_mode=jac_mode)
@@ -1106,22 +1409,31 @@ class Problem:
                      use_constraints: bool = False, report: bool = True,
                      log: bool = True, case_name: str = "", uid: str = None,
                      extra_info: str = "", **opt_kwargs) -> optResult:
-        """Inverse solve from an initial guess (reference Problem.py:641-914)
-        by Gauss-Newton ('gn' / 'gauss_newton') on the adjoint Jacobian, or
-        by the first-order host loops on the loss gradient: gradient
-        descent ('gd' / 'grad_descent'), coordinate descent ('cd' /
-        'coord_descent') and its adaptive-step variant ('cd_mem' /
-        'coord_descent_mem', ``optimize_cd_mem2`` as in the JAX package).
-        ``compression=(True, k)`` first reduces the reference FRF to k
-        points (``io.compress.Compressor``, algorithm ``comp_alg``).
+        """Inverse solve from an initial guess or bounds (reference
+        Problem.py:641-914, JAX ``Problem.solveInverse``).
 
-        ``arg0`` is a 1-D start point: absolute, or with ``use_rel``
+        Optimizers: Gauss-Newton ('gn' / 'gauss_newton') on the residual's
+        Jacobian (MSE / RMSE run the 'complex' residual, its forward-mode
+        Jacobian), trust region ('trust_region' / 'tr') and damped Newton
+        ('newton') on the loss Hessian, 'lbfgs', gradient descent ('gd' /
+        'grad_descent'), coordinate descent ('cd' / 'coord_descent') and
+        its adaptive-step variant ('cd_mem' / 'coord_descent_mem',
+        ``optimize_cd_mem2`` as in the JAX package), and scipy's global
+        optimizers 'de' (differential evolution) and 'shgo' (whose local
+        minimizer gets the loss gradient and Hessian; ``use_constraints``
+        passes the material's constraints).  ``compression=(True, k)``
+        first reduces the reference FRF to k points
+        (``io.compress.Compressor``, algorithm ``comp_alg``).
+
+        ``arg0`` is a 1-D start point — absolute, or with ``use_rel``
         relative corrections on the Problem's own parameters, theta_0 =
-        (1 + arg0) * parameters.  ``use_scaling`` iterates on O(1)
-        variables (theta / theta_0).  ``report`` prints and writes the
-        text report, ``log`` the ``.npz`` history, both under
-        ``utils.paths.get_output_dir()``.  Returns an :class:`optResult`
-        with host numpy iterates.
+        (1 + arg0) * parameters — or, for 'de' and 'shgo', a 2-D (p, 2)
+        bounds box.  ``use_scaling`` iterates on O(1) variables: theta /
+        theta_0, or each box row over its largest magnitude.  ``report``
+        prints and writes the text report, ``log`` the ``.npz`` history,
+        both under ``utils.paths.get_output_dir()``.  Returns an
+        :class:`optResult` with host numpy iterates in physical units, or
+        scipy's ``OptimizeResult`` with the same fields added.
         """
         if ref_fr is None:
             ref_fr = getattr(self, "reference_fr", None)
@@ -1138,21 +1450,21 @@ class Problem:
         if len(compression) != 2:
             raise ValueError("`compression` tuple should have 2 elements, "
                              f"not {len(compression)}.")
-        from ..optimize import (
-            optimize_cd, optimize_cd_mem2, optimize_gauss_newton, optimize_gd)
+        from scipy.optimize import OptimizeResult, differential_evolution, shgo
 
-        local = {"gauss_newton": "GN", "gn": "GN",
+        from ..optimize import (
+            optimize_cd, optimize_cd_mem2, optimize_gauss_newton, optimize_gd,
+            optimize_lbfgs, optimize_newton, optimize_trust_region)
+
+        local = {"trust_region": optimize_trust_region,
+                 "tr": optimize_trust_region,
+                 "gauss_newton": "GN", "gn": "GN",
                  "coord_descent": optimize_cd, "cd": optimize_cd,
                  "coord_descent_mem": optimize_cd_mem2,
                  "cd_mem": optimize_cd_mem2,
-                 "grad_descent": optimize_gd, "gd": optimize_gd}
-        if optimizer not in local:
-            if optimizer in ("trust_region", "tr", "newton", "lbfgs", "de",
-                             "shgo"):
-                raise NotImplementedError(
-                    f"Optimizer {optimizer!r} is not ported yet (ROADMAP "
-                    "Queue 1, item D); the port runs 'gn', 'gd', 'cd' and "
-                    "'cd_mem'.")
+                 "grad_descent": optimize_gd, "gd": optimize_gd,
+                 "newton": optimize_newton, "lbfgs": optimize_lbfgs}
+        if optimizer not in local and optimizer not in ("de", "shgo"):
             raise ValueError(f"Optimizer type `{optimizer}` is not supported!")
         if compression[0]:
             from ..io.compress import Compressor
@@ -1160,62 +1472,115 @@ class Problem:
             comp = Compressor(ref_fr[0], ref_fr[1], compression[1], comp_alg)
             ref_fr[0], ref_fr[1] = comp(compression[1])
 
+        # a 1-D arg0 is a start point — absolute, or with use_rel relative
+        # corrections on the Problem's own parameters; a 2-D arg0 is a
+        # per-parameter bounds box for the global optimizers.  use_scaling
+        # iterates on O(1) variables while the loss multiplies the scale
+        # back in (JAX Problem.solveInverse)
         guess = np.asarray(arg0, dtype=np.float64)
+        scaling_params = None
         if guess.ndim == 2:
-            raise NotImplementedError(
-                "A 2-D bounds box is the start of the global optimizers "
-                "('de', 'shgo'), which are not ported yet (ROADMAP Queue 1, "
-                "item D).")
-        if guess.ndim != 1:
+            x0_bds = guess
+            if use_scaling:
+                # each bounds row maps to O(1) by its largest magnitude
+                scaling_params = np.max(np.abs(guess), axis=1)
+                x0_bds = guess / scaling_params[:, None]
+        elif guess.ndim == 1:
+            if use_rel:
+                base = getattr(self, "parameters", None)
+                if base is None:
+                    raise ValueError(
+                        "use_rel=True reads arg0 as relative corrections on "
+                        "the Problem's own parameter vector, but this "
+                        "Problem carries none (material built without "
+                        "parameters).")
+                factors = guess + 1.0
+                start = np.asarray(base, np.float64) * factors
+            else:
+                factors = None
+                start = guess
+            if use_scaling:
+                scaling_params = start
+                x0_bds = factors if use_rel else np.ones_like(start)
+            else:
+                x0_bds = start
+        else:
             raise ValueError("arg0 must be a 1-D start point or a 2-D bounds "
                              f"box; got ndim={guess.ndim}.")
-        if use_rel:
-            base = getattr(self, "parameters", None)
-            if base is None:
-                raise ValueError(
-                    "use_rel=True reads arg0 as relative corrections on the "
-                    "Problem's own parameter vector, but this Problem "
-                    "carries none (material built without parameters).")
-            factors = guess + 1.0
-            start = np.asarray(base, np.float64) * factors
-        else:
-            factors = None
-            start = guess
-        if use_scaling:
-            scaling_params = start
-            x0 = factors if use_rel else np.ones_like(start)
-        else:
-            scaling_params = np.ones_like(start)
-            x0 = start
 
-        if local[optimizer] == "GN":
-            kind = {"MSE": "complex", "RMSE": "complex", "MSE_AFC": "afc",
-                    "MSE_LOG_AFC": "log_afc"}.get(loss_type)
-            if kind is None:
-                raise ValueError(
-                    f'Function type "{loss_type}" is not supported!')
-            objective = self.getResidualFunction(
-                ref_fr[0], ref_fr[1], kind=kind,
-                scaling_params=scaling_params if use_scaling else None)
-            optimizer_func = optimize_gauss_newton
-        else:
-            objective = self.getLossFunction(
-                ref_fr[0], ref_fr[1], loss_type,
-                scaling_params if use_scaling else None)
+        loss = self.getLossFunction(ref_fr[0], ref_fr[1], loss_type,
+                                    scaling_params)
+        # the report and the constraints want a filled scaling array; a
+        # bounds box carries it once per bound column
+        if scaling_params is None:
+            scaling_params = np.ones_like(x0_bds)
+        elif x0_bds.ndim == 2:
+            scaling_params = np.repeat(scaling_params[:, None], 2, axis=1)
+        scale_1d = (scaling_params if scaling_params.ndim == 1
+                    else scaling_params[:, 0])
+
+        if optimizer in local:
             optimizer_func = local[optimizer]
+            if optimizer_func == "GN":
+                kind = {"MSE": "complex", "RMSE": "complex",
+                        "MSE_AFC": "afc", "MSE_LOG_AFC": "log_afc"}.get(
+                            loss_type)
+                if kind is None:
+                    raise ValueError(
+                        f'Function type "{loss_type}" is not supported!')
+                resfn = self.getResidualFunction(
+                    ref_fr[0], ref_fr[1], kind=kind,
+                    scaling_params=None if np.all(scale_1d == 1.0)
+                    else scale_1d)
+
+                def optimizer_func(_loss, x0, **kw):
+                    return optimize_gauss_newton(resfn, x0, **kw)
+        else:
+            # scipy calls the objective and its derivatives with numpy
+            # points and wants host numbers back
+            def objective(x):
+                return float(loss(x))
+
+            run = differential_evolution if optimizer == "de" else shgo
+            if optimizer == "shgo":
+                if use_constraints:
+                    opt_kwargs["constraints"] = self.material.get_constraints(
+                        scale_1d)
+                options = opt_kwargs.get("options", {})
+                options["jac"] = lambda x: _numpy(loss.grad(x))
+                options["hess"] = lambda x: _numpy(loss.hessian(x))
+                opt_kwargs["options"] = options
+
+            def optimizer_func(_loss, bounds, **kw):
+                return run(objective, bounds, **kw)
 
         t_start = time.perf_counter()
-        result = optimizer_func(objective, x0, **opt_kwargs)
+        result = optimizer_func(loss, x0_bds, **opt_kwargs)
         elapsed = (time.perf_counter() - t_start) / 60
-        if use_scaling:
-            result = result._replace(x=result.x * scaling_params)
+        x_scale = (scaling_params if scaling_params.ndim == 1
+                   else scaling_params[:, 1])
+        if optimizer in ("de", "shgo"):
+            if use_scaling:
+                result = OptimizeResult(dict(result) | {
+                    "x": result["x"] * x_scale})
+            # scipy results in optResult's fields (reference
+            # Problem.py:855-863)
+            result.f = result.fun
+            result.x_history = list(result.population if optimizer == "de"
+                                    else result.xl)
+            result.f_history = [-1.0]
+            result.status = result.message
+            result.niter = result.nit
+        elif use_scaling:
+            result = result._replace(x=result.x * x_scale)
 
         full_str = case_name + (default_uid() if uid is None else uid)
         if report:
             rel_err1 = rel_err2 = "Unknown"
             if getattr(self, "parameters", None) is not None:
                 params0 = np.array(self.parameters)
-                rel_err1 = (np.array(x0) * scaling_params - params0) / params0
+                if guess.ndim != 2:
+                    rel_err1 = (x0_bds * scaling_params - params0) / params0
                 rel_err2 = (np.array(result.x) - params0) / params0
 
             def a2s(s):
@@ -1229,11 +1594,12 @@ class Problem:
                 comp_str = (f"Using compression algorithm {comp_alg} with "
                             f"{compression[1]} points.\n")
             f0 = result.f_history[0] if len(result.f_history) else float("nan")
+            s_pa_bd = "parameters" if guess.ndim == 1 else "bounds"
             rep_str = (
                 f"{self.accelerometer}\n{self.material}\n{self.geometry}\n"
                 + extra_info
                 + comp_str
-                + f"Starting parameters: {a2s(np.asarray(x0) * scaling_params)}.\n"
+                + f"Starting {s_pa_bd}: {a2s(x0_bds * scaling_params)}.\n"
                 f"With relative error: {a2s(rel_err1)}.\n"
                 f"Initial loss: {f0}.\n"
                 f"Elapsed time: {elapsed} min.\n"

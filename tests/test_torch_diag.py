@@ -86,12 +86,10 @@ def test_diagnose_sweep_matches_jax(steel, point):
     assert np.all(np.abs(dt["fr"] - ref) <= 1e-6 * np.abs(ref))
 
 
-@pytest.mark.parametrize("call", ["chunk", "n_modes", "polish_peaks",
-                                  "getModePicture", "hessian"])
+@pytest.mark.parametrize("call", ["chunk", "n_modes", "polish_peaks"])
 def test_api_gaps_raise_not_implemented(call):
     parts = _steel(pt)
-    item = {"chunk": "F.13", "n_modes": "F.13", "polish_peaks": "F.17",
-            "getModePicture": "D.4", "hessian": "item D"}[call]
+    item = {"chunk": "F.13", "n_modes": "F.13", "polish_peaks": "F.17"}[call]
     with pytest.raises(NotImplementedError, match=item):
         if call == "chunk":
             pt.Problem(*parts, device="cpu", chunk=8)
@@ -99,13 +97,7 @@ def test_api_gaps_raise_not_implemented(call):
             pt.Problem(*parts, device="cpu", n_modes=12)
         else:
             p = pt.Problem(*parts, device="cpu", cpu=4)   # accepted, unused
-            if call == "polish_peaks":
-                p.solveForward(FREQS, polish_peaks=True)
-            elif call == "getModePicture":
-                p.getModePicture(150.0)
-            else:
-                p.getLossFunction(FREQS, np.ones(FREQS.size),
-                                  "MSE").hessian(p.parameters)
+            p.solveForward(FREQS, polish_peaks=True)
 
 
 @pytest.fixture(scope="module")

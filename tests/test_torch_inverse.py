@@ -319,51 +319,8 @@ def test_solve_inverse_writes_report_and_log(setup, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# (8) what is not ported raises
+# (8) unknown options raise
 # ---------------------------------------------------------------------------
-
-def _unported_calls():
-    def solve(**kw):
-        def call(pp, ref, th0):
-            args = {"arg0": th0, "loss_type": "MSE_LOG_AFC",
-                    "optimizer": "gn", "ref_fr": (FREQS, ref),
-                    "report": False, "log": False} | kw
-            return pp.solveInverse(**args)
-        return call
-
-    calls = {
-        "jac_mode_fwd": lambda pp, ref, th0: pp.getResidualFunction(
-            FREQS, ref, jac_mode="fwd"),
-        "kind_complex": lambda pp, ref, th0: pp.getResidualFunction(
-            FREQS, ref, kind="complex"),
-        "freq_chunk": lambda pp, ref, th0: pp.getResidualFunction(
-            FREQS, ref, freq_chunk=4),
-        "hessian": lambda pp, ref, th0: pp.getLossFunction(
-            FREQS, ref, "MSE").hessian(th0),
-        "value_grad_hessian": lambda pp, ref, th0: pp.getLossFunction(
-            FREQS, ref, "MSE").value_grad_hessian(th0),
-        "loss_MSE_in_gn": solve(loss_type="MSE"),
-        "bounds_box": lambda pp, ref, th0: solve()(
-            pp, ref, np.stack([0.9 * th0, 1.1 * th0], axis=1)),
-        "joint_residual_fwd": lambda pp, ref, th0: pt.JointResidual(
-            [lambda x: x]).value_and_jac(th0),
-        "gn_plain_callable": lambda pp, ref, th0: pt.optimize_gauss_newton(
-            lambda x: x, th0),
-    }
-    for opt in ("trust_region", "tr", "newton", "lbfgs", "de", "shgo"):
-        calls[f"optimizer_{opt}"] = solve(optimizer=opt)
-    return calls
-
-
-_UNPORTED = _unported_calls()
-
-
-@pytest.mark.parametrize("name", sorted(_UNPORTED))
-def test_unported_inverse_options_raise(setup, name):
-    _, pp, truth, ref = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _UNPORTED[name](pp, ref, truth * START)
-
 
 def test_unknown_inverse_options_raise_value_error(setup):
     _, pp, truth, ref = setup

@@ -1,12 +1,16 @@
-"""The first-order optimizers (port ``optimize/local.py``), FRF compression
-(port ``io/compress.py``) and ``Problem.solveInverse`` with them, held
-against the JAX package on the CPU.
+"""The optimizers (port ``optimize/local.py``, ``optimize/second_order.py``),
+FRF compression (port ``io/compress.py``) and ``Problem.solveInverse``
+with the first-order methods, held against the JAX package on the CPU.
 
-The optimizers run host loops in the port and compiled scans in the JAX
-package; on the same analytic objectives (a Rosenbrock valley and a
-quadratic, the same formula in torch and in jax.numpy) from numpy-seeded
-starts every history (x, f, gradient) agrees to 1e-12 and ``niter`` and
-``status`` are equal, a run that converges early included.  The
+The optimizers run host loops in the port and compiled scans (or optax's
+L-BFGS) in the JAX package; on the same analytic objectives (a Rosenbrock
+valley and a quadratic, the same formula in torch and in jax.numpy) from
+numpy-seeded starts every history (x, f, gradient) agrees to 1e-12 and
+``niter`` and ``status`` are equal, a run that converges early included.
+L-BFGS on the Rosenbrock valley is held to 1e-10: its zoom line search
+interpolates cubics through values that differ by rounding between the
+two implementations (numpy's and XLA's dot orders), and 26 steps along
+the curved valley amplify that to 6.5e-12 in x.  The
 ``Compressor`` copy gives JAX's output bit for bit on a port FRF.  Through
 ``solveInverse`` on the ``symm`` ny = 1 plate (n = 420) each gradient-
 descent step is x - h g with g from the port's ``LossFunction.grad`` (held
@@ -19,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+import plate_inverse_problem_tpu.optimize as jopt
 import plate_inverse_problem_tpu.optimize.local as jlocal
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu.io.compress import Compressor as JCompressor
 from plate_inverse_problem_tpu_torch.io.compress import Compressor
+from plate_inverse_problem_tpu_torch import optimize as topt
 from plate_inverse_problem_tpu_torch.optimize import local as tlocal
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -55,19 +61,28 @@ CASES = {
                       dict(N_steps=30, h=4e-3)),
     "cd_mem2-quad-early": ("optimize_cd_mem2", "quad", 3,
                            dict(N_steps=100, h=0.45, f_min=1e-8)),
+    # the second-order methods stop at f < 1e-16 (trust region) or f <=
+    # f_min (Newton, L-BFGS)
+    "tr-rosen": ("optimize_trust_region", "rosen", 2,
+                 dict(N_steps=60, delta_max=1.0)),
+    "newton-quad-early": ("optimize_newton", "quad", 3, dict(N_steps=5)),
+    "lbfgs-rosen": ("optimize_lbfgs", "rosen", 2, dict(N_steps=40)),
+    # optax.lbfgs's own keyword arguments, which the JAX function passes
+    # through: a memory shorter than the run, no initial scaling
+    "lbfgs-m2-noscale-quad-early": ("optimize_lbfgs", "quad", 3, dict(
+        N_steps=30, memory_size=2, scale_init_precond=False)),
 }
 
 
-def _assert_same(rt, rj):
-    """Histories to 1e-12 of their scale, the same niter and status."""
+def _assert_same(rt, rj, tol=1e-12):
+    """Histories to ``tol`` of their scale, the same niter and status."""
     assert rt.niter == rj.niter and rt.status == rj.status
     for name in ("f_history", "x_history", "grad_history"):
         a, b = (np.asarray(getattr(r, name)) for r in (rt, rj))
         assert a.shape == b.shape, name
-        assert np.abs(a - b).max() <= 1e-12 * max(np.abs(b).max(), 1.0), name
-    np.testing.assert_allclose(rt.x, np.asarray(rj.x), rtol=1e-12,
-                               atol=1e-12)
-    np.testing.assert_allclose(rt.f, rj.f, rtol=1e-12, atol=1e-15)
+        assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1.0), name
+    np.testing.assert_allclose(rt.x, np.asarray(rj.x), rtol=tol, atol=tol)
+    np.testing.assert_allclose(rt.f, rj.f, rtol=tol, atol=1e-15)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -76,12 +91,13 @@ def test_optimizer_histories_match_jax(case):
     x0 = np.random.default_rng(len(case)).uniform(-1.0, 1.0, dim)
     fj = rosen if obj == "rosen" else quad(jnp)
     ft = rosen if obj == "rosen" else quad(torch)
-    rj = getattr(jlocal, opt)(fj, jnp.asarray(x0), **kw)
-    rt = getattr(tlocal, opt)(ft, x0, **kw)
-    _assert_same(rt, rj)
+    rj = getattr(jopt, opt)(fj, jnp.asarray(x0), **kw)
+    rt = getattr(topt, opt)(ft, x0, **kw)
+    _assert_same(rt, rj, 1e-10 if case == "lbfgs-rosen" else 1e-12)
     if case.endswith("early"):
         assert rt.status == "Converged"
-        assert len(rt.f_history) < kw["N_steps"] * (1 if "gd" in opt else dim)
+        assert len(rt.f_history) < kw["N_steps"] * (dim if "cd" in opt
+                                                    else 1)
 
 
 def test_fixed_parameter_function_matches_jax():
