@@ -111,6 +111,34 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    loss, ``de`` and ``shgo`` on a bounds box; (d) the ``getModePicture``
    field at the first resonance against the sweep's own w (MODE_TOL).
 
+11. the modal and direct engines (``[engines]``), each on the card
+   through K3 and torch.linalg: (a) the bench plate through
+   ``engine="modal"`` and ``engine="direct"`` (chunk 16): construction, a
+   first and a steady sweep with peak memory (the modal basis, eigh and
+   Rayleigh polish, is built once per theta in the first), the checksum
+   against BENCH_CHECKSUM and splu at bench.py's four points, two steady
+   sweeps and gradients bit for bit, the direct sweep at chunk 3 bit for
+   bit the chunk-16 one, K3 launches > 0 in the modal sweep;
+   the engines' library calls (the generalized eigh, eigh, a chunk's
+   complex128 LUs and solves) timed beside their bounds, and K3 at the
+   polish's shape (L = n lanes) against its plain version and the library
+   call; (b) from truth x START, each engine's MSE_LOG_AFC gradient
+   against the mixed engine's (ENG_GRAD_RTOL / ENG_GRAD_ATOL; K3 launches
+   > 0), ``ResidualFunction("log_afc")`` resolving to the forward mode
+   with J against the mixed adjoint J (FWD_J_RTOL / FWD_J_ATOL) and
+   ``jac_mode="adjoint"`` raising ValueError, the modal Hessian against
+   the mixed one (HESS_SYM_TOL, HESS_FD_TOL of the column max) and
+   Gauss-Newton through the modal engine to GN_TOL; (c) OrthotropicD4
+   through the direct engine, splu at 4 points incl. the peak; (d) a
+   frequency-dependent loss factor asked for with the modal engine: the
+   RuntimeWarning, the direct engine, the per-frequency splu, and its
+   sweep of three frequencies against Problems with beta pinned to
+   beta(omega_i), each at its frequency (FD_PIN_TOL); (e) pure
+   bending (n = 956) through both engines against splu; (f)
+   ``examples/basics.py``'s workflow through the modal engine against the
+   JAX package's CPU run (BASICS_JAX); (g) the modal engine at n = 11910:
+   construction, the basis, the sweeps, splu at 4 points.
+
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 
@@ -270,6 +298,28 @@ SO_TOL = 1e-4
 GN_MSE_FIT = 1e-7
 # (d) the getModePicture field against the sweep's own w DOFs
 MODE_TOL = 1e-6
+# phase 11: the modal and direct engines.  (b) the MSE_LOG_AFC gradient
+# through each engine against the mixed engine's, entrywise: the JAX
+# package's own bound for that comparison (tests/test_problem.py:221-236)
+ENG_CHUNK = 16
+ENG_CHUNK_ALT = 3      # (a) the direct sweep's bits at another chunk
+ENG_GRAD_RTOL = 1e-5
+ENG_GRAD_ATOL = 1e-13
+# (d) tests/test_problem.py's frequency-dependent damping, beta0 (1 +
+# omega / FD_OMEGA_REF) at beta0 = FD_BETA0, and its pinned-beta check
+FD_OMEGA_REF = 2.0 * np.pi * 300.0
+FD_BETA0 = 0.01
+FD_PIN_FREQS = (80.0, 150.0, 300.0)
+FD_PIN_TOL = 1e-9
+# (f) examples/basics.py's four sums from the JAX package's own CPU run of
+# the script (its default CPU engine, modal; the symm template's default
+# mesh, n = 3150): JAX_PLATFORMS=cpu python3 .probes/basics_jax.py
+BASICS_JAX = {"FR": 144.7110698446815, "Initial": 99.08788960014357,
+              "After": 99.08834915978969, "F_hist": 0.15227839599368673}
+BASICS_TOL = 1e-6
+# the f64 tensor-core rate of an H100 SXM (NVIDIA's data sheet), the peak
+# of the engines' library calls (LAPACK-style factorisations on the card)
+F64_TC_FLOPS = 67e12
 # phase 9 (e): the script of examples/edp_import.py
 EDP_SCRIPT = """
 // a plate with a circular hole, clamped on its RIGHT border (label 2 --
@@ -565,7 +615,7 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
-    """Phases 2-9 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-11 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources`` / ``ab_csr_sources``: other versions of K1 / K3 to time
     beside them (A/B only)."""
     import torch
@@ -679,7 +729,21 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     s6 = slice6(dev, p, freqs, fr, ab_csr)
     summary_s = time.perf_counter() - t_phases
     print(f"[time] phases 2-9 in {summary_s:.1f} s", flush=True)
-    s8 = slice8(dev, p, freqs, fr, kept.pop("d4"))
+    # phases 10 and 11 both run before a failed check of either raises
+    failed = []
+    try:
+        s8 = slice8(dev, p, freqs, fr, kept.pop("d4"))
+    except AssertionError as err:
+        failed.append(str(err))
+    t11 = time.perf_counter()
+    try:
+        eng = engines(dev)
+    except AssertionError as err:
+        failed.append(str(err))
+    eng_s = time.perf_counter() - t11
+    print(f"[time] phase 11 in {eng_s:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(" || ".join(failed))
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
               "sweep_21k": k3_sweep_regimes,
               "rj_21k": inv["k3_rj_by_regime"],
@@ -700,17 +764,20 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                **inv, "dense": dense, "families": fam,
                "slice6": {k: v for k, v in s6.items() if k != "k3"},
                "slice8": {k: v for k, v in s8.items()
-                          if k not in ("k1", "k3")}}
+                          if k not in ("k1", "k3")},
+               "engines": {k: v for k, v in eng.items() if k != "k3"}}
     summary["phases_s"] = time.perf_counter() - t_phases
     summary["phases_2_9_s"] = summary_s
-    print(f"[time] phases 2-10 in {summary['phases_s']:.1f} s (phase 10: "
-          f"{summary['phases_s'] - summary_s:.1f} s)", flush=True)
+    summary["phase_11_s"] = eng_s
+    print(f"[time] phases 2-11 in {summary['phases_s']:.1f} s (phase 10: "
+          f"{summary['phases_s'] - summary_s - eng_s:.1f} s, phase 11: "
+          f"{eng_s:.1f} s)", flush=True)
     k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
                 "grad_21k": inv["k3_grad"],
                 "dense_sweep_1466": dense["bench"]["k3"],
                 "rj_1466": dense["bench_inverse"]["k3_rj"],
                 "grad_1466": dense["bench_inverse"]["k3_grad"],
-                **s6["k3"]["by_path"], **s8["k3"]}
+                **s6["k3"]["by_path"], **s8["k3"], **eng["k3"]}
     if not all(v > 0 for v in k3_paths.values()):
         raise AssertionError(f"K3 launched no time on a path: {k3_paths}")
     print(f"[summary] {json.dumps(summary)}", flush=True)
@@ -737,7 +804,8 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
         "source": "plate_inverse_problem_tpu_torch/csrc/csr_mv.cu",
         "replaces": "plate_inverse_problem_tpu/ops/mixed.py:651 (not Pallas)",
         "launches": s6["k3"]["launches"],
-        "launches_by_path": k3_paths,
+        "launches_by_path": k3_paths | {
+            "direct_sweep_1466": eng["k3_direct_sweep_1466"]},
         "launches_by_regime": census,
         "data_grad": s8["data_grad"],
         **{k: s6["k3"]["headline"][k] for k in (
@@ -1408,7 +1476,7 @@ def load_ab_csr(source: str):
 
 
 def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
-                ab=(), ones: bool = False) -> dict:
+                ab=(), ones: bool = False, tag: str = "[slice6] (a)") -> dict:
     """K3 vs its plain version on random data (S, nnz) and x (L, n) from a
     numpy seed (x = 1 with ``ones``, the panels' row sums) on the pattern
     ``csr``; two launches must agree bit for bit, and so must the A/B
@@ -1481,7 +1549,7 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
                      if k.endswith("_ms") and k not in (
                          "ms", "plain_ms", "library_ms", "flushed_ms",
                          "bound_ms"))
-    print(f"[slice6] (a) K3 {label}: {dtype} S={S} L={L} n={n} nnz={nnz} "
+    print(f"{tag} K3 {label}: {dtype} S={S} L={L} n={n} nnz={nnz} "
           f"({kind})  max|dy|={max_abs:.3e} rel={rec['rel_err']:.3e} (tol "
           f"{CSR_TOL[dtype]}), two launches identical: {same}"
           + (f", A/B identical: {ab_same}" if ab else "")
@@ -1539,7 +1607,8 @@ def k3_cases(p21, ab=()) -> dict:
     return {"cases": recs, "headline": recs[0]}
 
 
-def determinism(p, freqs, fr_ref, label: str) -> dict:
+def determinism(p, freqs, fr_ref, label: str,
+                tag: str = "[slice6] (b)") -> dict:
     """Phase 9 (b): two steady sweeps and two MSE_LOG_AFC gradients (at
     theta_0 = truth x START against ``fr_ref``) on ``p`` are bit-identical."""
     th0 = np.asarray(p.parameters, np.float64) * np.asarray(START)
@@ -1550,7 +1619,7 @@ def determinism(p, freqs, fr_ref, label: str) -> dict:
            "grads_identical": bool(np.array_equal(*grads)),
            "sweep_max_diff": float(np.abs(sweeps[0] - sweeps[1]).max()),
            "grad_max_diff": float(np.abs(grads[0] - grads[1]).max())}
-    print(f"[slice6] (b) {label}: two steady sweeps identical "
+    print(f"{tag} {label}: two steady sweeps identical "
           f"{rec['sweeps_identical']} (max diff {rec['sweep_max_diff']:.3e}),"
           f" two gradients identical {rec['grads_identical']} (max diff "
           f"{rec['grad_max_diff']:.3e})", flush=True)
@@ -1978,6 +2047,21 @@ def count_data_grad(csr_kernel, calls):
     return orig
 
 
+def data_grad_bound_ms(gy, x, csr) -> tuple[float, str]:
+    """Least time of ``_data_grad(gy, x, csr)`` (K3's reverse mode) on an
+    H100 SXM: gy (S, ..., n) and x (..., n) read once, the pattern's row
+    and column indices (int64) read once and the (S, nnz) result written
+    once, at HBM_BPS, against 2 FLOP a nonzero, operator and lane at
+    F64_FLOPS."""
+    S, nnz = gy.shape[0], csr.nnz
+    lanes = x.numel() // csr.n
+    t_bytes = (gy.numel() * gy.element_size() + x.numel() * x.element_size()
+               + 2 * nnz * 8 + S * nnz * gy.element_size()) / HBM_BPS
+    t_ops = 2.0 * S * lanes * nnz / F64_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def cuda_event_ms(fn, reps: int = 20) -> float:
     """Mean time of ``fn`` on the card over ``reps`` calls, by CUDA events,
     after a warm-up call."""
@@ -2026,9 +2110,11 @@ def second_order_1466(dev, freqs) -> dict:
     data = torch.ones((gy.shape[0], csr.nnz), dtype=gy.dtype,
                       device=gy.device)
     t_k3 = cuda_event_ms(lambda: csr_kernel.csr_mv(data, xg, csr, seg))
+    dg_bound, dg_by = data_grad_bound_ms(gy, xg, csr)
     dg_rec = {"ms": t_dg, "k3_ms_same_shape": t_k3,
               "calls_per_hessian": n_dg, "gy_shape": list(gy.shape),
-              "x_shape": list(xg.shape), "nnz": csr.nnz}
+              "x_shape": list(xg.shape), "nnz": csr.nnz,
+              "bound_ms": dg_bound, "bound_by": dg_by}
     sym = float(np.abs(H - H.T).max() / np.abs(H).max())
 
     def fd_col(j):
@@ -2050,7 +2136,8 @@ def second_order_1466(dev, freqs) -> dict:
     print(f"{tag} _data_grad (K3's reverse mode, plain torch): "
           f"{n_dg} calls a Hessian, gy {dg_rec['gy_shape']}, x "
           f"{dg_rec['x_shape']}: {t_dg:.4f} ms each; K3 on the same shapes "
-          f"(csr_mv of ones): {t_k3:.4f} ms", flush=True)
+          f"(csr_mv of ones): {t_k3:.4f} ms; bound {dg_bound:.4f} ms "
+          f"({dg_by})", flush=True)
     failed = []
     if not sym <= HESS_SYM_TOL:
         failed.append(f"Hessian asymmetry {sym:.3e}")
@@ -2166,6 +2253,456 @@ def slice8(dev, p21, freqs, fr21, kept_d4) -> dict:
         raise AssertionError(f"K1 launched no time on a 21k path: {k1}")
     return {"fwd_21k": a, "fwd_d4": b, "bench": c, "k1": k1, "k3": k3,
             "data_grad": c.pop("data_grad")}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the modal and direct engines
+# ---------------------------------------------------------------------------
+
+def freq_dep_material(beta0: float):
+    """tests/test_problem.py's omega-dependent damping in the port: beta0 (1
+    + omega / FD_OMEGA_REF) on isotropic steel, on both paths."""
+    import torch
+
+    import plate_inverse_problem_tpu_torch as pt
+
+    class FreqDepIsotropic(pt.Isotropic):
+        def abd_split(self, params, h, omega=0.0):
+            b = params[2] * (1.0 + omega / FD_OMEGA_REF)
+            return super().abd_split(torch.stack([params[0], params[1], b]),
+                                     h)
+
+        def d_split(self, params, h, omega=0.0):
+            b = params[2] * (1.0 + omega / FD_OMEGA_REF)
+            return super().d_split(torch.stack([params[0], params[1], b]), h)
+
+    return FreqDepIsotropic(7920.0, E=200e9, G=75e9, beta=beta0)
+
+
+def flat_stiffness(p, od):
+    """(K_re, K_im) flat data of ``p`` at its own parameters, as its core
+    forms them."""
+    import torch
+
+    th = torch.as_tensor(np.asarray(p.parameters, np.float64),
+                         device=p.device)
+    h = p.geometry.height
+    if p.is_symmetric_path:
+        re, im = p.material.d_split(th, h)
+        return (torch.einsum("k,kn->n", re, od["Ks"]),
+                torch.einsum("k,kn->n", im, od["Ks"]))
+    (Ar, Ai), (Br, Bi), (Dr, Di) = p.material.abd_split(th, h)
+    return (torch.einsum("mk,mkn->n", torch.stack([Ar, Br, Dr]), od["ABD"]),
+            torch.einsum("mk,mkn->n", torch.stack([Ai, Bi, Di]), od["ABD"]))
+
+
+def engine_ctor(dev, refine: float, engine: str, label: str, tag: str,
+                **kw):
+    """Build a Problem on the ``engine`` and its core; print the ctor
+    line."""
+    import torch
+
+    t0 = time.perf_counter()
+    p = sh_i_problem(dev, refine, engine=engine, **kw)
+    core, od = p.getFRCore()
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    print(f"{tag} {label}: engine {core.engine}, n_free={p.n_free} nnz="
+          f"{p.op.pattern.nnz}; construction {ctor_s:.3f} s (host assembly,"
+          " transfers)", flush=True)
+    return p, {"n_free": p.n_free, "nnz": int(p.op.pattern.nnz),
+               "ctor_s": ctor_s}
+
+
+def engine_library(p, freqs, tag: str, lu: bool = True,
+                   reps: int = 3) -> dict:
+    """The engines' library calls on ``p``'s data, by CUDA events, each with
+    its bound: the generalized eigh (Cholesky, two triangular solves, eigh,
+    one back solve; ops/spectral.py) and ``torch.linalg.eigh`` alone, and
+    one chunk of ENG_CHUNK dense complex128 LUs and their solves, a matrix
+    a call as ops/sweep.py runs them (and the LUs as one batched call
+    beside; ``lu=False`` leaves the LU out: at n = 11910 a chunk
+    of 16 dense complex matrices would take 36 GB).  ``reps`` timed calls
+    after a warm-up one.  Operations (real FLOPs): eigh 4/3 n^3 (tridiagonal
+    reduction) + 2 n^3 (back-transformation), Cholesky n^3 / 3, each
+    triangular solve with n right-hand sides n^3; a complex LU 8/3 n^3, its
+    solve 8 n^2 a right-hand side; all at F64_TC_FLOPS.  Bytes: inputs read
+    and outputs written once at HBM_BPS."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import spectral, sweep
+    from plate_inverse_problem_tpu_torch.ops.scatter import to_dense
+
+    od = p.getFRCore()[1]
+    n = p.n_free
+    K_re, K_im = flat_stiffness(p, od)
+    Kd = to_dense(K_re, od["rows"], od["cols"], n)
+    Md = to_dense(od["MIn"], od["rows"], od["cols"], n)
+    Kd, Md = 0.5 * (Kd + Kd.T), 0.5 * (Md + Md.T)
+    n3 = float(n) ** 3
+    cases = {
+        "generalized_eigh": (lambda: spectral.generalized_eigh(Kd, Md),
+                             (4 / 3 + 2 + 1 / 3 + 3) * n3, 3 * n * n * 8),
+        "eigh": (lambda: torch.linalg.eigh(Md), (4 / 3 + 2) * n3,
+                 2 * n * n * 8),
+    }
+    if lu:
+        om = 2.0 * np.pi * torch.as_tensor(freqs[:ENG_CHUNK],
+                                           device=p.device)
+        A = sweep.dense_operator(K_re, K_im, od["MIn"], om, od["rows"],
+                                 od["cols"], n)
+        b = torch.ones(ENG_CHUNK, n, 1, dtype=A.dtype, device=p.device)
+        LU, piv = torch.linalg.lu_factor(A)
+        one = range(ENG_CHUNK)
+        cases |= {
+            # as the engine calls them, a matrix at a time, and the same
+            # LUs as one batched call (another routine on the card)
+            "lu_factor_chunk": (lambda: [torch.linalg.lu_factor(
+                A[i:i + 1]) for i in one], ENG_CHUNK * 8 / 3 * n3,
+                2 * A.numel() * 16),
+            "lu_factor_chunk_one_batch": (
+                lambda: torch.linalg.lu_factor(A), ENG_CHUNK * 8 / 3 * n3,
+                2 * A.numel() * 16),
+            "lu_solve_chunk": (lambda: [torch.linalg.lu_solve(
+                LU[i:i + 1], piv[i:i + 1], b[i:i + 1]) for i in one],
+                ENG_CHUNK * 8.0 * n * n, (LU.numel() + 2 * b.numel()) * 16),
+        }
+    rec = {}
+    for name, (fn, ops, nbytes) in cases.items():
+        ms = cuda_event_ms(fn, reps=reps)
+        t_ops, t_bytes = ops / F64_TC_FLOPS, nbytes / HBM_BPS
+        bound = 1e3 * max(t_ops, t_bytes)
+        rec[name] = {"ms": ms, "bound_ms": bound,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+        print(f"{tag} library call {name} at n={n}"
+              + (f", chunk {ENG_CHUNK}" if "lu" in name else "")
+              + f": {ms:.3f} ms (CUDA events), bound {bound:.4f} ms "
+              f"({rec[name]['bound_by']}), at {100 * bound / ms:.2f} % of "
+              "it", flush=True)
+    return rec
+
+
+def engine_bench(dev, freqs, engine: str, mixed: dict) -> dict:
+    """Phase 11 (a) and (b) on the bench plate through ``engine``."""
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+
+    tag = f"[engines] (a) {engine}"
+    p, rec = engine_ctor(dev, 1.0, engine, "bench sh_i refine=1", tag,
+                         chunk=ENG_CHUNK)
+    failed = []
+    rec |= timed_sweeps(p, freqs, "bench sweep", tag)
+    fr = rec.pop("fr")
+    if engine == "modal":
+        rec["basis_build_s"] = p._basis_build_s
+        print(f"{tag} the basis (eigh + Rayleigh polish, once per theta, in "
+              f"the first sweep): {p._basis_build_s:.3f} s", flush=True)
+    checksum = float(np.abs(fr).sum())
+    cs_rel = abs(checksum - BENCH_CHECKSUM) / BENCH_CHECKSUM
+    print(f"{tag} FRF checksum {checksum!r} against the JAX CPU run's "
+          f"{BENCH_CHECKSUM!r} (its modal engine): rel {cs_rel:.3e} (tol "
+          f"{CHECKSUM_TOL})", flush=True)
+    if not cs_rel <= CHECKSUM_TOL:
+        failed.append(f"checksum rel {cs_rel:.3e}")
+    try:
+        rec["worst_rel_err"] = oracle_check(p, freqs, fr, peak_points(fr),
+                                            "bench points", tag)
+    except AssertionError as err:
+        failed.append(str(err))
+    rec["checksum"] = checksum
+    rec["determinism"] = det = determinism(p, freqs, mixed["fr"], "bench",
+                                           tag)
+    if not (det["sweeps_identical"] and det["grads_identical"]):
+        failed.append("not bit-reproducible")
+    if engine == "modal" and rec["k3"] <= 0:
+        failed.append("K3 launched no time in the modal sweep")
+    if engine == "direct":
+        # a lane's bits do not depend on which frequencies share its chunk
+        q = sh_i_problem(dev, 1.0, engine="direct", chunk=ENG_CHUNK_ALT,
+                         opdata=p.getFRCore()[1])
+        ok = bool(np.array_equal(q.solveForward(freqs).cpu().numpy(), fr))
+        rec["chunk_independent"] = ok
+        print(f"{tag} the sweep at chunk {ENG_CHUNK_ALT} against chunk "
+              f"{ENG_CHUNK}: identical {ok}", flush=True)
+        if not ok:
+            failed.append("a lane's bits depend on its chunk")
+
+    # ---- (b) the inverse API through the engine -----------------------
+    tag = f"[engines] (b) {engine}"
+    truth = np.asarray(p.parameters, np.float64)
+    th0 = truth * np.asarray(START)
+    csr_kernel.reset_launches()
+    (g,), (g_s,), _, _, k3_g = sync_times(lambda: p.getLossFunction(
+        freqs, mixed["fr"], "MSE_LOG_AFC").grad(th0).cpu().numpy(), 1)
+    g_dev = float(np.max(np.abs(g - mixed["g"])
+                         / (ENG_GRAD_RTOL * np.abs(mixed["g"])
+                            + ENG_GRAD_ATOL)))
+    rf = p.getResidualFunction(freqs, mixed["fr"], kind="log_afc")
+    outs, rj_s, rj_gb, _, k3_rj = sync_times(lambda: host(
+        rf.value_and_jac(th0)))
+    r, J = outs[-1]
+    J_dev = jac_dev(J, mixed["J"])
+    r_dev = float(np.abs(r - mixed["r"]).max() / np.abs(mixed["r"]).max())
+    try:
+        p.getResidualFunction(freqs, mixed["fr"], kind="log_afc",
+                              jac_mode="adjoint")
+        adj_raises = False
+    except ValueError:
+        adj_raises = True
+    rec |= {"grad_s": g_s, "grad_dev": g_dev, "k3_grad": k3_g,
+            "rj_fwd_s": rj_s, "rj_fwd_peak_gb": rj_gb, "k3_rj": k3_rj,
+            "jac_mode": rf.jac_mode, "J_dev": J_dev, "r_dev": r_dev,
+            "adjoint_raises": adj_raises}
+    print(f"{tag} MSE_LOG_AFC gradient at truth x {START} in {g_s:.3f} s, "
+          f"K3 {k3_g}: against the mixed engine's {g_dev:.3e} of (rtol "
+          f"{ENG_GRAD_RTOL}, atol {ENG_GRAD_ATOL}); ResidualFunction "
+          f"log_afc jac_mode {rf.jac_mode!r}: r + J first {rj_s[0]:.3f} s, "
+          f"steady {rj_s[1]:.3f} s, peak {rj_gb:.2f} GB, K3 {k3_rj}; J vs "
+          f"the mixed adjoint J {J_dev:.3e} of the tolerance (FWD_J_RTOL / "
+          f"FWD_J_ATOL), r {r_dev:.3e} of max |r|; jac_mode='adjoint' "
+          f"raises ValueError: {adj_raises}", flush=True)
+    if not g_dev <= 1.0:
+        failed.append(f"gradient {g_dev:.3e} of the tolerance")
+    if rf.jac_mode != "fwd" or not J_dev <= 1.0 or not adj_raises:
+        failed.append(f"jac_mode {rf.jac_mode}, J {J_dev:.3e}, adjoint "
+                      f"raises {adj_raises}")
+    if k3_g <= 0:
+        failed.append("K3 launched no time in the gradient")
+    if engine == "modal":
+        loss = p.getLossFunction(freqs, mixed["fr"], "MSE_LOG_AFC",
+                                 scaling_params=th0)
+        (H,), (h_s,), _, _, _ = sync_times(
+            lambda: loss.hessian(np.ones(truth.size)).cpu().numpy(), 1)
+        Hm = mixed["H"]
+        cols = [float(np.abs(H[:, j] - Hm[:, j]).max()
+                      / np.abs(Hm[:, j]).max()) for j in range(truth.size)]
+        sym = float(np.abs(H - H.T).max() / np.abs(H).max())
+        print(f"{tag} Hessian at x = theta / theta_0 = 1 in {h_s:.3f} s: "
+              f"asymmetry {sym:.3e} of max (tol {HESS_SYM_TOL}); columns "
+              f"vs the mixed engine's {', '.join(f'{c:.3e}' for c in cols)}"
+              f" of the column max (tol {HESS_FD_TOL})", flush=True)
+        rec |= {"hessian_s": h_s, "hessian_asym": sym,
+                "hessian_vs_mixed": cols}
+        if not (sym <= HESS_SYM_TOL and max(cols) <= HESS_FD_TOL):
+            failed.append(f"Hessian asym {sym:.3e}, vs mixed {cols}")
+        (res,), (s,), _, _, _ = sync_times(lambda: p.solveInverse(
+            th0, "MSE_LOG_AFC", "gn", ref_fr=(freqs, fr),
+            use_scaling=True, N_steps=GN_STEPS, report=False, log=False), 1)
+        err = (np.abs(res.x) - truth) / truth
+        it = max(len(res.f_history), 1)
+        print(f"{tag} solveInverse 'gn' (MSE_LOG_AFC, its own FRF at the "
+              f"truth) from truth x {START}: {len(res.f_history)} iterations "
+              f"in {s:.3f} s ({s / it:.3f} s/iter), status {res.status}; rel "
+              f"err (|beta|) {', '.join(f'{e:+.3e}' for e in err)} (tol "
+              f"{GN_TOL}); basis builds so far {p._modal_builds}", flush=True)
+        rec["gn"] = {"s": s, "iters": len(res.f_history), "s_per_iter":
+                     s / it, "rel_err": [float(e) for e in err]}
+        if not np.all(np.abs(err) <= GN_TOL):
+            failed.append(f"gn ends {err} from the truth")
+        rec["library"] = engine_library(p, freqs, "[engines] (a)")
+        # K3 at the polish's shape: the two flat operators on the n basis
+        # vectors as lanes
+        csr = csr_kernel.build_csr(p.getFRCore()[1]["rows"],
+                                   p.getFRCore()[1]["cols"], p.n_free)
+        rec["k3_polish"] = compare_csr(csr, 2, p.n_free, "f64",
+                                       "modal polish (L = n)", 11,
+                                       tag="[engines] (a)")
+    if failed:
+        raise AssertionError(f"[engines] (a)-(b) {engine}: "
+                             + "; ".join(failed))
+    return rec
+
+
+def engine_d4(dev, freqs) -> dict:
+    """Phase 11 (c): OrthotropicD4 through the direct engine."""
+    import plate_inverse_problem_tpu_torch as pt
+
+    tag = "[engines] (c)"
+    d4 = pt.get_material(7920.0, "orthotropic_d4", **D4)
+    p, rec = engine_ctor(dev, 1.0, "direct", "OrthotropicD4 bench", tag,
+                         mat=d4, chunk=ENG_CHUNK)
+    rec |= timed_sweeps(p, freqs, "sweep", tag)
+    fr = rec.pop("fr")
+    rec["worst_rel_err"] = oracle_check(p, freqs, fr, peak_points(fr),
+                                        "4 points incl. the peak", tag)
+    return rec
+
+
+def engine_freq_dep(dev, freqs) -> dict:
+    """Phase 11 (d): a frequency-dependent material asked for with the
+    modal engine: the warning, the direct engine, the per-frequency splu,
+    and the JAX package's pinned-beta check: the three frequencies in one
+    sweep against Problems with beta pinned to beta(omega_i), each at its
+    frequency (tests/test_problem.py:485-507)."""
+    import warnings
+
+    import plate_inverse_problem_tpu_torch as pt
+
+    tag = "[engines] (d)"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        p, rec = engine_ctor(dev, 1.0, "modal", "beta0 (1 + omega / "
+                             "omega_ref), asked for with engine='modal'",
+                             tag, mat=freq_dep_material(FD_BETA0),
+                             chunk=ENG_CHUNK)
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)
+              and "frequency-dependent" in str(w.message)]
+    engine = p.getFRCore()[0].engine
+    print(f"{tag} RuntimeWarning: {warned[0] if warned else None!r}; the "
+          f"core's engine {engine!r}", flush=True)
+    if not warned or engine != "direct":
+        raise AssertionError(f"{tag}: warned {warned}, engine {engine}")
+    rec |= timed_sweeps(p, freqs, "sweep", tag)
+    fr = rec.pop("fr")
+    rec["worst_rel_err"] = oracle_check(
+        p, freqs, fr, peak_points(fr), "4 points incl. the peak (the "
+        "transform at each frequency)", tag)
+    y_fd = p.solveForward(np.asarray(FD_PIN_FREQS)).cpu().numpy()
+    theta = np.asarray(p.parameters, np.float64)
+    pins = []
+    for i, f in enumerate(FD_PIN_FREQS):
+        b_i = FD_BETA0 * (1.0 + 2.0 * np.pi * f / FD_OMEGA_REF)
+        q = sh_i_problem(dev, 1.0, mat=pt.get_material(
+            7920.0, "isotropic", E=200e9, G=75e9, beta=b_i),
+            engine="direct", opdata=p.getFRCore()[1])
+        y_i = q.solveForward([f], [theta[0], theta[1], b_i]).cpu().numpy()
+        pins.append(float(abs(y_fd[i] - y_i[0]) / abs(y_i[0])))
+    print(f"{tag} the sweep of {FD_PIN_FREQS} Hz against Problems with beta "
+          f"pinned to beta(omega_i), each at its frequency: rel "
+          f"{', '.join(f'{x:.3e}' for x in pins)} (tol {FD_PIN_TOL})",
+          flush=True)
+    rec["pinned_rel"] = pins
+    if not max(pins) <= FD_PIN_TOL:
+        raise AssertionError(f"{tag}: pinned-beta check {pins}")
+    return rec
+
+
+def engine_bending(dev, freqs) -> dict:
+    """Phase 11 (e): the pure-bending path through both engines."""
+    tag = "[engines] (e)"
+    out = {}
+    for engine in ("modal", "direct"):
+        p, rec = engine_ctor(dev, 1.0, engine, "pure bending sh_i "
+                             "refine=1", tag, accel=False, chunk=ENG_CHUNK)
+        rec |= timed_sweeps(p, freqs, f"{engine} sweep", tag)
+        fr = rec.pop("fr")
+        if not (p.is_symmetric_path and np.iscomplexobj(fr)):
+            raise AssertionError(f"{tag}: not the pure-bending path")
+        rec["worst_rel_err"] = oracle_check(
+            p, freqs, fr, peak_points(fr), f"{engine}, 4 points incl. the "
+            "peak", tag)
+        out[f"bending_{engine}"] = rec
+        del p
+    return out
+
+
+def engine_basics(dev) -> dict:
+    """Phase 11 (f): examples/basics.py's workflow through the port's modal
+    engine, its four sums against the JAX package's CPU run (BASICS_JAX)."""
+    import torch
+
+    import plate_inverse_problem_tpu_torch as pt
+
+    tag = "[engines] (f)"
+    t0 = time.perf_counter()
+    acc = pt.Accelerometer("AP1030")
+    geom = pt.Geometry("symm", acc,
+                       pt.GeometryParams(100e-3, 20e-3, 2e-3, 10e-3, None))
+    mat = pt.get_material(7920.0, "isotropic", E=200 * 1e9, G=75 * 1e9,
+                          beta=0.003)
+    p = pt.Problem(geom, mat, acc, device=dev, engine="modal")
+    N = 50
+    freq = np.linspace(40, 600, N)
+    fr = p.solveForward(freq).cpu().numpy()
+    p0 = [0.1, 0.1, 0.2]
+    res = p.solveInverseLocal(
+        p0, "MSE_LOG_AFC", "grad_descent", ref_fr=[freq, fr],
+        compression=(False, N), use_rel=True, report=False, log=False,
+        N_steps=2, h=0.001, f_min=1e-5)
+    r1 = p.solveForward(freq, (np.array(p0) + 1) * p.parameters)
+    r2 = p.solveForward(freq, res.x)
+    sums = {"FR": float(np.abs(fr).sum()),
+            "Initial": float(np.abs(r1.cpu().numpy()).sum()),
+            "After": float(np.abs(r2.cpu().numpy()).sum()),
+            "F_hist": float(np.abs(res.f_history).sum())}
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    rel = {k: abs(v - BASICS_JAX[k]) / abs(BASICS_JAX[k])
+           for k, v in sums.items()}
+    print(f"{tag} examples/basics.py (symm, n={p.n_free}, modal) in {s:.3f}"
+          " s: " + "; ".join(f"{k} {v!r} (rel {rel[k]:.3e} to the JAX CPU "
+                             "run's)" for k, v in sums.items())
+          + f" (tol {BASICS_TOL})", flush=True)
+    if not max(rel.values()) <= BASICS_TOL:
+        raise AssertionError(f"{tag}: sums {sums} vs {BASICS_JAX}")
+    return {"n_free": p.n_free, "s": s, "sums": sums, "rel": rel}
+
+
+def engine_scale(dev, freqs) -> dict:
+    """Phase 11 (g): the modal engine at n = 11910: construction, the basis
+    (eigh and polish) in the first sweep, a steady sweep, splu at 4
+    points."""
+    tag = "[engines] (g)"
+    p, rec = engine_ctor(dev, 3.0, "modal", "sh_i refine=3", tag)
+    rec |= timed_sweeps(p, freqs, "sweep", tag)
+    fr = rec.pop("fr")
+    rec["basis_build_s"] = p._basis_build_s
+    print(f"{tag} the basis (eigh + Rayleigh polish) in the first sweep: "
+          f"{p._basis_build_s:.3f} s", flush=True)
+    rec["worst_rel_err"] = oracle_check(p, freqs, fr, peak_points(fr),
+                                        "4 points incl. the peak", tag)
+    rec["library"] = engine_library(p, freqs, tag, lu=False, reps=1)
+    return rec
+
+
+def engines(dev) -> dict:
+    """Phase 11 on ``dev``: (a)-(b) the bench plate through the modal and
+    the direct engine, forward and inverse, against the mixed engine's
+    derivatives; (c)-(e) the other plates and materials; (f) the basics
+    workflow; (g) the modal engine at n = 11910.  Every part runs before a
+    failed check of any of them raises.  Returns the numbers for [summary]
+    and K3's launches by path under "k3"."""
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    p = sh_i_problem(dev, 1.0)
+    truth = np.asarray(p.parameters, np.float64)
+    th0 = truth * np.asarray(START)
+    fr = p.solveForward(freqs).cpu().numpy()
+    mixed = {"fr": fr,
+             "g": p.getLossFunction(freqs, fr, "MSE_LOG_AFC").grad(
+                 th0).cpu().numpy(),
+             "H": p.getLossFunction(freqs, fr, "MSE_LOG_AFC",
+                                    scaling_params=th0).hessian(
+                 np.ones(truth.size)).cpu().numpy()}
+    mixed["r"], mixed["J"] = host(p.getResidualFunction(
+        freqs, fr, kind="log_afc").value_and_jac(th0))
+    del p
+    failed = []
+
+    def run(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as err:
+            failed.append(str(err))
+            return None
+
+    out = {"modal": run(engine_bench, dev, freqs, "modal", mixed),
+           "direct": run(engine_bench, dev, freqs, "direct", mixed),
+           "d4_direct": run(engine_d4, dev, freqs),
+           "freq_dep": run(engine_freq_dep, dev, freqs),
+           "bending": run(engine_bending, dev, freqs),
+           "basics": run(engine_basics, dev),
+           "scale": run(engine_scale, dev, freqs)}
+    if failed:
+        raise AssertionError("phase 11 failed: " + " | ".join(failed))
+    out["k3"] = {"modal_sweep_1466": out["modal"]["k3"],
+                 "modal_grad_1466": out["modal"]["k3_grad"],
+                 "modal_rj_fwd_1466": out["modal"]["k3_rj"],
+                 "direct_grad_1466": out["direct"]["k3_grad"],
+                 "direct_rj_fwd_1466": out["direct"]["k3_rj"],
+                 "modal_sweep_11910": out["scale"]["k3"]}
+    out["k3_direct_sweep_1466"] = out["direct"]["k3"]
+    return out
 
 
 if __name__ == "__main__":

@@ -1,18 +1,23 @@
 """plate_inverse_problem_tpu_torch — the PyTorch / CUDA port of
 ``plate_inverse_problem_tpu`` for NVIDIA Hopper (H100).
 
-It runs the mixed engine end to end on its three tiers, for every material
+It runs the JAX package's three sweep engines: the mixed engine end to
+end on its three tiers, and the modal (one generalized eigh per parameter
+set) and direct (chunked dense LU) engines, which take frequency-dependent
+materials too (``Problem(engine=...)``; ``engine=None`` picks as the JAX
+package does for the device).  Every engine runs every material
 family (isotropic, orthotropic, orthotropic with a loss factor per modulus,
-and the simple orthotropic laminates) and on both plate paths: the 3-field
+and the simple orthotropic laminates) on both plate paths: the 3-field
 laminate operator with the accelerometer readout, and the pure-bending
 operator of a mid-plane symmetric plate without an accelerometer, read at
-its test point.  The operator runs on the flat pattern or in the RCM
-block-tridiagonal layout, in an f64 FGMRES sweep with an f32 complement
-preconditioner (the dense inverse of the reference stiffness up to 12288
-DOF, above it a two-grid cycle whose band matvec is a hand-written CUDA
-kernel, ``csrc/band_mv.cu``); the flat-pattern operator is a second
-hand-written kernel, ``csrc/csr_mv.cu``, which sums in one fixed order, so
-a sweep gives the same bits in every run.  The inverse problem runs on it:
+its test point.  The mixed engine's operator runs on the flat pattern or
+in the RCM block-tridiagonal layout, in an f64 FGMRES sweep with an f32
+complement preconditioner (the dense inverse of the reference stiffness
+up to 12288 DOF, above it a two-grid cycle whose band matvec is a
+hand-written CUDA kernel, ``csrc/band_mv.cu``); the flat-pattern operator
+of every engine is a second hand-written kernel, ``csrc/csr_mv.cu``,
+which sums in one fixed order, so a sweep gives the same bits in every
+run.  The inverse problem runs on it:
 the adjoint and the forward-mode (tangent) sweeps, the loss with its
 gradient and Hessian, the adjoint and forward-mode Gauss-Newton
 Jacobians, ``Problem.solveInverse`` by Gauss-Newton, trust region,

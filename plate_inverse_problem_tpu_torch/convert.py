@@ -1,9 +1,12 @@
 """Operator data from the JAX package, for holding the port against it.
 
 ``opdata_from_jax`` takes the JAX ``Problem.getFRCore()[1]`` pytree (or its
-numpy form) of any path and tier the port runs (3-field or symmetric; flat
-or band layout; dense or two-grid preconditioner) and returns the port's
-tensor dict.  Handing the JAX band basis ``W64`` to the port removes
+numpy form) of any engine, path and tier the port runs (mixed, modal or
+direct; 3-field or symmetric; flat or band layout; dense or two-grid
+preconditioner) and returns the port's tensor dict.  The modal and direct
+engines read exactly the operator data every engine shares (the pattern,
+``MIn``, ``fIn`` and the path's stacks, lifts and readout rows), so their
+JAX opdata converts under the same keys.  Handing the JAX band basis ``W64`` to the port removes
 ARPACK's random start vector from the comparison, so any difference left is
 the port's.  The JAX ``trc`` entry (the material transform's constants,
 such as a laminate's Q -> (A, B, D) maps, hoisted into the pytree for XLA)

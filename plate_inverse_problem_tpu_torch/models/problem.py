@@ -1,27 +1,32 @@
 """Problem: geometry + material + accelerometer -> FRF sweep on a device.
 
-Port of the JAX package's ``models/problem.py`` for the mixed engine on
-both of its paths — the 3-field (laminate) path with the accelerometer-disk
-readout, and the symmetric pure-bending path (a mid-plane symmetric
-material and no accelerometer) with its complex test-point readout — and
-its three tiers: the flat f64 operator with the dense preconditioner (n <
-8192), the RCM block-tridiagonal f64 operator with the dense
-preconditioner (8192 <= n <= 12288) or with the two-grid f32
-preconditioner (n > 12288).  Every material family runs, per-modulus loss
-factors included.  Operator data is a plain dict of tensors under the JAX
-opdata's key names; ``getFRCore`` returns a plain function of (freqs,
+Port of the JAX package's ``models/problem.py`` with its three engines —
+mixed (the default: band Rayleigh-Ritz start and preconditioned FGMRES),
+modal (one generalized eigh per parameter set) and direct (chunked dense
+LU) — on both of its paths: the 3-field (laminate) path with the
+accelerometer-disk readout, and the symmetric pure-bending path (a
+mid-plane symmetric material and no accelerometer) with its complex
+test-point readout.  The mixed engine has three tiers: the flat f64
+operator with the dense preconditioner (n < 8192), the RCM
+block-tridiagonal f64 operator with the dense preconditioner (8192 <= n <=
+12288) or with the two-grid f32 preconditioner (n > 12288).  Every
+material family runs, per-modulus loss factors included; a material whose
+transform depends on the frequency runs through the direct engine (any
+other engine warns and falls back to it, as in the JAX package).  The
+three engines share the operator data, the coefficient chain, the
+right-hand side, the residual map through K3 and the readouts, and differ
+only in their solve.  Operator data is a plain dict of tensors under the
+JAX opdata's key names; ``getFRCore`` returns a plain function of (freqs,
 params, opdata).  ``Problem(spath=...)`` reads a ``setup.json`` folder,
 whose geometry may be a template, a FreeFEM ``.edp`` script or a ``.msh``
-mesh.  ``diagnoseSweep`` returns the sweep's per-frequency convergence
-signal; ``solveInverse`` runs Gauss-Newton, trust region, Newton, L-BFGS,
-gradient and coordinate descent and scipy's global optimizers, on a
-compressed reference FRF if asked; ``getModePicture`` draws the
-deflection shape at one frequency from a host LU solve.
+mesh.  ``diagnoseSweep`` returns the mixed sweep's per-frequency
+convergence signal; ``solveInverse`` runs Gauss-Newton, trust region,
+Newton, L-BFGS, gradient and coordinate descent and scipy's global
+optimizers, on a compressed reference FRF if asked; ``getModePicture``
+draws the deflection shape at one frequency from a host LU solve.
 
 Options that resolve to what this port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item; nothing falls back.  The
-JAX package runs a material whose transform depends on the frequency
-through its direct engine; the port has none, so it refuses one.
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -104,7 +109,13 @@ _ADJOINT_HOOKS = ("sweep_u", "sweep_adj", "apply_res", "readout_ui")
 
 
 def _has_adjoint_hooks(core) -> bool:
-    return all(hasattr(core, a) for a in _ADJOINT_HOOKS)
+    """Whether ``jac_mode='adjoint'`` takes ``core``: the JAX package's
+    mixed-engine cores expose the adjoint hooks, its modal and direct cores
+    do not.  Every port core carries the hooks (the implicit rules of the
+    gradient and the forward mode run through them), so its ``engine``
+    answers for the public predicate."""
+    return (getattr(core, "engine", "mixed") == "mixed"
+            and all(hasattr(core, a) for a in _ADJOINT_HOOKS))
 
 
 # what the forward-mode r + J holds across its sweeps (the primal and
@@ -530,11 +541,14 @@ class Problem:
                                         # parity; unused
         spath: str | os.PathLike = None,
         device: torch.device | str = "cuda",   # "cpu" on request
-        engine: str | None = "mixed",   # the mixed engine only
+        engine: str | None = "mixed",   # 'mixed' | 'modal' | 'direct';
+                                        # None: the JAX package's choice
+                                        # for the device (_engine)
         chunk: int = 16,                # the direct engine's frequency
-                                        # chunk (not ported)
+                                        # chunk (distinct frequencies
+                                        # factored at once)
         n_modes: int | None = None,     # the modal engine's truncation
-                                        # (not ported)
+                                        # (None: the full basis)
         f_max: float = 600.0,           # band edge of the basis [Hz]
         n_refine: int = 16,             # TOTAL Krylov budget
         k_cycle: int | None = None,     # FGMRES cycle length (None = 8)
@@ -556,15 +570,9 @@ class Problem:
     ):
         if (geometry, accel, material, spath) == (None,) * 4:
             raise ValueError("Cannot create a Problem object without arguments.")
-        if engine not in (None, "mixed"):
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet (ROADMAP Queue 1, item "
-                "13: other engines); the port runs the mixed engine.")
-        if chunk != 16 or n_modes is not None:
-            raise NotImplementedError(
-                "chunk= and n_modes= set the direct and modal engines, which "
-                "are not ported yet (ROADMAP Queue 1, item F.13: other "
-                "engines); the port runs the mixed engine.")
+        if engine not in (None, "mixed", "modal", "direct"):
+            raise ValueError(f"Unknown sweep engine {engine!r}; use "
+                             "'modal'/'direct'/'mixed'.")
         if precond not in ("auto", "dense", "mg"):
             raise ValueError(f"Unknown precond {precond!r}; valid options: "
                              "'auto', 'dense', 'mg'.")
@@ -578,6 +586,9 @@ class Problem:
             raise NotImplementedError(
                 "basis='lobpcg' is not ported yet (ROADMAP Queue 1, item 12).")
         self.device = torch.device(device)
+        self.engine = engine
+        self.chunk = int(chunk)
+        self.n_modes = n_modes
         self.f_max = f_max
         self.n_refine = n_refine
         self.k_cycle = k_cycle
@@ -773,13 +784,40 @@ class Problem:
             memo = self._fr_core_memo = self._build_fr_core()
         return memo
 
+    def _engine(self) -> str:
+        """The requested engine, or for ``engine=None`` the JAX package's
+        choice with the Problem's device in place of its backend: on the
+        CPU the modal engine for a scalar loss factor and the direct engine
+        for per-modulus loss factors (both exact in f64), on the card the
+        mixed engine."""
+        if self.engine is not None:
+            return self.engine
+        if self.device.type == "cpu":
+            return "modal" if self.material.scalar_loss_factor else "direct"
+        return "mixed"
+
+    def _resolve_engine(self) -> str:
+        """The engine ``getFRCore`` builds: the requested or default one
+        after the frequency-dependent-material fallback (only the direct
+        engine evaluates the material transform at each frequency)."""
+        engine = self._engine()
+        if engine != "direct" and self._transform_is_freq_dependent():
+            return "direct"
+        return engine
+
     def _build_fr_core(self):
-        if self._transform_is_freq_dependent():
-            raise NotImplementedError(
-                "The material transform depends on the frequency; the mixed "
-                "engine builds its operator once per sweep, and the direct "
-                "engine that takes such a material is not ported yet "
-                "(ROADMAP Queue 1, item 13: other engines).")
+        # a custom material may depend on omega (the reference evaluates
+        # transform(theta, omega) at every frequency, Problem.py:397-399);
+        # only the direct engine takes that: modal assumes a constant real
+        # pencil and mixed builds its operator once per sweep
+        engine = self._resolve_engine()
+        if engine != self._engine():
+            warnings.warn(
+                f"Material transform is frequency-dependent; engine "
+                f"{self._engine()!r} assumes a frequency-constant operator "
+                f"— falling back to engine='direct'.", RuntimeWarning)
+        freq_dep = (engine == "direct"
+                    and self._transform_is_freq_dependent())
         op = self.op
         n = op.n_free
         # symmetric diagonal equilibration S = diag(1/sqrt(|K_ii(theta_ref)|))
@@ -793,7 +831,9 @@ class Problem:
         scale_vec = 1.0 / np.sqrt(dvals)
         self._eq_scale = scale_vec
         ss = scale_vec[op.pattern.rows] * scale_vec[op.pattern.cols]
-        return self._mixed_core(K_ref, ss, scale_vec)
+        if engine == "mixed":
+            return self._mixed_core(K_ref, ss, scale_vec)
+        return self._factor_core(engine, ss, scale_vec, freq_dep)
 
     def _transform_is_freq_dependent(self) -> bool:
         """Host probe: does the material's split transform depend on omega?
@@ -839,12 +879,11 @@ class Problem:
         from ..ops.csr_kernel import build_csr
         from ..ops.dense import inv_refined
         from ..ops.mg import _dinv_lmax, _pin_dead, build_prolongation
-        from ..ops.mixed import band_basis_host, mixed_apply, mixed_sweep
+        from ..ops.mixed import band_basis_host, mixed_sweep
         from ..ops.scatter import to_dense
 
         op = self.op
         n = op.n_free
-        h = self.geometry.height
         dev = self.device
         symmetric = self.is_symmetric_path
 
@@ -930,51 +969,8 @@ class Problem:
         else:
             W64, _ = band_basis_host(K_ref_eq, M_eq, rows_h, cols_h, n,
                                      omega_max=2.0 * np.pi * self.f_max)
-            rows_d = torch.as_tensor(rows_h, dtype=torch.int64, device=dev)
-            cols_d = torch.as_tensor(cols_h, dtype=torch.int64, device=dev)
-            opdata = {
-                "rows": rows_d,
-                "cols": cols_d,
-                "MIn": t64(M_eq),
-                "fIn": t64(pvec(self.fInertia * scale_vec)),
-                "W64": t64(W64),
-            }
-            if symmetric:
-                opdata |= {
-                    "Ks": t64(op.Ks * ss[None, :]),                # (6, nnz)
-                    "fKs": t64(pvec(op.fKs * scale_vec[None, :])),
-                    "c": t64(pvec(op.interpolation_vector * scale_vec)),
-                    "c0": t64(op.interpolation_value_from_bc),
-                }
-            else:
-                acc = self.accelerometer
-                eff = acc.effective_height * acc.height
-
-                def row(name):
-                    R, r0 = op.readout[name]
-                    return np.asarray(R.mean(axis=0)), float(r0.mean())
-
-                cu, ou = row("u")
-                cv, ov = row("v")
-                cw, ow = row("w")
-                cwx, owx = row("wx")
-                cwy, owy = row("wy")
-                opdata |= {
-                    "ABD": t64(np.stack([
-                        op.mat_stack(["A" + s for s in MODULI_INDICES]),
-                        op.mat_stack(["B" + s for s in MODULI_INDICES]),
-                        op.mat_stack(["D" + s for s in MODULI_INDICES]),
-                    ]) * ss[None, None, :]),
-                    "fABD": t64(pvec(np.stack([
-                        op.lift_stack(["A" + s for s in MODULI_INDICES]),
-                        op.lift_stack(["B" + s for s in MODULI_INDICES]),
-                        op.lift_stack(["D" + s for s in MODULI_INDICES]),
-                    ]) * scale_vec[None, None, :])),
-                    "ru": t64(pvec((cu - eff * cwx) * scale_vec)),
-                    "rv": t64(pvec((cv - eff * cwy) * scale_vec)),
-                    "rw": t64(pvec(cw * scale_vec)),
-                    "r0": t64([ou - eff * owx, ov - eff * owy, ow]),
-                }
+            opdata = self._operator_data(ss, scale_vec, rows_h, cols_h, pvec)
+            opdata["W64"] = t64(W64)
             if layout is not None:
                 opdata["band_lin"] = torch.as_tensor(
                     layout.lin, dtype=torch.int64, device=dev)
@@ -1000,7 +996,8 @@ class Problem:
                 # Problem's device
                 t0 = time.perf_counter()
                 opdata["invK64"] = inv_refined(
-                    to_dense(t64(K_ref_eq), rows_d, cols_d, n))
+                    to_dense(t64(K_ref_eq), opdata["rows"], opdata["cols"],
+                             n))
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 self._inv_build_s = time.perf_counter() - t0
@@ -1020,41 +1017,10 @@ class Problem:
         # operator, the residual map and the panels' row sums on it
         csr = build_csr(opdata["rows"], opdata["cols"], n)
 
-        material = self.material
         # the scalar-loss families have K_im = beta K_re exactly; per-modulus
         # loss factors carry K_im as a third operator
-        ki_prop = bool(material.scalar_loss_factor)
+        ki_prop = bool(self.material.scalar_loss_factor)
         freq_chunk = self._auto_freq_chunk()
-
-        if symmetric:
-            def coefficients(params, od):
-                """(Re, Im) of the K/lift combination: the 6 bending
-                moduli against the (6, nnz) / (6, n) stacks."""
-                Dre, Dim = material.d_split(params, h)
-                return Dre, Dim, od["Ks"], od["fKs"], "k,kn->n"
-        else:
-            def coefficients(params, od):
-                (Are, Aim), (Bre, Bim), (Dre, Dim) = material.abd_split(
-                    params, h)
-                return (torch.stack([Are, Bre, Dre]),          # (3, 6)
-                        torch.stack([Aim, Bim, Dim]), od["ABD"], od["fABD"],
-                        "mk,mkn->n")
-
-        def stiffness(params, od):
-            """(K_re, K_im) flat data at ``params``."""
-            Cre, Cim, stack, _, eq = coefficients(params, od)
-            return torch.einsum(eq, Cre, stack), torch.einsum(eq, Cim, stack)
-
-        def assemble(freqs, params, od):
-            omegas = 2.0 * math.pi * freqs
-            Cre, Cim, stack, lifts, eq = coefficients(params, od)
-            K_re = torch.einsum(eq, Cre, stack)
-            K_im = torch.einsum(eq, Cim, stack)
-            bK_re = torch.einsum(eq, Cre, lifts)
-            bK_im = torch.einsum(eq, Cim, lifts)
-            B_re = bK_re[None, :] - (omegas ** 2)[:, None] * od["fIn"][None, :]
-            B_im = bK_im[None, :].expand_as(B_re)
-            return K_re, K_im, B_re, B_im, omegas
 
         def solve(K_re, K_im, B_re, B_im, omegas, od, adjoint,
                   diagnostics=False):
@@ -1077,6 +1043,197 @@ class Problem:
                     ki_proportional=ki_prop, k_cycle=self.k_cycle,
                     adjoint=adjoint, csr=csr, diagnostics=diagnostics)
 
+        return self._make_core("mixed", csr, solve), opdata
+
+    def _operator_data(self, ss: np.ndarray, scale_vec: np.ndarray,
+                       rows_h: np.ndarray, cols_h: np.ndarray,
+                       pvec: Callable = lambda v, axis=-1: v) -> dict:
+        """The operator data every engine reads, f64 tensors on the
+        Problem's device under the JAX opdata's keys: the pattern (rows,
+        cols), the equilibrated flat mass ``MIn`` and inertia lift ``fIn``,
+        and the path's stiffness stacks, lifts and readout rows (``Ks``,
+        ``fKs``, ``c``, ``c0``, or ``ABD``, ``fABD``, ``ru``, ``rv``,
+        ``rw``, ``r0``).  Flat data stays in the pattern's slot order; the
+        vectors go through ``pvec`` (the band layout's RCM permutation)."""
+        op = self.op
+        dev = self.device
+
+        def t64(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+        od = {
+            "rows": torch.as_tensor(rows_h, dtype=torch.int64, device=dev),
+            "cols": torch.as_tensor(cols_h, dtype=torch.int64, device=dev),
+            "MIn": t64(self.MInertia * ss),
+            "fIn": t64(pvec(self.fInertia * scale_vec)),
+        }
+        if self.is_symmetric_path:
+            return od | {
+                "Ks": t64(op.Ks * ss[None, :]),                # (6, nnz)
+                "fKs": t64(pvec(op.fKs * scale_vec[None, :])),
+                "c": t64(pvec(op.interpolation_vector * scale_vec)),
+                "c0": t64(op.interpolation_value_from_bc),
+            }
+        acc = self.accelerometer
+        eff = acc.effective_height * acc.height
+
+        def row(name):
+            R, r0 = op.readout[name]
+            return np.asarray(R.mean(axis=0)), float(r0.mean())
+
+        cu, ou = row("u")
+        cv, ov = row("v")
+        cw, ow = row("w")
+        cwx, owx = row("wx")
+        cwy, owy = row("wy")
+        return od | {
+            "ABD": t64(np.stack([
+                op.mat_stack(["A" + s for s in MODULI_INDICES]),
+                op.mat_stack(["B" + s for s in MODULI_INDICES]),
+                op.mat_stack(["D" + s for s in MODULI_INDICES]),
+            ]) * ss[None, None, :]),
+            "fABD": t64(pvec(np.stack([
+                op.lift_stack(["A" + s for s in MODULI_INDICES]),
+                op.lift_stack(["B" + s for s in MODULI_INDICES]),
+                op.lift_stack(["D" + s for s in MODULI_INDICES]),
+            ]) * scale_vec[None, None, :])),
+            "ru": t64(pvec((cu - eff * cwx) * scale_vec)),
+            "rv": t64(pvec((cv - eff * cwy) * scale_vec)),
+            "rw": t64(pvec(cw * scale_vec)),
+            "r0": t64([ou - eff * owx, ov - eff * owy, ow]),
+        }
+
+    def _factor_core(self, engine: str, ss: np.ndarray,
+                     scale_vec: np.ndarray, freq_dep: bool):
+        """Core + opdata of the modal or direct engine (JAX
+        ``_build_fr_core``): the shared operator data on the flat pattern in
+        its own order, and the engine's solve.  The modal basis is built
+        once per parameter set: a one-entry cache keyed on Re K's values,
+        which the primal, adjoint and tangent solves of one derivative
+        share."""
+        from ..ops.csr_kernel import build_csr
+        from ..ops.sweep import modal_basis, sweep_solve
+
+        op = self.op
+        n = op.n_free
+        dev = self.device
+        self._tier = None
+        self._band_layout = None
+        opdata = (self._given_opdata if self._given_opdata is not None
+                  else self._operator_data(ss, scale_vec, op.pattern.rows,
+                                           op.pattern.cols))
+        csr = build_csr(opdata["rows"], opdata["cols"], n)
+        ki_prop = bool(self.material.scalar_loss_factor)
+        cache = {}
+        self._modal_builds = 0
+
+        def basis_of(K_re, od):
+            key = K_re.detach()
+            if "key" in cache and torch.equal(cache["key"], key):
+                return cache["basis"]
+            cache.clear()
+            t0 = time.perf_counter()
+            basis = modal_basis(key, od["MIn"], od["rows"], od["cols"], n,
+                                self.n_modes, csr)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self._basis_build_s = time.perf_counter() - t0
+            self._modal_builds += 1
+            cache.update(key=key.clone(), basis=basis)
+            return basis
+
+        def solve(K_re, K_im, B_re, B_im, omegas, od, adjoint):
+            with torch.no_grad():
+                basis = basis_of(K_re, od) if engine == "modal" else None
+                return sweep_solve(
+                    K_re, K_im, od["MIn"], B_re, B_im, omegas, od["rows"],
+                    od["cols"], n, engine=engine, chunk=self.chunk,
+                    adjoint=adjoint, csr=csr,
+                    ki_proportional=ki_prop, basis=basis)
+
+        return self._make_core(engine, csr, solve, freq_dep), opdata
+
+    def _make_core(self, engine: str, csr, solve, freq_dep: bool = False):
+        """The FRF core around an engine's ``solve(K_re, K_im, B_re, B_im,
+        omegas, od, adjoint)``, with the hooks the implicit rules use: the
+        coefficient chain, the right-hand side, the residual map through K3
+        (``csr``, the pattern's CSR copy) and the readout are the same for
+        every engine.  ``freq_dep``: the material transform depends on
+        omega, so each lane has its own coefficients, (L, 3, 6) or (L, 6),
+        and operator rows (L, nnz) (the direct engine only)."""
+        from ..ops.mixed import mixed_apply
+        from ..ops.sweep import lane_apply
+
+        n = self.op.n_free
+        h = self.geometry.height
+        material = self.material
+        symmetric = self.is_symmetric_path
+        ki_prop = bool(material.scalar_loss_factor)
+
+        if symmetric:
+            def coefficients(params, od):
+                """(Re, Im) of the K/lift combination: the 6 bending
+                moduli against the (6, nnz) / (6, n) stacks."""
+                Dre, Dim = material.d_split(params, h)
+                return Dre, Dim, od["Ks"], od["fKs"], "k,kn->n"
+
+            def lane_coefficients(params, omegas, od):
+                """Per-lane (L, 6) moduli at each lane's omega, with the
+                (6, nnz) / (6, n) stacks."""
+                Dre, Dim = torch.func.vmap(
+                    lambda om: material.d_split(params, h, om))(omegas)
+                return Dre, Dim, od["Ks"], od["fKs"]
+        else:
+            def coefficients(params, od):
+                (Are, Aim), (Bre, Bim), (Dre, Dim) = material.abd_split(
+                    params, h)
+                return (torch.stack([Are, Bre, Dre]),          # (3, 6)
+                        torch.stack([Aim, Bim, Dim]), od["ABD"], od["fABD"],
+                        "mk,mkn->n")
+
+            def lane_coefficients(params, omegas, od):
+                """Per-lane (L, 18) A/B/D moduli at each lane's omega, with
+                the (18, nnz) / (18, n) stacks."""
+                (Are, Aim), (Bre, Bim), (Dre, Dim) = torch.func.vmap(
+                    lambda om: material.abd_split(params, h, om))(omegas)
+                L = omegas.shape[0]
+                return (torch.cat([Are, Bre, Dre], 1).reshape(L, 18),
+                        torch.cat([Aim, Bim, Dim], 1).reshape(L, 18),
+                        od["ABD"].reshape(18, -1), od["fABD"].reshape(18, -1))
+
+        def stiffness(params, od, omegas=None):
+            """(K_re, K_im) flat data at ``params``: (nnz,), or (L, nnz)
+            at the lanes' ``omegas`` for a frequency-dependent material."""
+            if freq_dep:
+                Cre, Cim, stack, _ = lane_coefficients(params, omegas, od)
+                return Cre @ stack, Cim @ stack
+            Cre, Cim, stack, _, eq = coefficients(params, od)
+            return torch.einsum(eq, Cre, stack), torch.einsum(eq, Cim, stack)
+
+        def assemble(freqs, params, od):
+            omegas = 2.0 * math.pi * freqs
+            if freq_dep:
+                Cre, Cim, stack, lifts = lane_coefficients(params, omegas, od)
+                B_re = Cre @ lifts - (omegas ** 2)[:, None] * od["fIn"][None, :]
+                return (Cre @ stack, Cim @ stack, B_re, Cim @ lifts, omegas)
+            Cre, Cim, stack, lifts, eq = coefficients(params, od)
+            K_re = torch.einsum(eq, Cre, stack)
+            K_im = torch.einsum(eq, Cim, stack)
+            bK_re = torch.einsum(eq, Cre, lifts)
+            bK_im = torch.einsum(eq, Cim, lifts)
+            B_re = bK_re[None, :] - (omegas ** 2)[:, None] * od["fIn"][None, :]
+            B_im = bK_im[None, :].expand_as(B_re)
+            return K_re, K_im, B_re, B_im, omegas
+
+        def rhs(freqs, params, od):
+            """b(theta) (B_re, B_im), each (F, n)."""
+            if freq_dep:
+                omegas = 2.0 * math.pi * freqs
+                Cre, Cim, _, lifts = lane_coefficients(params, omegas, od)
+                B_re = Cre @ lifts - (omegas ** 2)[:, None] * od["fIn"][None, :]
+                return B_re, Cim @ lifts
+            return assemble(freqs, params, od)[2:4]
+
         def sweep(freqs, params, od):
             """Primal sweep (U_re, U_im), each (F, n) f64, outside any
             autograd graph."""
@@ -1089,9 +1246,9 @@ class Problem:
             at frequency ``freqs[i]``: the tangent sweeps of the forward-
             mode derivatives run their p x F lanes through it as one
             batch."""
-            K_re, K_im = stiffness(params, od)
-            return solve(K_re, K_im, B_re, B_im, 2.0 * math.pi * freqs, od,
-                         adjoint)
+            omegas = 2.0 * math.pi * freqs
+            K_re, K_im = stiffness(params, od, omegas)
+            return solve(K_re, K_im, B_re, B_im, omegas, od, adjoint)
 
         def sweep_adj(freqs, params, od, G_re, G_im):
             """Adjoint sweep: conj(A) y = g per frequency, the transpose of
@@ -1102,9 +1259,14 @@ class Problem:
             """A(theta) U (``adjoint``: conj(A(theta)) U) at fixed U, each
             (L, n) f64, differentiable in ``params`` (forward and reverse
             mode): K_im enters with the opposite sign."""
+            omegas = 2.0 * math.pi * freqs
+            if freq_dep:
+                Cre, Cim, stack, _ = lane_coefficients(params, omegas, od)
+                return lane_apply(Cre, Cim, stack, od["MIn"], omegas, U_re,
+                                  U_im, csr, adjoint=adjoint)
             K_re, K_im = stiffness(params, od)
             return mixed_apply(K_re, -K_im if adjoint else K_im, od["MIn"],
-                               2.0 * math.pi * freqs, U_re, U_im, od["rows"],
+                               omegas, U_re, U_im, od["rows"],
                                od["cols"], n, ki_proportional=ki_prop,
                                csr=csr)
 
@@ -1112,7 +1274,7 @@ class Problem:
             """The residual map A(theta) U - b(theta) at fixed U, each
             (F, n) f64, differentiable in ``params`` (forward and reverse
             mode)."""
-            _, _, B_re, B_im, _ = assemble(freqs, params, od)
+            B_re, B_im = rhs(freqs, params, od)
             AU_re, AU_im = apply_op(freqs, params, od, U_re, U_im)
             return AU_re - B_re, AU_im - B_im
 
@@ -1146,25 +1308,28 @@ class Problem:
             U_re, U_im = _ImplicitSweep.apply(params, freqs, od, core)
             return readout(U_re, U_im, od)
 
-        def core_diag(freqs, params, od):
-            """(FRF, rn, rn_fin, rn0, tol): the primal sweep with its
-            convergence signal (``mixed_sweep(diagnostics=True)``), outside
-            any autograd graph."""
-            K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
-            U_re, U_im, *info = solve(K_re, K_im, B_re, B_im, omegas, od,
-                                      False, diagnostics=True)
-            return (readout(U_re, U_im, od), *info)
+        if engine == "mixed":
+            def core_diag(freqs, params, od):
+                """(FRF, rn, rn_fin, rn0, tol): the primal sweep with its
+                convergence signal (``mixed_sweep(diagnostics=True)``),
+                outside any autograd graph."""
+                K_re, K_im, B_re, B_im, omegas = assemble(freqs, params, od)
+                U_re, U_im, *info = solve(K_re, K_im, B_re, B_im, omegas, od,
+                                          False, diagnostics=True)
+                return (readout(U_re, U_im, od), *info)
 
+            core.diag = core_diag
         # the pieces the adjoint Gauss-Newton Jacobian, the gradient and the
-        # forward-mode derivatives need
+        # forward-mode derivatives need; ``engine`` answers the public
+        # adjoint predicate (_has_adjoint_hooks)
+        core.engine = engine
         core.sweep_u = sweep
         core.sweep_adj = sweep_adj
         core.sweep_rhs = sweep_rhs
         core.apply_res = apply_res
         core.apply_op = apply_op
         core.readout_ui = readout
-        core.diag = core_diag
-        return core, opdata
+        return core
 
     def _reference_stiffness_flat(self) -> np.ndarray:
         """Flat (signed) Re K(theta_ref) data: equilibration scale source and
@@ -1232,6 +1397,8 @@ class Problem:
 
     def _check_band(self, freqs) -> None:
         """Warn when the sweep leaves the mixed engine's preconditioned band."""
+        if self.getFRCore()[0].engine != "mixed":
+            return
         fmax = float(np.max(np.asarray(freqs)))
         if fmax > self.f_max * 1.0001:
             warnings.warn(
@@ -1273,7 +1440,17 @@ class Problem:
         * ``target`` — the amplification-aware norm target of the solve;
         * ``converged`` — the solve reached its target or reduced the
           residual of its start by 9 orders of magnitude.
+
+        The modal and direct engines are factorisations, whose accuracy is
+        not iteration-bounded: on them it raises ``ValueError``.
         """
+        engine = self.getFRCore()[0].engine
+        if engine != "mixed":
+            raise ValueError(
+                "diagnoseSweep applies to the iterative mixed engine; the "
+                f"resolved engine here is {engine!r} "
+                "(modal/direct solves are direct factorizations — their "
+                "accuracy is not iteration-bounded).")
         if params is None:
             params = self.parameters
         self._check_band(freqs)

@@ -83,6 +83,8 @@ _RES_SEG = 1 << 17
 _APPLY_BUDGET = 512e6
 # rows of the band basis per exact panel product (_dd_spmv)
 _DD_ROWS = 16
+# seed of band_basis_host's ARPACK start vector
+_BASIS_SEED = 0
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +98,10 @@ def band_basis_host(K_flat_ref: np.ndarray, M_flat: np.ndarray,
     """Lowest-band M-orthonormal modes of the (equilibrated) reference pencil.
 
     Returns (W (n, m) f64, lam_ref (m,)).  Computed once per Problem with
-    ARPACK shift-invert on the host.
+    ARPACK shift-invert on the host, from a fixed start vector (seeded
+    normal entries; ARPACK's own start moves from call to call): the same
+    pencil gives the same basis in every Problem and every process, and so
+    the same sweeps, derivatives and optimizer paths.
     """
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
@@ -108,9 +113,10 @@ def band_basis_host(K_flat_ref: np.ndarray, M_flat: np.ndarray,
 
     target = (margin * omega_max) ** 2
     m = min(m_max, max(m_min, 8), n - 2)
+    v0 = np.random.default_rng(_BASIS_SEED).standard_normal(n)
     lam = W = None
     while True:
-        lam, W = spla.eigsh(K, k=m, M=M, sigma=0, which="LM")
+        lam, W = spla.eigsh(K, k=m, M=M, sigma=0, which="LM", v0=v0)
         order = np.argsort(lam)
         lam, W = lam[order], W[:, order]
         if lam[-1] >= target or m >= min(m_max, n - 2):
@@ -392,6 +398,13 @@ def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
 # the mixed sweep
 # ---------------------------------------------------------------------------
 
+def _apply_chunk(n_ops: int, seg: int) -> int:
+    """Lanes per residual-map pass: the largest power of two (8 at least)
+    whose (n_ops, 2, lanes, seg) f64 contributions fit _APPLY_BUDGET."""
+    chunk = max(8, int(_APPLY_BUDGET // (n_ops * 2 * seg * 8)))
+    return 1 << (chunk.bit_length() - 1)
+
+
 def mixed_apply(K_re, K_im, M_flat, omegas, U_re, U_im, rows, cols, n: int,
                 ki_proportional: bool = True, csr=None):
     """Batched split-complex operator application A(theta) U on (F, n)
@@ -420,8 +433,7 @@ def mixed_apply(K_re, K_im, M_flat, omegas, U_re, U_im, rows, cols, n: int,
     if csr is None:
         csr = build_csr(rows, cols, n)
     seg = min(int(rows.shape[0]), _RES_SEG)
-    chunk = max(8, int(_APPLY_BUDGET // (len(ops) * 2 * seg * 8)))
-    chunk = 1 << (chunk.bit_length() - 1)
+    chunk = _apply_chunk(len(ops), seg)
     data = torch.stack(ops)
     out = torch.cat([csr_apply(data, uu[:, lo:lo + chunk], csr, seg)
                      for lo in range(0, uu.shape[1], chunk)], dim=2)

@@ -13,6 +13,12 @@ import torch
 
 
 def to_dense(data, rows, cols, n: int):
-    """Scatter flat COO data into a dense (n, n) matrix (duplicates add)."""
-    out = torch.zeros(n * n, dtype=data.dtype, device=data.device)
-    return out.index_add_(0, rows * n + cols, data).reshape(n, n)
+    """Dense (..., n, n) matrices from flat data (..., nnz) on the pattern
+    (rows, cols): each slot is assigned once, with no accumulation and so
+    no atomics on the card.  Precondition: the (row, col) pairs are unique,
+    as on every assembled pattern (K3's CSR plan relies on it too); a
+    repeated pair would keep one of its values, not their sum."""
+    lead = data.shape[:-1]
+    out = torch.zeros(lead + (n * n,), dtype=data.dtype, device=data.device)
+    out[..., rows * n + cols] = data
+    return out.reshape(lead + (n, n))

@@ -11,7 +11,9 @@ peak of a fine mesh reaches 1.7e-6 of the FRF (the pure-bending plate at
 n = 13862; 4.8e-7 at the 21k laminate; a host computation,
 .probes/peak_floor.py).  The complex stiffness K = K_re + i K_im comes
 from the material's split moduli, so per-modulus loss factors give a
-K_im of their own:
+K_im of their own; a material whose transform depends on the frequency is
+evaluated at each frequency's omega (the reference's per-frequency
+transform, Problem.py:397-399):
 
 * ``splu_frf`` — the FRF: the accelerometer magnitude on the 3-field path,
   the complex test-point amplitude on the symmetric path (the check
@@ -27,24 +29,26 @@ import numpy as np
 REFINE_STEPS = 3
 
 
-def _moduli(problem, theta):
-    """Complex moduli at ``theta``, numpy complex128: (A, B, D) on the
-    3-field path, D on the symmetric path."""
+def _moduli(problem, theta, omega=0.0):
+    """Complex moduli at ``theta`` and ``omega``, numpy complex128: (A, B,
+    D) on the 3-field path, D on the symmetric path."""
     import torch
 
     th = torch.as_tensor(np.asarray(theta, np.float64))
+    om = torch.as_tensor(float(omega), dtype=torch.float64)
     h = problem.geometry.height
     if problem.is_symmetric_path:
-        re, im = problem.material.d_split(th, h)
+        re, im = problem.material.d_split(th, h, om)
         return re.numpy() + 1j * im.numpy()
     return tuple(re.numpy() + 1j * im.numpy()
-                 for re, im in problem.material.abd_split(th, h))
+                 for re, im in problem.material.abd_split(th, h, om))
 
 
-def _operator(problem, theta, dtype=np.complex128):
-    """(K, M, bK): complex stiffness K(theta) (with its loss factors) and
-    real mass M as CSC matrices, and the stiffness lift bK, on the free DOFs
-    in their original order, combined in ``dtype`` from the f64 data."""
+def _operator(problem, theta, dtype=np.complex128, omega=0.0):
+    """(K, M, bK): complex stiffness K(theta, omega) (with its loss
+    factors) and real mass M as CSC matrices, and the stiffness lift bK, on
+    the free DOFs in their original order, combined in ``dtype`` from the
+    f64 data."""
     import scipy.sparse as sp
 
     from .fem.assembly import MODULI_INDICES
@@ -54,11 +58,11 @@ def _operator(problem, theta, dtype=np.complex128):
     n = p.n_free
     real = np.longdouble if dtype == np.clongdouble else np.float64
     if p.is_symmetric_path:
-        D = _moduli(p, theta).astype(dtype)
+        D = _moduli(p, theta, omega).astype(dtype)
         K_flat = D @ op.Ks.astype(real)
         bK = D @ op.fKs.astype(real)
     else:
-        Av, Bv, Dv = (c.astype(dtype) for c in _moduli(p, theta))
+        Av, Bv, Dv = (c.astype(dtype) for c in _moduli(p, theta, omega))
         K_flat = sum(Av[i] * op.mats["A" + s].astype(real)
                      + Bv[i] * op.mats["B" + s].astype(real)
                      + Dv[i] * op.mats["D" + s].astype(real)
@@ -73,13 +77,14 @@ def _operator(problem, theta, dtype=np.complex128):
     return K, M, bK
 
 
-def _solver(problem, theta):
+def _solver(problem, theta, omega=0.0):
     """solve(f, b, adjoint=False): the refined LU solution (longdouble) of
-    A(f) u = b, or A(f)^H u = b, for a longdouble right-hand side b."""
+    A(f) u = b, or A(f)^H u = b, for a longdouble right-hand side b, with
+    the material's moduli at ``omega``."""
     import scipy.sparse.linalg as spla
 
-    K, M, _ = _operator(problem, theta)
-    Kl, Ml, _ = _operator(problem, theta, np.clongdouble)
+    K, M, _ = _operator(problem, theta, omega=omega)
+    Kl, Ml, _ = _operator(problem, theta, np.clongdouble, omega)
 
     def solve(f, b, adjoint=False):
         A = K - (2.0 * np.pi * f) ** 2 * M
@@ -98,16 +103,24 @@ def _solver(problem, theta):
 def splu_frf(problem, freqs, params=None) -> np.ndarray:
     """FRF at ``freqs`` [Hz] for ``params`` (default: the material's), from
     one refined f64 complex ``splu`` per frequency: |FRF| (3-field path) or
-    the complex amplitude (symmetric path)."""
+    the complex amplitude (symmetric path).  A frequency-dependent material
+    transform is evaluated at each frequency's omega."""
     p = problem
     theta = np.asarray(p.parameters if params is None else params, np.float64)
     op = p.op
     L = np.longdouble
-    _, _, bK = _operator(p, theta, np.clongdouble)
     fI = p.fInertia.astype(L)
-    refined = _solver(p, theta)
+    per_freq = p._transform_is_freq_dependent()
+    fixed = None if per_freq else (_operator(p, theta, np.clongdouble)[2],
+                                   _solver(p, theta))
 
     def solve(f):
+        if per_freq:
+            om = 2.0 * np.pi * f
+            bK, refined = (_operator(p, theta, np.clongdouble, om)[2],
+                           _solver(p, theta, om))
+        else:
+            bK, refined = fixed
         return refined(f, bK - (2.0 * np.pi * L(f)) ** 2 * fI)
 
     fr = np.atleast_1d(np.asarray(freqs, np.float64))

@@ -9,7 +9,10 @@ build point (port ``models/problem.py``, ``ops/mixed.py``), on the CPU.
   budget again, its rescue cycles, so it may converge where JAX's stops).
   The port's diagnostics FRF is its ``solveForward`` FRF bit for bit (the
   same solve).
-* The API gaps raise ``NotImplementedError`` naming their ROADMAP item;
+* Two fresh Problems give the same band basis, FRF and Newton iterates
+  (the basis's fixed ARPACK start vector), bit for bit.
+* The engines' options ``chunk`` and ``n_modes`` take effect; the API gap
+  ``polish_peaks`` raises ``NotImplementedError`` naming its ROADMAP item;
   ``cpu=`` is accepted and ignored.
 * ROADMAP Queue 3's dense-tier fault: the SOL 45 deg cut on ``sh_i``
   refine = 1 (n = 1466, "auto": flat + dense, f64 Krylov basis), built at
@@ -30,6 +33,7 @@ import torch
 
 import plate_inverse_problem_tpu as pip
 import plate_inverse_problem_tpu_torch as pt
+from plate_inverse_problem_tpu_torch.ops import sweep
 from plate_inverse_problem_tpu_torch.oracle import splu_frf
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -87,17 +91,70 @@ def test_diagnose_sweep_matches_jax(steel, point):
 
 
 @pytest.mark.parametrize("call", ["chunk", "n_modes", "polish_peaks"])
-def test_api_gaps_raise_not_implemented(call):
+def test_api_gaps_raise_not_implemented(call, monkeypatch):
+    """The options of the engines the port once refused now take effect:
+    ``chunk=8`` builds the direct sweep's 24 matrices 8 at a time (and
+    factors each alone, one LU a frequency), and
+    ``n_modes=12`` truncates the modal basis (another FRF than the full
+    basis, whose n_modes = n gives the full basis's bits).
+    ``polish_peaks`` still raises naming its ROADMAP item; ``cpu=`` is
+    accepted and ignored."""
     parts = _steel(pt)
-    item = {"chunk": "F.13", "n_modes": "F.13", "polish_peaks": "F.17"}[call]
-    with pytest.raises(NotImplementedError, match=item):
-        if call == "chunk":
-            pt.Problem(*parts, device="cpu", chunk=8)
-        elif call == "n_modes":
-            pt.Problem(*parts, device="cpu", n_modes=12)
-        else:
+    if call == "chunk":
+        sizes = {"dense": [], "lu": []}
+
+        def counted(fn, key):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                sizes[key].append((out[0] if key == "lu" else out).shape[0])
+                return out
+            return wrapped
+
+        monkeypatch.setattr(sweep, "dense_operator",
+                            counted(sweep.dense_operator, "dense"))
+        monkeypatch.setattr(torch.linalg, "lu_factor",
+                            counted(torch.linalg.lu_factor, "lu"))
+        p = pt.Problem(*parts, device="cpu", engine="direct", chunk=8)
+        y = p.solveForward(FREQS).numpy()
+        assert p.chunk == 8 and sizes == {"dense": [8, 8, 8],
+                                          "lu": [1] * FREQS.size}
+        ref = splu_frf(p, FREQS[[0, 11]])
+        assert np.all(np.abs(y[[0, 11]] - ref) <= 1e-9 * ref)
+    elif call == "n_modes":
+        full = pt.Problem(*parts, device="cpu", engine="modal")
+        y_full = full.solveForward(FREQS).numpy()
+        p = pt.Problem(*parts, device="cpu", engine="modal", n_modes=12)
+        y = p.solveForward(FREQS).numpy()
+        assert np.all(np.isfinite(y))
+        assert np.max(np.abs(y - y_full) / y_full) > 1e-4
+        q = pt.Problem(*parts, device="cpu", engine="modal",
+                       n_modes=full.n_free)
+        assert np.array_equal(q.solveForward(FREQS).numpy(), y_full)
+    else:
+        with pytest.raises(NotImplementedError, match="F.17"):
             p = pt.Problem(*parts, device="cpu", cpu=4)   # accepted, unused
             p.solveForward(FREQS, polish_peaks=True)
+
+
+def test_band_basis_and_newton_path_reproducible():
+    """Two fresh Problems on the same plate build the same band basis
+    (ARPACK from ``band_basis_host``'s fixed start vector), and so give the
+    same FRF and the same damped Newton iterates (``solveInverse``'s
+    'newton', MSE_LOG_AFC on x = theta / theta_0), bit for bit."""
+    runs = []
+    for _ in range(2):
+        p = pt.Problem(*_steel(pt), device="cpu")
+        truth = np.asarray(p.parameters, np.float64)
+        fr = p.solveForward(FREQS).numpy()
+        res = p.solveInverse(truth * np.array([1.05, 1.02, 1.2]),
+                             "MSE_LOG_AFC", "newton", ref_fr=(FREQS, fr),
+                             use_scaling=True, report=False, log=False,
+                             N_steps=3)
+        runs.append((p.getFRCore()[1]["W64"].numpy(), fr,
+                     np.asarray(res.x_history), np.asarray(res.f_history)))
+    assert runs[0][2].shape == (3, 3)
+    for a, b in zip(*runs):
+        assert np.array_equal(a, b)
 
 
 @pytest.fixture(scope="module")

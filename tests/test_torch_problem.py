@@ -179,6 +179,17 @@ def test_unported_tiers_raise(kw):
 
 @pytest.mark.parametrize("kw", [{"engine": "modal"}, {"basis": "lobpcg"}])
 def test_unported_options_raise(kw):
+    """Of the options the port once refused, engine='modal' is ported: it
+    builds the modal engine, which meets the splu oracle to 1e-9 (an exact
+    f64 solve); basis='lobpcg' still raises naming its ROADMAP item."""
+    if "engine" in kw:
+        p = pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
+        assert p.getFRCore()[0].engine == "modal"
+        freqs = FREQS[::3]
+        y = p.solveForward(freqs).numpy()
+        ref = splu_frf(p, freqs)
+        assert np.all(np.abs(y - ref) <= 1e-9 * ref)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
 
@@ -195,9 +206,9 @@ class _FreqDepIsotropic(pt.Isotropic):
 def test_unported_paths_raise(tmp_path):
     """The paths the port once refused: the pure-bending path (no
     accelerometer) and the other material families now build and meet the
-    splu oracle to 1e-6.  What still raises, naming its ROADMAP item: a
-    material whose transform depends on the frequency (the engines that
-    take it, item 13).  A setup folder whose geometry is an .edp script
+    splu oracle to 1e-6.  A material whose transform depends on the
+    frequency warns and runs the direct engine (the JAX package's fallback),
+    which meets the per-frequency splu oracle to 1e-9.  A setup folder whose geometry is an .edp script
     (item B, ported) now loads; one naming a missing .msh file raises
     FileNotFoundError."""
     geom, mat, acc = _port_parts(refine=0.5)
@@ -213,8 +224,11 @@ def test_unported_paths_raise(tmp_path):
         assert np.all(np.abs(y - ref) <= 1e-6 * np.abs(ref))
     fd = pt.Problem(geom, _FreqDepIsotropic(7920.0, **MAT), acc,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        fd.getFRCore()
+    with pytest.warns(RuntimeWarning, match="frequency-dependent"):
+        assert fd.getFRCore()[0].engine == "direct"
+    y = fd.solveForward(freqs).numpy()
+    ref = splu_frf(fd, freqs)
+    assert np.all(np.abs(y - ref) <= 1e-9 * ref)
     sdir = tmp_path / "edp_setup"
     sdir.mkdir()
     (sdir / "plate.edp").write_text(
