@@ -137,7 +137,25 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    bending (n = 956) through both engines against splu; (f)
    ``examples/basics.py``'s workflow through the modal engine against the
    JAX package's CPU run (BASICS_JAX); (g) the modal engine at n = 11910:
-   construction, the basis, the sweeps, splu at 4 points.
+   construction, the basis, the sweeps, splu at 4 points;
+12. the LOBPCG basis, the flat multilevel and the sparse API
+   (``[slice10]``): (a) ``basis="lobpcg"`` at n = 1466, 11910 and 20916:
+   the basis seconds beside the ARPACK basis of the same pencil built in
+   this call (phases 2 and 7), rounds and iterations, K3 > 0 in the flat
+   build and K1 > 0 in the 21k one, the lowest eigenvalues against
+   ARPACK's (LOB_EIG_TOL), the reduced Rayleigh-Ritz on the card against
+   the host at 21k, a first and a steady sweep, splu at 4 points incl.
+   the peak, a second fresh Problem's basis bit for bit; (b)
+   ``precond="mg"`` on the flat layout at 1466 ("auto") and 20916
+   (``operator_layout="flat"``): levels, sweeps, cycles, splu at 4 points,
+   ``diagnoseSweep`` all converged, two sweeps bit for bit, K1 0 and K3 >
+   0 on the rectangular P / P^T too; at 1466 one r + J (2 J^T r / m to
+   GRAD_TOL) and one Gauss-Newton step; (c) the sparse API on the bench
+   operator (SPARSE_FREQS, SPARSE_PEAK_HZ): ``spsolve`` against splu and
+   the refined splu, its gradient against central differences, vmap
+   against calls, ``matvec`` against the plain version, the LU's time
+   beside its bound; (d) K3 against its plain version and the library
+   call on the 21k chain's P and P^T at RECT_LANES lanes.
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -320,6 +338,26 @@ BASICS_TOL = 1e-6
 # the f64 tensor-core rate of an H100 SXM (NVIDIA's data sheet), the peak
 # of the engines' library calls (LAPACK-style factorisations on the card)
 F64_TC_FLOPS = 67e12
+# phase 12 (a): the LOBPCG basis's lowest eigenvalues against ARPACK's on
+# the same pencil (the JAX test's bound), relative
+LOB_EIG_TOL = 1e-6
+# phase 12 (c): the sparse API on the bench operator.  spsolve, refined
+# against K3's exact product (SPARSE_REFINE rounds), against scipy's splu
+# and the longdouble-refined splu at omega = 0 and three frequencies off
+# the bench plate's one resonance in 40-600 Hz, and at the resonance
+# (150.68 Hz) against the refined splu alone: there plain splu is itself
+# the conditioning's kappa * eps off (2.3e-9 at 152 Hz on the CPU), and so
+# is an unrefined LU (2.2e-10 off splu at 60 Hz on an NVIDIA H100 80GB
+# HBM3 at 700 W); the gradient against central differences at a relative
+# step of 1e-6, of its max; matvec against the plain version, relative
+SPARSE_FREQS = (60.0, 300.0, 500.0)
+SPARSE_PEAK_HZ = 150.68
+SPARSE_REFINE = 2
+SPARSE_TOL = 1e-10
+SPARSE_GRAD_TOL = 1e-6
+SPARSE_MV_TOL = 1e-14
+# phase 12 (d): the lane counts of K3 on the 21k chain's P and P^T
+RECT_LANES = (1, 16, 1024)
 # phase 9 (e): the script of examples/edp_import.py
 EDP_SCRIPT = """
 // a plate with a circular hole, clamped on its RIGHT border (label 2 --
@@ -580,6 +618,506 @@ def synthetic_b64(device):
     return pack_band_tiles(band, layout), band, x, layout
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the LOBPCG band basis, the flat multilevel, the sparse API
+# ---------------------------------------------------------------------------
+
+def lobpcg_tier(dev, refine: float, label: str, arpack: dict,
+                rr_ab: bool = False) -> dict:
+    """Phase 12 (a) on one plate: ``Problem(basis="lobpcg")`` built on the
+    card — the basis build's seconds beside the ARPACK basis's of the same
+    pencil in this call (``arpack``: its eigenvalues and seconds), its
+    rounds of m and LOBPCG iterations, K1 and K3 launches over the
+    construction (the basis build is its only kernel work), peak memory —
+    then a first and a steady 512-point sweep, the refined splu at four
+    points incl. the peak, the lowest eigenvalues against ARPACK's to
+    LOB_EIG_TOL, and a second fresh Problem's basis bit for bit.
+    ``rr_ab``: also time the reduced Rayleigh-Ritz of every iteration on
+    the host (numpy's LAPACK through ``_reduced_rr`` on CPU tensors, the
+    copies both ways included) beside its device time."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import (
+        band_kernel, csr_kernel, lobpcg)
+
+    tag = "[slice10] (a)"
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    rr = {"calls": 0, "device_s": 0.0, "mats": []}
+    rr_fn = lobpcg._reduced_rr
+
+    def timed_rr(A, B, nx, drop_tol=1e-12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rr_fn(A, B, nx, drop_tol)
+        torch.cuda.synchronize()
+        rr["device_s"] += time.perf_counter() - t0
+        rr["calls"] += 1
+        if rr_ab:
+            rr["mats"].append((A.clone(), B.clone(), nx))
+        return out
+
+    band_kernel.band_mv_f32_cuda.launches = 0
+    csr_kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lobpcg._reduced_rr = timed_rr
+    try:
+        t0 = time.perf_counter()
+        p = sh_i_problem(dev, refine, basis="lobpcg")
+        od = p.getFRCore()[1]
+        torch.cuda.synchronize()
+        ctor_s = time.perf_counter() - t0
+    finally:
+        lobpcg._reduced_rr = rr_fn
+    rec = {"n_free": p.n_free, "tier": list(p._tier), "ctor_s": ctor_s,
+           "basis_s": p._band_basis_s, "arpack_basis_s": arpack["basis_s"],
+           "rounds": [list(r) for r in lobpcg.band_basis_lobpcg.rounds],
+           "m": int(od["W64"].shape[1]), "m_arpack": len(arpack["lam"]),
+           "k1_basis": band_kernel.band_mv_f32_cuda.launches,
+           "k3_basis": csr_kernel.csr_mv_cuda.launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "rr_calls": rr["calls"], "rr_device_s": rr["device_s"]}
+    lam, lam_a = p._band_lam, arpack["lam"]
+    m = min(len(lam), len(lam_a))
+    rec["eig_rel"] = float((np.abs(lam[:m] - lam_a[:m]) / lam_a[:m]).max())
+    print(f"{tag} {label}: n_free={p.n_free} tier {p._tier}; LOBPCG basis "
+          f"{rec['basis_s']:.3f} s against ARPACK's (band_basis_host, same "
+          f"pencil, this call) {rec['arpack_basis_s']:.3f} s; rounds (m, "
+          f"block, iterations) {rec['rounds']}, m={rec['m']} (ARPACK "
+          f"{rec['m_arpack']}); lowest {m} eigenvalues vs ARPACK max rel "
+          f"{rec['eig_rel']:.3e} (tol {LOB_EIG_TOL}); construction "
+          f"{ctor_s:.2f} s, K1 {rec['k1_basis']} and K3 {rec['k3_basis']} "
+          f"launches in it, peak device memory {rec['peak_mem_gb']:.2f} GB; "
+          f"reduced Rayleigh-Ritz on the device: {rr['calls']} calls, "
+          f"{rr['device_s']:.4f} s", flush=True)
+    if rr_ab:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for A, B, nx in rr["mats"]:
+            lam_h, C = rr_fn(A.cpu(), B.cpu(), nx)
+            C.to(A.device)
+        torch.cuda.synchronize()
+        rec["rr_host_s"] = time.perf_counter() - t0
+        sizes = sorted({int(A.shape[0]) for A, _, _ in rr["mats"]})
+        print(f"{tag} {label}: the same {rr['calls']} reduced Rayleigh-Ritz "
+              f"problems (sizes {sizes}) on the host: {rec['rr_host_s']:.4f} "
+              f"s (copies included) against {rr['device_s']:.4f} s on the "
+              f"device", flush=True)
+        del rr["mats"]
+    sw = timed_sweeps(p, freqs, f"{label} sweep", tag=tag)
+    fr = sw.pop("fr")
+    rec |= sw
+    failed = []
+    try:
+        rec["worst_rel_err"] = oracle_check(p, freqs, fr, peak_points(fr),
+                                            label, tag=tag)
+    except AssertionError as err:
+        failed.append(str(err))
+    q = sh_i_problem(dev, refine, basis="lobpcg")
+    rec["bits_identical"] = bool(torch.equal(od["W64"],
+                                             q.getFRCore()[1]["W64"]))
+    del q
+    print(f"{tag} {label}: a second fresh Problem's basis identical: "
+          f"{rec['bits_identical']}", flush=True)
+    if not rec["eig_rel"] <= LOB_EIG_TOL:
+        failed.append(f"{label}: eigenvalues {rec['eig_rel']:.3e} from "
+                      "ARPACK's")
+    if not rec["bits_identical"]:
+        failed.append(f"{label}: two fresh Problems' LOBPCG bases differ")
+    if failed:
+        raise AssertionError(" | ".join(failed))
+    return rec
+
+
+class RectCount:
+    """Counts K3 calls on rectangular plans (the multilevel's P and P^T)
+    while active: wraps ``csr_kernel.csr_mv``, which ops/mg.py looks up at
+    each call."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __enter__(self):
+        from plate_inverse_problem_tpu_torch.ops import csr_kernel
+
+        self.fn = csr_kernel.csr_mv
+
+        def counted(data, x, csr, seg=None):
+            if x.is_cuda and csr.n != csr.n_cols and x.numel():
+                self.launches += 1
+            return self.fn(data, x, csr, seg)
+
+        csr_kernel.csr_mv = counted
+        return self
+
+    def __exit__(self, *exc):
+        from plate_inverse_problem_tpu_torch.ops import csr_kernel
+
+        csr_kernel.csr_mv = self.fn
+
+
+def flat_mg(dev, refine: float, label: str, inverse: bool = False,
+            **kw) -> tuple:
+    """Phase 12 (b) on one plate: ``Problem(precond="mg")`` on the flat
+    layout — levels and n per level, construction, a first and a steady
+    512-point sweep with the multilevel cycles they ran (the FGMRES steps:
+    each runs 1 + _MG_REFINE cycles), the refined splu at four points incl.
+    the peak, ``diagnoseSweep``, two more steady sweeps bit for bit; K1 0,
+    K3 > 0 with rectangular launches.  ``inverse``: also one adjoint r + J
+    (2 J^T r / m against the loss gradient to GRAD_TOL) and one
+    Gauss-Newton step.  Returns (Problem, record)."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import mixed
+
+    tag = "[slice10] (b)"
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    t0 = time.perf_counter()
+    p = sh_i_problem(dev, refine, precond="mg", **kw)
+    p.getFRCore()
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    ns = [int(v) for v in p._mg_static["n"]]
+    cycles = [0]
+    ml_fn = mixed.multilevel_apply
+
+    def counted(*a, **k):
+        cycles[0] += 1
+        return ml_fn(*a, **k)
+
+    mixed.multilevel_apply = counted
+    try:
+        with RectCount() as rect:
+            sw = timed_sweeps(p, freqs, f"{label} sweep", tag=tag)
+    finally:
+        mixed.multilevel_apply = ml_fn
+    fr = sw.pop("fr")
+    rec = {"n_free": p.n_free, "tier": list(p._tier), "ctor_s": ctor_s,
+           "levels": len(ns), "n_per_level": ns, **sw,
+           "cycles_2_sweeps": cycles[0],
+           "fgmres_steps_2_sweeps": cycles[0] // (1 + mixed._MG_REFINE),
+           "k3_rect": rect.launches}
+    print(f"{tag} {label}: n_free={p.n_free} tier {p._tier}, {len(ns)} "
+          f"levels, n per level {ns}; construction {ctor_s:.2f} s (basis "
+          f"{p._band_basis_s:.3f} s); {cycles[0]} multilevel cycles = "
+          f"{rec['fgmres_steps_2_sweeps']} FGMRES steps (every lane of a "
+          f"chunk at once) over the two sweeps; K3 launches {rec['k3']} "
+          f"({rect.launches} on the rectangular P / P^T), K1 {rec['k1']}",
+          flush=True)
+    failed = []
+    try:
+        rec["worst_rel_err"] = oracle_check(p, freqs, fr, peak_points(fr),
+                                            label, tag=tag)
+    except AssertionError as err:
+        failed.append(str(err))
+    diag = p.diagnoseSweep(freqs)
+    rec["converged"] = int(np.sum(diag["converged"]))
+    runs = [p.solveForward(freqs).cpu().numpy() for _ in range(2)]
+    rec["sweeps_identical"] = bool(np.array_equal(*runs))
+    print(f"{tag} {label}: diagnoseSweep converged lanes {rec['converged']}"
+          f" of {N_FREQ}; two more steady sweeps identical "
+          f"{rec['sweeps_identical']}", flush=True)
+    if rec["converged"] != N_FREQ:
+        failed.append(f"{label}: {N_FREQ - rec['converged']} lanes "
+                      "unconverged")
+    if not rec["sweeps_identical"]:
+        failed.append(f"{label}: two steady sweeps differ")
+    if rec["k1"] != 0 or rec["k3"] <= 0 or rect.launches <= 0:
+        failed.append(f"{label}: launches K1 {rec['k1']}, K3 {rec['k3']}, "
+                      f"rectangular {rect.launches}")
+    if inverse:
+        try:
+            rec |= mg_inverse(p, freqs, fr, label)
+        except AssertionError as err:
+            failed.append(str(err))
+    if failed:
+        raise AssertionError(" | ".join(failed))
+    return p, rec
+
+
+def mg_inverse(p, freqs, fr_truth, label: str) -> dict:
+    """Phase 12 (b)'s inverse half on the flat multilevel tier: one
+    adjoint log_afc r + J at theta_0 = truth x START, 2 J^T r / m against
+    the MSE_LOG_AFC gradient (GRAD_TOL, phase 6's check), and one
+    Gauss-Newton step through ``solveInverse``."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+
+    tag = "[slice10] (b)"
+    truth = np.asarray(p.parameters, np.float64)
+    th0 = truth * np.asarray(START)
+    rf = p.getResidualFunction(freqs, fr_truth, kind="log_afc")
+    csr_kernel.reset_launches()
+    with RectCount() as rect:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, J = rf.value_and_jac(th0)
+        torch.cuda.synchronize()
+        rj_s = time.perf_counter() - t0
+    k3_rj = csr_kernel.csr_mv_cuda.launches
+    r, J = r.cpu().numpy(), J.cpu().numpy()
+    g = p.getLossFunction(freqs, fr_truth, "MSE_LOG_AFC").grad(th0)
+    g = g.cpu().numpy()
+    rel = float(np.abs(2.0 * J.T @ r / r.size - g).max() / np.abs(g).max())
+    t0 = time.perf_counter()
+    res = p.solveInverse(th0, "MSE_LOG_AFC", "gn", ref_fr=(freqs, fr_truth),
+                         use_scaling=True, N_steps=1, report=False,
+                         log=False)
+    torch.cuda.synchronize()
+    gn_s = time.perf_counter() - t0
+    err = (np.abs(np.asarray(res.x)) - truth) / truth
+    print(f"{tag} {label}: log_afc r + J {rj_s:.3f} s (K3 {k3_rj}, "
+          f"{rect.launches} rectangular); 2 J^T r / m vs the MSE_LOG_AFC "
+          f"gradient max rel {rel:.3e} (tol {GRAD_TOL}); one Gauss-Newton "
+          f"step {gn_s:.3f} s from loss {res.f_history[0]:.6e}, status "
+          f"{res.status} (a step is taken only where the loss falls), rel "
+          f"err after it {', '.join(f'{v:+.3e}' for v in err)}", flush=True)
+    if not rel <= GRAD_TOL:
+        raise AssertionError(f"{label}: 2 J^T r / m is {rel:.3e} from the "
+                             "gradient")
+    if res.status == "Stalled" or not np.all(np.isfinite(err)):
+        raise AssertionError(f"{label}: the Gauss-Newton step found no "
+                             f"lower loss: {res.status}, {res.x}")
+    return {"rj_s": rj_s, "k3_rj": k3_rj, "jac_grad_rel": rel, "gn_s": gn_s,
+            "gn_status": res.status, "gn_rel_err": [float(v) for v in err]}
+
+
+def refined_splu(A, b):
+    """scipy's splu solution of A x = b refined by 4 rounds whose residuals
+    are computed in ``np.longdouble`` (the oracle's recipe, oracle.py): the
+    solution to about f64 rounding, whatever the conditioning."""
+    import scipy.sparse.linalg as spla
+
+    lu = spla.splu(A.tocsc())
+    wide = np.clongdouble if np.iscomplexobj(A.data) else np.longdouble
+    Al = A.astype(wide).tocsr()
+    x = lu.solve(b).astype(wide)
+    for _ in range(4):
+        x = x + lu.solve((b.astype(wide) - Al @ x).astype(b.dtype))
+    return x.astype(b.dtype)
+
+
+def sparse_api(dev) -> dict:
+    """Phase 12 (c): the standalone sparse API on the bench operator A(omega)
+    = K - omega^2 M + i K_im (n = 1466, the dense tier's equilibrated data
+    from ``getFRCore``) at omega = 0 (K, f64) and SPARSE_FREQS (complex128):
+    ``spsolve`` with SPARSE_REFINE rounds of refinement against scipy's
+    splu and against the longdouble-refined splu (``refined_splu``), both
+    to SPARSE_TOL (the unrefined solve's distance to splu printed: the
+    card's LU is kappa * eps off); its gradient in ``data`` and ``b``
+    against central differences (SPARSE_GRAD_TOL of its max);
+    ``torch.func.vmap`` over 8 right-hand sides equal to 8 calls bit for
+    bit; ``matvec`` and its transpose against the plain version
+    (SPARSE_MV_TOL) and bit for bit in two calls.  At the resonance
+    (SPARSE_PEAK_HZ) the refined solve is held to the refined splu only:
+    plain splu is itself kappa * eps off there (printed).  Times the LU
+    (the library call, CUDA events) beside its operation bound."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+    from plate_inverse_problem_tpu_torch.ops import (
+        create_symbolic, matvec, spsolve)
+    from plate_inverse_problem_tpu_torch.ops.scatter import to_dense
+
+    tag = "[slice10] (c)"
+    p = sh_i_problem(dev, 1.0)
+    od = p.getFRCore()[1]
+    n = p.n_free
+    Kr, Ki = flat_stiffness(p, od)
+    rows, cols = od["rows"].cpu().numpy(), od["cols"].cpu().numpy()
+    (cr, cc), pat = create_symbolic(n, np.stack([rows, cols], axis=1))
+    key = cc.astype(np.int64) * n + cr
+    to_canon = torch.as_tensor(
+        np.argsort(np.searchsorted(key, cols.astype(np.int64) * n + rows)),
+        device=dev)
+    rng = np.random.default_rng(12)
+    csr_kernel.reset_launches()
+    out, failed = {}, []
+    for f in (0.0,) + SPARSE_FREQS + (SPARSE_PEAK_HZ,):
+        om2 = (2.0 * np.pi * f) ** 2
+        d = Kr - om2 * od["MIn"]
+        if f:
+            d = torch.complex(d, Ki)
+        d = d[to_canon].contiguous()
+        dt = np.complex128 if f else np.float64
+        A = sp.csc_matrix((d.cpu().numpy(), (cr, cc)), shape=(n, n))
+        b = rng.standard_normal(n) + (1j * rng.standard_normal(n) if f else 0)
+        bt = torch.as_tensor(b.astype(dt), device=dev)
+        x0 = spsolve(pat, d, bt).cpu().numpy()
+        x = spsolve(pat, d, bt, refine_steps=SPARSE_REFINE).cpu().numpy()
+        x_ref = spla.splu(A).solve(b.astype(dt))
+        x_true = refined_splu(A, b.astype(dt))
+
+        def dist(u, v):
+            return float(np.abs(u - v).max() / np.abs(v).max())
+
+        rel, rel_true = dist(x, x_ref), dist(x, x_true)
+        rec = {"solve_rel": rel, "solve_rel_refined_oracle": rel_true,
+               "unrefined_rel": dist(x0, x_ref),
+               "splu_rel_refined_oracle": dist(x_ref, x_true)}
+        print(f"{tag} {f:g} Hz: spsolve (refine_steps={SPARSE_REFINE}) vs "
+              f"splu {rel:.3e}, vs the refined splu {rel_true:.3e} (tol "
+              f"{SPARSE_TOL}); unrefined vs splu {rec['unrefined_rel']:.3e}; "
+              f"splu vs the refined splu {rec['splu_rel_refined_oracle']:.3e}",
+              flush=True)
+        if f == SPARSE_PEAK_HZ:
+            out[f"{f:g}Hz"] = rec
+            if not rel_true <= SPARSE_TOL:
+                failed.append(f"sparse API at {f:g} Hz: {rec}")
+            continue
+        # the gradient of Re <w, x> in data and b vs central differences
+        w = torch.as_tensor((rng.standard_normal(n)
+                             + (1j * rng.standard_normal(n) if f else 0)
+                             ).astype(dt), device=dev)
+
+        def loss(dd, bb):
+            return torch.real(torch.vdot(w, spsolve(pat, dd, bb)))
+
+        dr = d.clone().requires_grad_(True)
+        br = bt.clone().requires_grad_(True)
+        gd, gb = torch.autograd.grad(loss(dr, br), (dr, br))
+        fd_dev = []
+        for arg, g, ks in ((0, gd, (0, d.numel() // 3, d.numel() - 1)),
+                           (1, gb, (0, n // 2, n - 1))):
+            base = (d, bt)[arg]
+            for k in ks:
+                for part in ((1.0, 1j) if f else (1.0,)):
+                    h = 1e-6 * max(float(abs(base[k])), 1e-30)
+                    e = torch.zeros_like(base)
+                    e[k] = h * part
+                    args_p = [d, bt]
+                    args_m = [d, bt]
+                    args_p[arg] = base + e
+                    args_m[arg] = base - e
+                    fd = (float(loss(*args_p))
+                          - float(loss(*args_m))) / (2 * h)
+                    gk = complex(g[k])
+                    an = gk.real if part == 1.0 else gk.imag
+                    fd_dev.append(abs(fd - an) / float(g.abs().max()))
+        rec["grad_fd_dev"] = max(fd_dev)
+        # vmap over 8 right-hand sides against 8 calls
+        B8 = torch.as_tensor((rng.standard_normal((8, n))
+                              + (1j * rng.standard_normal((8, n)) if f else 0)
+                              ).astype(dt), device=dev)
+        X8 = torch.func.vmap(lambda v: spsolve(pat, d, v))(B8)
+        rec["vmap_identical"] = bool(torch.equal(
+            X8, torch.stack([spsolve(pat, d, v) for v in B8])))
+        # matvec and its transpose against the plain version, twice
+        mv = []
+        for tr in (False, True):
+            y = matvec(pat, d, bt, transpose=tr)
+            y_plain = matvec(pat, d.cpu(), bt.cpu(), transpose=tr)
+            mv.append((float((y.cpu() - y_plain).abs().max()
+                             / y_plain.abs().max()),
+                       bool(torch.equal(y, matvec(pat, d, bt, transpose=tr)))))
+        rec["matvec_rel"] = max(m_[0] for m_ in mv)
+        rec["matvec_identical"] = all(m_[1] for m_ in mv)
+        # the library call: the LU of one matrix, CUDA events
+        Ad = to_dense(d, pat.plans(dev)[0].rows, pat.plans(dev)[0].cols, n)
+        rec["lu_ms"] = cuda_event_ms(lambda: torch.linalg.lu_factor(Ad),
+                                     reps=10)
+        flops = (8.0 if f else 2.0) / 3.0 * n ** 3
+        rec["lu_bound_ms"] = 1e3 * flops / F64_TC_FLOPS
+        del Ad
+        out[f"{f:g}Hz"] = rec
+        print(f"{tag} {'K' if not f else f'{f:g} Hz'} "
+              f"({'f64' if not f else 'complex128'}): gradient in data and "
+              f"b vs central differences max dev / max |g| {rec['grad_fd_dev']:.3e}"
+              f" (tol {SPARSE_GRAD_TOL}); vmap over 8 == 8 calls "
+              f"{rec['vmap_identical']}; matvec and transpose vs plain "
+              f"{rec['matvec_rel']:.3e} (tol {SPARSE_MV_TOL}), two calls "
+              f"identical {rec['matvec_identical']}; LU (torch.linalg."
+              f"lu_factor) {rec['lu_ms']:.3f} ms, bound "
+              f"{rec['lu_bound_ms']:.3f} ms (operations: {'8' if f else '2'}/3 n^3 FLOP at 67 "
+              f"TFLOP/s), {100 * rec['lu_bound_ms'] / rec['lu_ms']:.2f} % of "
+              f"it", flush=True)
+        if not (max(rel, rel_true) <= SPARSE_TOL
+                and rec["grad_fd_dev"] <= SPARSE_GRAD_TOL
+                and rec["vmap_identical"] and rec["matvec_identical"]
+                and rec["matvec_rel"] <= SPARSE_MV_TOL):
+            failed.append(f"sparse API at {f:g} Hz: {rec}")
+    out["k3"] = csr_kernel.csr_mv_cuda.launches
+    print(f"{tag} K3 launches over the sparse API's calls: {out['k3']}",
+          flush=True)
+    if out["k3"] <= 0:
+        failed.append("the sparse API never launched K3")
+    if failed:
+        raise AssertionError(" | ".join(failed))
+    return out
+
+
+def slice10(dev, p21, arpack: dict) -> dict:
+    """Phase 12 on ``dev``: (a) ``basis="lobpcg"`` at n = 1466, 11910 and
+    20916 (``arpack``: the ARPACK eigenvalues and seconds of phase 7's
+    plates by n; ``p21``: phase 2's 21k Problem, whose ARPACK basis is
+    this call's at 20916), (b) the flat multilevel at 1466 (with the
+    inverse half) and at 20916 with ``operator_layout="flat"``, (c) the
+    sparse API, (d) K3 against its plain version on P and P^T of the
+    20916 chain at RECT_LANES lanes (f32, as the cycle runs them).  Every
+    part runs before a failed check raises."""
+    import torch
+
+    out, failed = {}, []
+    arpack = dict(arpack)
+    arpack[p21.n_free] = {"lam": p21._band_lam,
+                          "basis_s": p21._band_basis_s}
+
+    def run(key, fn, *args, **kw):
+        try:
+            out[key] = fn(*args, **kw)
+        except AssertionError as err:
+            failed.append(str(err))
+
+    t0 = time.perf_counter()
+    for refine, n, label in ((1.0, 1466, "n=1466 flat + dense"),
+                             (3.0, 11910, "n=11910 band + dense"),
+                             (4.0, 20916, "n=20916 band + two-grid")):
+        run(f"lobpcg_{n}", lobpcg_tier, dev, refine, label, arpack[n],
+            rr_ab=n == 20916)
+        torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t0
+    if "lobpcg_1466" in out and out["lobpcg_1466"]["k3_basis"] <= 0:
+        failed.append("the flat LOBPCG basis build launched no K3")
+    if "lobpcg_20916" in out and out["lobpcg_20916"]["k1_basis"] <= 0:
+        failed.append("the two-grid LOBPCG basis build launched no K1")
+    t0 = time.perf_counter()
+    p21mg = None
+    try:
+        out["mg_1466"] = flat_mg(dev, 1.0, "n=1466 auto", inverse=True)[1]
+    except AssertionError as err:
+        failed.append(str(err))
+    try:
+        p21mg, out["mg_20916"] = flat_mg(dev, 4.0, "n=20916 flat",
+                                         operator_layout="flat")
+    except AssertionError as err:
+        failed.append(str(err))
+    out["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run("sparse", sparse_api, dev)
+    out["c_s"] = time.perf_counter() - t0
+    if p21mg is None:
+        p21mg = sh_i_problem(dev, 4.0, precond="mg", operator_layout="flat")
+        p21mg.getFRCore()
+    lv = p21mg._multilevel["levels"][0]
+    rect = []
+    for name, plan in (("P", lv["P_csr"]), ("P^T", lv["Pt_csr"])):
+        for L in RECT_LANES:
+            try:
+                rect.append(compare_csr(plan, 1, L, "f32",
+                                        f"21k chain {name} L={L}",
+                                        seed=L, tag="[slice10] (d)"))
+            except AssertionError as err:
+                failed.append(str(err))
+    out["rect"] = rect
+    del p21mg
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 12 failed: " + " | ".join(failed))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -615,7 +1153,7 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
-    """Phases 2-11 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-12 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources`` / ``ab_csr_sources``: other versions of K1 / K3 to time
     beside them (A/B only)."""
     import torch
@@ -648,7 +1186,9 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     print(f"[ctor] n_free={p.n_free} nnz={p.op.pattern.nnz} b={lay.b} "
           f"nb={lay.nb} bandwidth={lay.bandwidth} n_c={p._mg_rl.n_coarse} "
           f"m={od['W64'].shape[1]}  construction {ctor_s:.2f} s (host "
-          "assembly, ARPACK basis, coarse splu, transfers)", flush=True)
+          "assembly, ARPACK basis, coarse splu, transfers; of which the "
+          f"coarse level's host splu inverse {p._coarse_inv_s:.3f} s, the "
+          f"ARPACK basis {p._band_basis_s:.3f} s)", flush=True)
 
     pack = p._band_pack
     nnz = int((pack.vals != 0).sum())
@@ -723,7 +1263,8 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
         raise AssertionError(f"worst rel err {worst:.3e} > {ORACLE_TOL}")
 
     inv = inverse_half(p, freqs, fr, grad_tol=GRAD_TOL_21K)
-    dense = dense_tier(dev)
+    arpack = {}
+    dense = dense_tier(dev, arpack)
     kept = {}
     fam = families(dev, kept)
     s6 = slice6(dev, p, freqs, fr, ab_csr)
@@ -742,6 +1283,13 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
         failed.append(str(err))
     eng_s = time.perf_counter() - t11
     print(f"[time] phase 11 in {eng_s:.1f} s", flush=True)
+    t12 = time.perf_counter()
+    try:
+        s10 = slice10(dev, p, arpack)
+    except AssertionError as err:
+        failed.append(str(err))
+    s10_s = time.perf_counter() - t12
+    print(f"[time] phase 12 in {s10_s:.1f} s", flush=True)
     if failed:
         raise AssertionError(" || ".join(failed))
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
@@ -765,19 +1313,28 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                "slice6": {k: v for k, v in s6.items() if k != "k3"},
                "slice8": {k: v for k, v in s8.items()
                           if k not in ("k1", "k3")},
-               "engines": {k: v for k, v in eng.items() if k != "k3"}}
+               "engines": {k: v for k, v in eng.items() if k != "k3"},
+               "slice10": s10}
     summary["phases_s"] = time.perf_counter() - t_phases
     summary["phases_2_9_s"] = summary_s
     summary["phase_11_s"] = eng_s
-    print(f"[time] phases 2-11 in {summary['phases_s']:.1f} s (phase 10: "
-          f"{summary['phases_s'] - summary_s - eng_s:.1f} s, phase 11: "
-          f"{eng_s:.1f} s)", flush=True)
+    summary["phase_12_s"] = s10_s
+    print(f"[time] phases 2-12 in {summary['phases_s']:.1f} s (phase 10: "
+          f"{summary['phases_s'] - summary_s - eng_s - s10_s:.1f} s, phase "
+          f"11: {eng_s:.1f} s, phase 12: {s10_s:.1f} s)", flush=True)
     k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
                 "grad_21k": inv["k3_grad"],
                 "dense_sweep_1466": dense["bench"]["k3"],
                 "rj_1466": dense["bench_inverse"]["k3_rj"],
                 "grad_1466": dense["bench_inverse"]["k3_grad"],
-                **s6["k3"]["by_path"], **s8["k3"], **eng["k3"]}
+                **s6["k3"]["by_path"], **s8["k3"], **eng["k3"],
+                "lobpcg_basis_1466": s10["lobpcg_1466"]["k3_basis"],
+                "mg_flat_sweeps_1466": s10["mg_1466"]["k3"],
+                "mg_flat_rect_1466": s10["mg_1466"]["k3_rect"],
+                "mg_flat_rj_1466": s10["mg_1466"]["k3_rj"],
+                "mg_flat_sweeps_21k": s10["mg_20916"]["k3"],
+                "mg_flat_rect_21k": s10["mg_20916"]["k3_rect"],
+                "sparse_api": s10["sparse"]["k3"]}
     if not all(v > 0 for v in k3_paths.values()):
         raise AssertionError(f"K3 launched no time on a path: {k3_paths}")
     print(f"[summary] {json.dumps(summary)}", flush=True)
@@ -791,7 +1348,11 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                              "rj_primal": inv["k1_rj_primal"],
                              "rj_adjoint": inv["k1_rj_adjoint"],
                              "gn": inv["k1_gn"],
-                             **dense["k1"], **fam["k1"], **s8["k1"]},
+                             **dense["k1"], **fam["k1"], **s8["k1"],
+                             "lobpcg_basis_21k":
+                                 s10["lobpcg_20916"]["k1_basis"],
+                             "mg_flat_sweeps_1466": s10["mg_1466"]["k1"],
+                             "mg_flat_sweeps_21k": s10["mg_20916"]["k1"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
@@ -808,6 +1369,10 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
             "direct_sweep_1466": eng["k3_direct_sweep_1466"]},
         "launches_by_regime": census,
         "data_grad": s8["data_grad"],
+        "rectangular": [{k: r[k] for k in (
+            "label", "n", "n_cols", "nnz", "L", "dtype", "max_abs_err", "ms",
+            "flushed_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for r in s10["rect"]],
         **{k: s6["k3"]["headline"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -905,7 +1470,8 @@ def construct(dev, refine: float, label: str, tag: str = "[dense]", **kw):
     ctor_s = time.perf_counter() - t0
     lay = p._band_layout
     rec = {"n_free": p.n_free, "nnz": int(p.op.pattern.nnz),
-           "tier": list(p._tier), "ctor_s": ctor_s}
+           "tier": list(p._tier), "ctor_s": ctor_s,
+           "basis_s": p._band_basis_s}
     if "invK64" in od:
         inv = od["invK64"]
         rec |= {"inv_build_s": p._inv_build_s,
@@ -915,28 +1481,35 @@ def construct(dev, refine: float, label: str, tag: str = "[dense]", **kw):
     else:
         rec |= {"n_c": p._mg_rl.n_coarse,
                 "pack_tiles": p._band_pack.vals.shape[0],
-                "pack_build_ms": 1e3 * p._pack_build_s}
-        part = (f"the two-grid's coarse level n_c={rec['n_c']} and the K1 "
-                f"pack ({rec['pack_tiles']} tiles, "
+                "pack_build_ms": 1e3 * p._pack_build_s,
+                "coarse_inv_s": getattr(p, "_coarse_inv_s", None)}
+        part = (f"the two-grid's coarse level n_c={rec['n_c']} (its host "
+                f"splu inverse {rec['coarse_inv_s'] or 0.0:.3f} s) and the "
+                f"K1 pack ({rec['pack_tiles']} tiles, "
                 f"{rec['pack_build_ms']:.1f} ms)")
     print(f"{tag} {label}: n_free={p.n_free} nnz={p.op.pattern.nnz} "
           f"tier {p._tier} (layout, preconditioner, f32 Krylov basis)"
           + ("" if lay is None else f", b={lay.b} nb={lay.nb}")
           + f", m={od['W64'].shape[1]}; construction {ctor_s:.2f} s, of "
-          f"which {part}", flush=True)
+          f"which {part}, the {p._basis_resolved} basis "
+          f"{p._band_basis_s:.3f} s", flush=True)
     return p, rec
 
 
-def dense_tier(dev) -> dict:
+def dense_tier(dev, keep=None) -> dict:
     """Phase 7: the dense-preconditioner tier at n = 1466 (the bench
     configuration, forward and inverse) and n = 11910 (its largest plate).
-    Returns the numbers for [summary], K1's zero counts under "k1"."""
+    Returns the numbers for [summary], K1's zero counts under "k1";
+    ``keep`` (a dict) receives each plate's ARPACK eigenvalues and basis
+    seconds under its n, for phase 12 (a)."""
     import plate_inverse_problem_tpu_torch as pt
 
     freqs = np.linspace(40.0, 600.0, N_FREQ)
     out = {}
     # ---- (a) the bench configuration -------------------------------------
     p, rec = construct(dev, 1.0, "(a) bench sh_i refine=1")
+    if keep is not None:
+        keep[p.n_free] = {"lam": p._band_lam, "basis_s": p._band_basis_s}
     if p._tier != ("flat", "dense", False):
         raise AssertionError(f"'auto' at n={p.n_free} resolved to {p._tier},"
                              " not the flat layout, the dense "
@@ -974,6 +1547,8 @@ def dense_tier(dev) -> dict:
 
     # ---- (c) the largest dense-tier plate --------------------------------
     p, rec = construct(dev, 3.0, "(c) sh_i refine=3")
+    if keep is not None:
+        keep[p.n_free] = {"lam": p._band_lam, "basis_s": p._band_basis_s}
     if p._tier != ("band", "dense", False):
         raise AssertionError(f"'auto' at n={p.n_free} resolved to {p._tier},"
                              " not the band layout with the dense "
@@ -1420,10 +1995,12 @@ def csr_bound_ms(csr, S: int, L: int, itemsize: int) -> tuple[float, str]:
     H100 SXM: the S x nnz values, the plan's index bytes (a one-byte slot a
     nonzero, the tiles' row and column lists, ``rowptr``), x read once and
     y written once, at HBM_BPS, against 2 FLOP a nonzero, operator and lane
-    at the CUDA cores' f64 (F64_FLOPS) or f32 (F32_FLOPS) rate."""
+    at the CUDA cores' f64 (F64_FLOPS) or f32 (F32_FLOPS) rate.  x has
+    ``csr.n_cols`` columns and y ``csr.n`` rows (a rectangular P or P^T
+    of the multilevel cycle)."""
     n, nnz = csr.n, csr.nnz
     t_bytes = (S * nnz * itemsize + csr.plan_bytes
-               + (1 + S) * L * n * itemsize) / HBM_BPS
+               + (csr.n_cols + S * n) * L * itemsize) / HBM_BPS
     t_ops = 2.0 * S * nnz * L / (F64_FLOPS if itemsize == 8 else F32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -1493,13 +2070,14 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
 
     tdt = torch.float64 if dtype == "f64" else torch.float32
     dev = csr.col.device
-    n, nnz = csr.n, csr.nnz
+    n, nnz, n_cols = csr.n, csr.nnz, csr.n_cols
     itemsize = 8 if dtype == "f64" else 4
     rng = np.random.default_rng(seed)
     data = torch.as_tensor(rng.standard_normal((S, nnz)), dtype=tdt,
                            device=dev)
-    x = (torch.ones(L, n, dtype=tdt, device=dev) if ones else
-         torch.as_tensor(rng.standard_normal((L, n)), dtype=tdt, device=dev))
+    x = (torch.ones(L, n_cols, dtype=tdt, device=dev) if ones else
+         torch.as_tensor(rng.standard_normal((L, n_cols)), dtype=tdt,
+                         device=dev))
     # the plain version's (S, L, seg) contribution tensor stays under 2 GB
     seg = max(1024, min(nnz, 2**31 // (S * L * itemsize)))
     kind = ck.regime(L)
@@ -1511,7 +2089,7 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
     crow = torch.cat([csr.rowptr[:-1].long() + s * nnz for s in range(S)]
                      + [torch.tensor([S * nnz], device=dev)])
     A = torch.sparse_csr_tensor(crow, csr.col.long().repeat(S), d,
-                                size=(S * n, n))
+                                size=(S * n, n_cols))
     xt = x.t().contiguous()
     y_lib = torch.sparse.mm(A, xt).reshape(S, n, L).transpose(1, 2)
     torch.cuda.synchronize()
@@ -1538,7 +2116,8 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
         times[k].append(time_ms(variants[k], reps=10)[0])
     rec = {k: float(np.mean(v)) for k, v in times.items()}
     bound, bound_by = csr_bound_ms(csr, S, L, itemsize)
-    rec.update(label=label, S=S, L=L, n=n, nnz=nnz, dtype=dtype,
+    rec.update(label=label, S=S, L=L, n=n, n_cols=n_cols, nnz=nnz,
+               dtype=dtype,
                regime=kind,
                max_abs_err=max_abs, rel_err=max_abs / scale,
                library_rel_err=lib_rel, deterministic=same,
@@ -1549,7 +2128,8 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
                      if k.endswith("_ms") and k not in (
                          "ms", "plain_ms", "library_ms", "flushed_ms",
                          "bound_ms"))
-    print(f"{tag} K3 {label}: {dtype} S={S} L={L} n={n} nnz={nnz} "
+    shape = f"n={n}" if n == n_cols else f"{n}x{n_cols}"
+    print(f"{tag} K3 {label}: {dtype} S={S} L={L} {shape} nnz={nnz} "
           f"({kind})  max|dy|={max_abs:.3e} rel={rec['rel_err']:.3e} (tol "
           f"{CSR_TOL[dtype]}), two launches identical: {same}"
           + (f", A/B identical: {ab_same}" if ab else "")

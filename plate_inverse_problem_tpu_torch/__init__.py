@@ -14,10 +14,13 @@ its test point.  The mixed engine's operator runs on the flat pattern or
 in the RCM block-tridiagonal layout, in an f64 FGMRES sweep with an f32
 complement preconditioner (the dense inverse of the reference stiffness
 up to 12288 DOF, above it a two-grid cycle whose band matvec is a
-hand-written CUDA kernel, ``csrc/band_mv.cu``); the flat-pattern operator
-of every engine is a second hand-written kernel, ``csrc/csr_mv.cu``,
-which sums in one fixed order, so a sweep gives the same bits in every
-run.  The inverse problem runs on it:
+hand-written CUDA kernel, ``csrc/band_mv.cu``, or on the flat layout a
+recursive multilevel cycle); the flat-pattern operator of every engine,
+and every product of the multilevel cycle, is a second hand-written
+kernel, ``csrc/csr_mv.cu``, which sums in one fixed order, so a sweep
+gives the same bits in every run.  The band basis comes from ARPACK on
+the host or, factorization-free, from LOBPCG on the card
+(``basis="lobpcg"``).  The inverse problem runs on it:
 the adjoint and the forward-mode (tangent) sweeps, the loss with its
 gradient and Hessian, the adjoint and forward-mode Gauss-Newton
 Jacobians, ``Problem.solveInverse`` by Gauss-Newton, trust region,
@@ -25,7 +28,9 @@ Newton, L-BFGS, gradient and coordinate descent and scipy's global
 optimizers, with FRF compression; ``Problem.diagnoseSweep`` reports each
 frequency's convergence and ``Problem.getModePicture`` draws a deflection
 shape.  Geometries come from templates, FreeFEM ``.edp`` scripts or
-``.msh`` meshes.  The package imports torch, numpy and scipy, never jax
+``.msh`` meshes.  ``plate_inverse_problem_tpu_torch.ops`` holds the
+reference's standalone sparse API (``create_symbolic``, ``matvec``,
+``spsolve``, ``find_permutation``) for any square system.  The package imports torch, numpy and scipy, never jax
 (matplotlib only inside ``getModePicture``).
 """
 from . import config

@@ -8,12 +8,17 @@
 // dense tier (every FGMRES step, every true residual, the Rayleigh-Ritz
 // panels), the f32 refinement product of the preconditioner, the row sums of
 // the exact band panels and the residual map of the adjoint Jacobian and the
-// loss gradient at every tier.
+// loss gradient at every tier; every product of the flat multilevel cycle
+// (its level operators, prolongations P and restrictions P^T, ops/mg.py),
+// LOBPCG's K and M panel products on the flat tier (ops/lobpcg.py) and the
+// sparse API's matvec (ops/sparse_api.py).
 //
 // What it computes.  data (S, nnz) holds the values of S operators on one
-// pattern, in CSR order (rowptr (n+1,), col (nnz,), int32) or read through
-// perm (data[:, perm] is in CSR order); x[l, c] sits at x + l * sxl + c *
-// sxc; y (S, L, n):
+// pattern of n rows, in CSR order (rowptr (n+1,), col (nnz,), int32) or
+// read through perm (data[:, perm] is in CSR order); x[l, c] sits at x + l
+// * sxl + c * sxc, for any number of columns c (the pattern may be
+// rectangular: the multilevel cycle's P and P^T, the sparse API's
+// matrices; nothing here depends on x's width); y (S, L, n):
 //     y[s, l, i] = sum_{k = rowptr[i]}^{rowptr[i+1]-1} data[s, k] * x[l, col[k]]
 // with k ascending, one FMA per term and one thread per output element,
 // starting from zero.  No atomics: two launches on the same inputs give the

@@ -9,7 +9,10 @@ mid-plane symmetric material and no accelerometer) with its complex
 test-point readout.  The mixed engine has three tiers: the flat f64
 operator with the dense preconditioner (n < 8192), the RCM
 block-tridiagonal f64 operator with the dense preconditioner (8192 <= n <=
-12288) or with the two-grid f32 preconditioner (n > 12288).  Every
+12288) or with the two-grid f32 preconditioner (n > 12288); on request
+(``precond="mg"`` on the flat layout) the flat multilevel preconditioner,
+and (``basis="lobpcg"``) the band basis by LOBPCG on the device instead
+of ARPACK on the host.  Every
 material family runs, per-modulus loss factors included; a material whose
 transform depends on the frequency runs through the direct engine (any
 other engine warns and falls back to it, as in the JAX package).  The
@@ -554,14 +557,17 @@ class Problem:
         k_cycle: int | None = None,     # FGMRES cycle length (None = 8)
         refine_tol: float = 3e-7,       # residual target (tracks the
                                         # delivered FRF accuracy ~1:1)
-        precond: str = "auto",          # 'dense' / 'mg' (two-grid, band
-                                        # layout only); auto: dense up to
+        precond: str = "auto",          # 'dense' / 'mg' (the two-grid on
+                                        # the band layout, the multilevel
+                                        # on the flat); auto: dense up to
                                         # 12288 DOF
         mg_coarse_max: int = 11500,     # sets the coarsening factor
         freq_chunk: int | None = None,  # lanes per batch (None = auto)
         operator_layout: str = "auto",  # 'flat' / 'band'; auto: band from
                                         # 8192 DOF
-        basis: str = "arpack",          # how the band basis is computed
+        basis: str = "arpack",          # how the band basis is computed:
+                                        # 'arpack' (host shift-invert) or
+                                        # 'lobpcg' (on the device)
         basis_f32: bool | None = None,  # f32 Krylov basis storage (the
                                         # JAX package's on its dense tier;
                                         # None: f64 on every tier)
@@ -582,9 +588,6 @@ class Problem:
         if basis not in ("arpack", "lobpcg"):
             raise ValueError(f"Unknown basis {basis!r}; valid options: "
                              "'arpack', 'lobpcg'.")
-        if basis == "lobpcg":
-            raise NotImplementedError(
-                "basis='lobpcg' is not ported yet (ROADMAP Queue 1, item 12).")
         self.device = torch.device(device)
         self.engine = engine
         self.chunk = int(chunk)
@@ -597,6 +600,7 @@ class Problem:
         self.mg_coarse_max = int(mg_coarse_max)
         self.freq_chunk = freq_chunk
         self.operator_layout = operator_layout
+        self.basis = basis
         self.basis_f32 = basis_f32
         self._given_opdata = opdata
 
@@ -866,6 +870,44 @@ class Problem:
             mesh, getattr(self.geometry, "clamped_labels", (1,)))
         return mesh, np.nonzero(~constrained)[0], constrained
 
+    def _mg_chain(self, n: int) -> list:
+        """The flat multilevel's prolongations, finest first (JAX
+        problem.py:1244-1290): coarsened Problems built with
+        ``engine="direct"``, the first factor aimed at ``mg_coarse_max``
+        (n scales ~ factor^-2: one exact coarse level beats a deeper chain
+        of approximate ones), each next one twice as coarse while the
+        coarsest holds more than ``mg_coarse_max`` DOF (at most 8 levels);
+        the chain stops where a level would hold under 60 DOF or stops
+        shrinking."""
+        from ..ops.mg import build_prolongation
+
+        chain = []
+        fine = self
+        factor = max(2.0, float(np.sqrt(n / (0.62 * self.mg_coarse_max))))
+        while ((not chain or fine.n_free > self.mg_coarse_max)
+               and len(chain) < 8):
+            cp = Problem(self.geometry.coarsened(factor), self.material,
+                         self.accelerometer, engine="direct",
+                         device=self.device)
+            if cp.n_free >= fine.n_free or cp.n_free < 60:
+                break
+            chain.append(cp)
+            fine = cp
+            factor *= 2.0
+        if not chain:
+            raise ValueError(
+                "precond='mg' could not build a coarser mesh level for this "
+                f"geometry (n_free={n}); use precond='dense'.")
+        Ps = []
+        fine = self
+        for cp in chain:
+            Ps.append(build_prolongation(
+                fine.mesh, cp.mesh, fine.op.free_idx, cp.op.free_idx,
+                fine.op.constrained, cp.op.constrained,
+                three_field=not self.is_symmetric_path))
+            fine = cp
+        return Ps
+
     def _mixed_core(self, K_ref: np.ndarray, ss: np.ndarray,
                     scale_vec: np.ndarray):
         import scipy.sparse as sp
@@ -878,7 +920,11 @@ class Problem:
         from ..ops.band_kernel import pack_band_tiles
         from ..ops.csr_kernel import build_csr
         from ..ops.dense import inv_refined
-        from ..ops.mg import _dinv_lmax, _pin_dead, build_prolongation
+        from ..ops.lobpcg import band_basis_lobpcg
+        from ..ops.mg import (
+            _dinv_lmax, _pin_dead, build_multilevel_host, build_prolongation,
+            multilevel_to_device,
+        )
         from ..ops.mixed import band_basis_host, mixed_sweep
         from ..ops.scatter import to_dense
 
@@ -910,12 +956,6 @@ class Problem:
                 "to the dense complement preconditioner (slower above "
                 "~12k DOF).", RuntimeWarning)
             precond = "dense"
-        if precond == "mg" and not use_band:
-            raise NotImplementedError(
-                "precond='mg' on the flat layout (operator_layout='flat', or "
-                "'auto' below 8192 DOF) needs the flat multilevel "
-                "preconditioner, which is not ported yet (ROADMAP Queue 1, "
-                "item 14); the port's two-grid runs on the band layout.")
         basis_f32 = bool(self.basis_f32)
         self._tier = ("band" if use_band else "flat", precond, basis_f32)
         if use_band:
@@ -936,7 +976,16 @@ class Problem:
         K_ref_eq = K_ref * ss
         M_eq = self.MInertia * ss
 
-        if precond == "mg":
+        flat_mg = precond == "mg" and layout is None
+        if flat_mg:
+            # ---- flat tier: the recursive Galerkin multilevel (JAX
+            # problem.py:1244-1290, 1340-1358), its coarsest level inverted
+            # on the device in f64 below
+            mg_arrays, mg_static = build_multilevel_host(
+                K_ref_eq, rows_h, cols_h, n, self._mg_chain(n),
+                row_scale=scale_vec, invert_coarse=False)
+            Kc_coo = mg_arrays.pop("Kc_coo")
+        elif precond == "mg":
             # ---- band tier two-grid: one coarse level, aimed directly at
             # the dense-invertible size (n scales ~ factor^-2)
             factor = max(2.0, float(np.sqrt(n / (0.62 * self.mg_coarse_max))))
@@ -964,20 +1013,22 @@ class Problem:
         def t64(a):
             return torch.as_tensor(np.asarray(a, np.float64), device=dev)
 
-        if self._given_opdata is not None:
+        given = self._given_opdata is not None
+        if given:
             opdata = self._given_opdata
         else:
-            W64, _ = band_basis_host(K_ref_eq, M_eq, rows_h, cols_h, n,
-                                     omega_max=2.0 * np.pi * self.f_max)
             opdata = self._operator_data(ss, scale_vec, rows_h, cols_h, pvec)
-            opdata["W64"] = t64(W64)
             if layout is not None:
                 opdata["band_lin"] = torch.as_tensor(
                     layout.lin, dtype=torch.int64, device=dev)
-            if precond == "mg":
+            if flat_mg:
+                opdata["Kref64"] = t64(K_ref_eq)
+            elif precond == "mg":
                 # the coarse Galerkin operator is too ill-conditioned for
                 # any f32 factorization: invert it with a host f64 splu
+                t0 = time.perf_counter()
                 Kc_inv = spla.splu(Kc).solve(np.eye(Kc.shape[0]))
+                self._coarse_inv_s = time.perf_counter() - t0
                 opdata |= {
                     "Kref64": t64(K_ref_eq),
                     "mg_band0": flat_to_band(
@@ -1002,7 +1053,19 @@ class Problem:
                     torch.cuda.synchronize(dev)
                 self._inv_build_s = time.perf_counter() - t0
 
-        if precond == "mg":
+        if flat_mg:
+            # the hierarchy on the device with a K3 plan per level operator
+            # and per P / P^T, and the coarsest inverse by the port's rule
+            # for dense inverses: f64 (ops/dense.py), applied in f32
+            Kc_inv = inv_refined(to_dense(
+                t64(Kc_coo["data"]),
+                torch.as_tensor(Kc_coo["rows"], dtype=torch.int64, device=dev),
+                torch.as_tensor(Kc_coo["cols"], dtype=torch.int64, device=dev),
+                int(Kc_coo["n"])))
+            self._multilevel = multilevel_to_device(mg_arrays, mg_static, dev,
+                                                    Kc_inv)
+            self._mg_static = mg_static
+        elif precond == "mg":
             # the f32 K_ref band of the preconditioner, packed once per
             # Problem into its nonzero tiles: every band_mv_f32 of every
             # sweep reads it
@@ -1017,6 +1080,48 @@ class Problem:
         # operator, the residual map and the panels' row sums on it
         csr = build_csr(opdata["rows"], opdata["cols"], n)
 
+        if not given:
+            # ---- band basis (theta-independent), after the preconditioner:
+            # 'arpack' is the host shift-invert (one f64 splu), 'lobpcg' the
+            # device LOBPCG with that preconditioner as T ~= K^-1
+            basis = self.basis
+            if basis == "lobpcg" and flat_mg:
+                warnings.warn(
+                    "basis='lobpcg' is not wired for the flat multilevel "
+                    "preconditioner tier; falling back to the ARPACK host "
+                    "basis.", RuntimeWarning)
+                basis = "arpack"
+            self._basis_resolved = basis
+            om_max = 2.0 * np.pi * self.f_max
+            t0 = time.perf_counter()
+            if basis == "lobpcg":
+                spec = ({"kind": "twogrid", "pack": self._band_pack,
+                         "dinv": opdata["mg_dinv"], "Pt": opdata["mg_Pt"],
+                         "Kc_inv": opdata["mg_Kcinv"],
+                         "slots": opdata["mg_slots"], "lmax": lmax,
+                         "layout": layout, "rl": rl, "refine": 8}
+                        if precond == "mg" else
+                        {"kind": "dense", "invK": opdata["invK64"],
+                         "refine": 8})
+                W64, lam = band_basis_lobpcg(
+                    K_ref_eq, M_eq, rows_h, cols_h, n, om_max, precond=spec,
+                    csr=csr, band_layout=layout,
+                    band_lin=opdata.get("band_lin"))
+                lam = lam.cpu().numpy()
+            else:
+                W64, lam = band_basis_host(K_ref_eq, M_eq, rows_h, cols_h, n,
+                                           omega_max=om_max)
+                W64 = t64(W64)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            # the basis's build seconds and its reference eigenvalues
+            self._band_basis_s = time.perf_counter() - t0
+            self._band_lam = lam
+            opdata["W64"] = W64
+
+        if flat_mg:
+            Kref32 = opdata["Kref64"].to(F32)
+
         # the scalar-loss families have K_im = beta K_re exactly; per-modulus
         # loss factors carry K_im as a third operator
         ki_prop = bool(self.material.scalar_loss_factor)
@@ -1026,10 +1131,15 @@ class Problem:
                   diagnostics=False):
             band = (None if layout is None
                     else {"layout": layout, "lin": od["band_lin"]})
-            mg = None if precond != "mg" else {
-                "tg_pack": pack, "dinv": od["mg_dinv"], "Pt": od["mg_Pt"],
-                "Kc_inv": od["mg_Kcinv"], "slots": od["mg_slots"],
-                "lmax": lmax, "rl": rl, "layout": layout}
+            if flat_mg:
+                mg = {"multilevel": self._multilevel, "Kref32": Kref32}
+            elif precond == "mg":
+                mg = {"tg_pack": pack, "dinv": od["mg_dinv"],
+                      "Pt": od["mg_Pt"], "Kc_inv": od["mg_Kcinv"],
+                      "slots": od["mg_slots"], "lmax": lmax, "rl": rl,
+                      "layout": layout}
+            else:
+                mg = None
             with torch.no_grad():
                 return mixed_sweep(
                     K_re, K_im, od["MIn"], B_re, B_im, omegas,

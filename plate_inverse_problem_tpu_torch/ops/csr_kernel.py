@@ -8,6 +8,11 @@ and K_im, or the tangents of their data) applied to L lanes:
 
     y[s, ..., i] = sum_{k in row i} data[s, k] * x[..., col[k]]
 
+The pattern may be rectangular, n_rows x n_cols (x (..., n_cols), y (S,
+..., n_rows)): the multilevel cycle's prolongations P and restrictions
+P^T (ops/mg.py) and the sparse API's products (ops/sparse_api.py) run on
+it too; a square pattern has the plan and the bits it always had.
+
 Every output element is summed in one fixed order (its row's entries in
 ascending CSR order, one FMA each), so two launches give the same bits;
 the ``index_add_`` scatter that ran here before summed with f64 atomics in
@@ -35,7 +40,8 @@ tolerance.  The pieces:
   and the loss gradient: ``jvp`` is the map on the tangent data (it is
   linear), ``backward`` for ``data`` is a gather and a sum over the lanes
   (no scatter), ``vmap`` folds batched data into the operator stack; x is
-  a constant;
+  a constant, unless the transposed pattern's plan is given (the sparse
+  API's ``matvec``): then its cotangent is one K3 product on that plan;
 * ``build`` — compiles the source with ``nvcc`` for ``sm_90a`` into
   ``build/kernels/`` at first use, and loads it with ``ctypes``.
 
@@ -77,8 +83,9 @@ _lib = None
 
 @dataclass(frozen=True)
 class CSRPattern:
-    """A flat (rows, cols) pattern of n x n operators with its CSR copy and
-    the kernel's plan.
+    """A flat (rows, cols) pattern of n x n_cols operators (n rows; n_cols
+    = n for the square operators of a plate) with its CSR copy and the
+    kernel's plan.
 
     ``rows``/``cols`` (nnz,) int64: the flat pattern in the operator data's
     own order (the plain version's); ``rowptr`` (n + 1,) and ``col`` (nnz,)
@@ -105,6 +112,7 @@ class CSRPattern:
     col: torch.Tensor
     perm: torch.Tensor | None
     n: int
+    n_cols: int
     tile_ptr: torch.Tensor
     tile_rows: torch.Tensor
     col_ptr: torch.Tensor
@@ -152,11 +160,13 @@ MAX_TILE_NNZ = ((SMEM_BUDGET - smem_bytes(TILE_ROWS, MAX_TILE_COLS, 0))
                 // (OP_GROUP * 8 + 1))
 
 
-def _plan(rowptr: np.ndarray, col: np.ndarray, n: int):
-    """The kernel's row tiles (see ``CSRPattern``).  The rows go in groups
-    of ROW_GROUP consecutive rows (so y is written in whole 32-byte
-    sectors), the groups in reverse Cuthill-McKee order of their symmetric
-    structure; a tile takes groups in that order while it holds at most
+def _plan(rowptr: np.ndarray, col: np.ndarray, n: int, width: int):
+    """The kernel's row tiles (see ``CSRPattern``) for n rows on width
+    columns.  The rows go in groups of ROW_GROUP consecutive rows (so y is
+    written in whole 32-byte sectors), the groups in reverse Cuthill-McKee
+    order of their symmetric structure (of the graph of groups that share
+    a column group, where the pattern is rectangular); a tile takes groups
+    in that order while it holds at most
     TILE_ROWS rows, MAX_TILE_COLS distinct columns and MAX_TILE_NNZ entries
     (so every block fits SMEM_BUDGET), and the next group starts a new
     one.  A group that alone holds too much is split into its rows;
@@ -168,20 +178,21 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int):
     row_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(rowptr))
     ng = -(-n // g)
     A = sp.csr_matrix((np.ones(col.size, np.int8), (row_of // g, col // g)),
-                      shape=(ng, ng))
-    order = reverse_cuthill_mckee((A + A.T).tocsr(), symmetric_mode=True)
+                      shape=(ng, -(-width // g)))
+    G = A + A.T if width == n else A.astype(np.int32) @ A.T.astype(np.int32)
+    order = reverse_cuthill_mckee(G.tocsr(), symmetric_mode=True)
 
     def fits(rows, cols, nnz):
         return (rows <= TILE_ROWS and cols <= MAX_TILE_COLS
                 and nnz <= MAX_TILE_NNZ)
 
     # every group's distinct columns, and every row's where a group is split
-    gkeys = np.unique((row_of // g) * n + col)
-    gptr = np.searchsorted(gkeys, np.arange(ng + 1) * n)
+    gkeys = np.unique((row_of // g) * width + col)
+    gptr = np.searchsorted(gkeys, np.arange(ng + 1) * width)
     units = []                         # (first row, rows, entries, columns)
     for q in order:
         r0, r1 = q * g, min(n, q * g + g)
-        cols = gkeys[gptr[q]:gptr[q + 1]] % n
+        cols = gkeys[gptr[q]:gptr[q + 1]] % width
         if fits(r1 - r0, cols.size, rowptr[r1] - rowptr[r0]):
             units.append((r0, r1 - r0, rowptr[r1] - rowptr[r0], cols))
             continue
@@ -195,7 +206,7 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int):
                     f"{MAX_TILE_NNZ} entries).")
             units.append((i, 1, rowptr[i + 1] - rowptr[i], cols))
     # greedy tiles over the units, a column marker for the running union
-    mark = np.zeros(n, bool)
+    mark = np.zeros(width, bool)
     tile_of = np.empty(n, np.int64)
     touched, n_rows, n_nnz, n_cols, t = [], 0, 0, 0, 0
     for r0, nr, ne, cols in units:
@@ -211,9 +222,9 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int):
         n_cols += new.size
         tile_of[r0:r0 + nr] = t
     n_tiles = t + 1 if n else 0
-    keys = tile_of[row_of] * n + col
+    keys = tile_of[row_of] * width + col
     ukeys = np.unique(keys)
-    counts = np.bincount(ukeys // n, minlength=n_tiles)
+    counts = np.bincount(ukeys // width, minlength=n_tiles)
     sizes = np.bincount(tile_of, minlength=n_tiles)
     col_ptr = np.r_[0, np.cumsum(counts)]
     slot = np.searchsorted(ukeys, keys) - col_ptr[tile_of[row_of]]
@@ -225,30 +236,31 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int):
     row_off = np.empty(n, np.int64)
     row_off[tile_rows] = run[:-1] - np.repeat(run[tile_ptr[:-1]], sizes)
     tile_nnz = np.diff(run[tile_ptr])
-    return (tile_ptr, tile_rows, col_ptr, ukeys % n, slot, row_off,
+    return (tile_ptr, tile_rows, col_ptr, ukeys % width, slot, row_off,
             int(sizes.max()) if n else 0,
             int(counts.max()) if counts.size else 0,
             int(tile_nnz.max()) if tile_nnz.size else 0)
 
 
-def build_csr(rows, cols, n: int) -> CSRPattern:
+def build_csr(rows, cols, n: int, n_cols: int | None = None) -> CSRPattern:
     """The CSR copy of the flat pattern (rows, cols) (tensors on the
-    operator data's device) and the kernel's plan, both built on the host
-    and kept on that device."""
+    operator data's device) of n x n_cols operators (None: square) and the
+    kernel's plan, both built on the host and kept on that device."""
     t0 = time.perf_counter()
+    n_cols = int(n) if n_cols is None else int(n_cols)
     dev = rows.device
     r = rows.detach().cpu().numpy().astype(np.int64)
     c = cols.detach().cpu().numpy().astype(np.int64)
     if r.size >= 2**31:
         raise ValueError(f"{r.size} nonzeros exceed the kernel's int32 index.")
-    order = np.argsort(r * n + c, kind="stable")
+    order = np.argsort(r * n_cols + c, kind="stable")
     rowptr = np.zeros(n + 1, np.int64)
     rowptr[1:] = np.cumsum(np.bincount(r, minlength=n))
     perm = (None if np.array_equal(order, np.arange(r.size))
             else torch.as_tensor(order, dtype=torch.int32, device=dev))
     col = c[order]
     (tile_ptr, tile_rows, col_ptr, tile_cols, slot, row_off, max_rows,
-     max_cols, max_nnz) = _plan(rowptr, col, int(n))
+     max_cols, max_nnz) = _plan(rowptr, col, int(n), n_cols)
     # the one-lane kernel stages the entries of L1_ROWS consecutive rows
     ends = rowptr[np.minimum(np.arange(0, n, L1_ROWS) + L1_ROWS, n)]
     max_block_nnz = int((ends - rowptr[0:n:L1_ROWS]).max()) if n else 0
@@ -259,6 +271,7 @@ def build_csr(rows, cols, n: int) -> CSRPattern:
     return CSRPattern(
         rows=torch.as_tensor(r, device=dev), cols=torch.as_tensor(c, device=dev),
         rowptr=i32(rowptr), col=i32(col), perm=perm, n=int(n),
+        n_cols=n_cols,
         tile_ptr=i32(tile_ptr), tile_rows=i32(tile_rows), col_ptr=i32(col_ptr),
         tile_cols=i32(tile_cols),
         slot=torch.as_tensor(slot, dtype=torch.uint8, device=dev),
@@ -296,9 +309,10 @@ def regime(L: int) -> str:
 
 def scatter_mv(data, x, rows, cols, n: int, seg: int | None = None):
     """Plain torch y = data x: the (S, nnz) operator stack on the flat
-    pattern applied to (..., n), output (S, ..., n), by ``index_add`` over
-    the rows.  The nnz axis goes in segments of ``seg`` entries (None: one
-    pass), each segment's (S, ..., seg) contribution tensor short-lived.
+    pattern of n rows applied to (..., n_cols) (any n_cols the columns
+    index), output (S, ..., n), by ``index_add`` over the rows.  The nnz
+    axis goes in segments of ``seg`` entries (None: one pass), each
+    segment's (S, ..., seg) contribution tensor short-lived.
     Out of place, so forward- and reverse-mode AD both run through it."""
     S, nnz = data.shape
     seg = max(1, nnz if seg is None else int(seg))
@@ -316,18 +330,19 @@ def scatter_mv(data, x, rows, cols, n: int, seg: int | None = None):
 def _check(data, x, csr: CSRPattern) -> None:
     if not isinstance(csr, CSRPattern):
         raise TypeError("csr_mv takes the pattern's CSRPattern (build_csr).")
-    if data.dim() != 2 or data.shape[1] != csr.nnz or x.shape[-1] != csr.n:
+    if (data.dim() != 2 or data.shape[1] != csr.nnz
+            or x.shape[-1] != csr.n_cols):
         raise ValueError(f"shape mismatch: data {tuple(data.shape)}, x "
                          f"{tuple(x.shape)}, pattern of {csr.nnz} nonzeros "
-                         f"and n={csr.n}.")
+                         f"on {csr.n} x {csr.n_cols}.")
 
 
 def csr_mv_cuda(data, x, csr: CSRPattern):
     """y = data x through the CUDA kernel: data (S, nnz) f64 or f32 in the
-    flat order, x (..., n) of the same dtype, both on the pattern's CUDA
-    device; output (S, ..., n).  One launch, of the kernel ``regime`` picks
-    for L = prod(x.shape[:-1]) lanes, reading x where it lies (its
-    strides; a copy only where x cannot be viewed as (L, n))."""
+    flat order, x (..., n_cols) of the same dtype, both on the pattern's
+    CUDA device; output (S, ..., n).  One launch, of the kernel ``regime``
+    picks for L = prod(x.shape[:-1]) lanes, reading x where it lies (its
+    strides; a copy only where x cannot be viewed as (L, n_cols))."""
     _check(data, x, csr)
     if data.dtype != x.dtype or x.dtype not in (torch.float64,
                                                 torch.float32):
@@ -346,7 +361,7 @@ def csr_mv_cuda(data, x, csr: CSRPattern):
         return y.reshape((S,) + lead + (n,))
     d = data if data.is_contiguous() else data.contiguous()
     kind = regime(L)
-    x2 = x.reshape(L, n)
+    x2 = x.reshape(L, csr.n_cols)
     sxl, sxc = x2.stride()
     fn = getattr(_lib, f"csr_mv_{kind.lower()}_"
                        f"{'f64' if x.dtype == torch.float64 else 'f32'}")
@@ -396,8 +411,9 @@ def csr_mv(data, x, csr: CSRPattern, seg: int | None = None):
     return csr_mv_reference(data, x, csr, seg)
 
 
-_X_CONSTANT = ("csr_apply is differentiable in the operator data only; "
-               "x is a constant of the residual map.")
+_X_CONSTANT = ("csr_apply is differentiable in x only with the transposed "
+               "pattern's plan (csr_t); without it x is a constant of the "
+               "residual map.")
 
 
 def _data_grad(gy, x, csr: CSRPattern, seg: int | None):
@@ -407,7 +423,7 @@ def _data_grad(gy, x, csr: CSRPattern, seg: int | None):
     S, n, nnz = gy.shape[0], csr.n, csr.nnz
     seg = max(1, nnz if seg is None else int(seg))
     g2 = gy.reshape(S, -1, n)
-    x2 = x.reshape(-1, n).to(gy.dtype)
+    x2 = x.reshape(-1, csr.n_cols).to(gy.dtype)
     return torch.cat([
         torch.einsum("sln,ln->sn", g2[..., csr.rows[lo:lo + seg]],
                      x2[:, csr.cols[lo:lo + seg]])
@@ -417,54 +433,83 @@ def _data_grad(gy, x, csr: CSRPattern, seg: int | None):
 class CSRMatVec(torch.autograd.Function):
     """``csr_mv(data, x, csr, seg)`` differentiable in ``data`` by forward
     and reverse mode, under ``torch.func`` transforms too (``jacfwd`` =
-    vmap of jvp).  x is a constant of every path (the residual map's fixed
-    U): a derivative in x raises."""
+    vmap of jvp).  Without ``csr_t`` x is a constant of every path (the
+    residual map's fixed U): a derivative in x, or a batch of x under
+    vmap, raises.  With ``csr_t``, the plan of the transposed pattern
+    (``build_csr(cols, rows, n_cols, n)``), x is differentiable too: the
+    cotangent of x is the transposed stack applied to the output's
+    cotangent, one K3 product per operator through this Function (so a
+    backward is itself differentiable); the sparse API's ``matvec`` runs
+    on it."""
 
     @staticmethod
-    def forward(data, x, csr, seg):
+    def forward(data, x, csr, seg, csr_t=None):
         return csr_mv(data, x, csr, seg)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        data, x, csr, seg = inputs
+        data, x, csr, seg = inputs[:4]
         ctx.csr, ctx.seg = csr, seg
-        ctx.save_for_backward(x)
-        ctx.save_for_forward(x)
+        ctx.csr_t = inputs[4] if len(inputs) > 4 else None
+        ctx.save_for_backward(data, x)
+        ctx.save_for_forward(data, x)
         # an input without a tangent gets None, not a tensor of zeros (one
         # K3 product on zeros in every jvp otherwise)
         ctx.set_materialize_grads(False)
 
     @staticmethod
     def backward(ctx, gy):
-        (x,) = ctx.saved_tensors
-        if ctx.needs_input_grad[1]:
+        data, x = ctx.saved_tensors
+        if ctx.needs_input_grad[1] and ctx.csr_t is None:
             raise NotImplementedError(_X_CONSTANT)
+        if gy is None:
+            return None, None, None, None, None
         gd = (_data_grad(gy, x, ctx.csr, ctx.seg)
-              if ctx.needs_input_grad[0] and gy is not None else None)
-        return gd, None, None, None
+              if ctx.needs_input_grad[0] else None)
+        gx = None
+        if ctx.needs_input_grad[1]:
+            gx = sum(CSRMatVec.apply(data[s:s + 1], gy[s], ctx.csr_t,
+                                     ctx.seg, ctx.csr)[0]
+                     for s in range(data.shape[0]))
+        return gd, gx, None, None, None
 
     @staticmethod
-    def jvp(ctx, d_data, d_x, _csr, _seg):
+    def jvp(ctx, d_data, d_x, _csr, _seg, _csr_t=None):
+        if d_x is not None and ctx.csr_t is None:
+            raise NotImplementedError(_X_CONSTANT)
+        data, x = ctx.saved_tensors
+        out = None
+        if d_data is not None:
+            out = CSRMatVec.apply(d_data, x, ctx.csr, ctx.seg, ctx.csr_t)
         if d_x is not None:
-            raise NotImplementedError(_X_CONSTANT)
-        if d_data is None:
-            return None
-        (x,) = ctx.saved_tensors
-        return CSRMatVec.apply(d_data, x, ctx.csr, ctx.seg)
+            dx = CSRMatVec.apply(data, d_x, ctx.csr, ctx.seg, ctx.csr_t)
+            out = dx if out is None else out + dx
+        return out
 
     @staticmethod
-    def vmap(info, in_dims, data, x, csr, seg):
-        if in_dims[1] is not None:
+    def vmap(info, in_dims, data, x, csr, seg, csr_t=None):
+        if in_dims[1] is not None and csr_t is None:
             raise NotImplementedError(_X_CONSTANT)
-        # batched data (the tangents of jacfwd): fold the batch into the
-        # operator stack, one product for all of them
+        if in_dims[1] is None:
+            # batched data (the tangents of jacfwd): fold the batch into
+            # the operator stack, one product for all of them
+            data = data.movedim(in_dims[0], 0)
+            B, S = data.shape[:2]
+            out = CSRMatVec.apply(data.reshape(B * S, -1), x, csr, seg,
+                                  csr_t)
+            return out.reshape((B, S) + out.shape[1:]), 0
+        x = x.movedim(in_dims[1], 0)
+        if in_dims[0] is None:
+            # a batch of x: more lanes of one product
+            return CSRMatVec.apply(data, x, csr, seg, csr_t), 1
         data = data.movedim(in_dims[0], 0)
-        B, S = data.shape[:2]
-        out = CSRMatVec.apply(data.reshape(B * S, -1), x, csr, seg)
-        return out.reshape((B, S) + out.shape[1:]), 0
+        return torch.stack([CSRMatVec.apply(d, xb, csr, seg, csr_t)
+                            for d, xb in zip(data, x)]), 0
 
 
-def csr_apply(data, x, csr: CSRPattern, seg: int | None = None):
+def csr_apply(data, x, csr: CSRPattern, seg: int | None = None,
+              csr_t: CSRPattern | None = None):
     """Differentiable ``csr_mv`` (``CSRMatVec``): the residual map's
-    operator apply."""
-    return CSRMatVec.apply(data, x, csr, seg)
+    operator apply (in the data only), or with ``csr_t`` a product
+    differentiable in x too."""
+    return CSRMatVec.apply(data, x, csr, seg, csr_t)

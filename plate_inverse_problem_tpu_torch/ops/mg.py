@@ -1,18 +1,29 @@
-"""Two-grid preconditioner of the band tier (port of ``ops/mg.py``).
+"""Multilevel (geometric) preconditioners (port of ``ops/mg.py``).
 
-    C(r) = S(r) + P Kc^-1 P^T (r - K S(r)) ,  S = Chebyshev smoothing
+    C(r) = S(r) + P C_coarse(P^T (r - K S(r))) ,  S = Chebyshev smoothing
 
 with *geometric* prolongations P evaluated through the FE bases (P1 for the
-membrane fields, Morley values/normal-derivatives for bending), a Galerkin
-coarse operator (host scipy) and its dense f32 inverse.  The cycle runs in
-f32: it is only a preconditioner, and the FGMRES around it (ops/mixed.py)
-computes its residuals in exact split-complex f64, so its roundoff costs
-iterations, never accuracy.
+membrane fields, Morley values/normal-derivatives for bending), Galerkin
+coarse operators (P^T K P, host scipy) and a dense inverse of the coarsest
+one.  The cycles run in f32: they are only preconditioners, and the FGMRES
+around them (ops/mixed.py) computes its residuals in exact split-complex
+f64, so their roundoff costs iterations, never accuracy.
 
-The host-side code is a numpy copy of the JAX package's; the device half
-(``_chebyshev_smooth``, ``twogrid_apply``) is torch, with the fine operator
-applied by the CUDA band kernel (ops/band_kernel.py).  The flat multilevel
-cycle (``multilevel_apply``) is not ported yet.
+Two cycles, both the JAX package's:
+
+* ``twogrid_apply``, the band tier's: the fine operator in the RCM
+  block-tridiagonal layout, applied by the CUDA band kernel (K1,
+  ops/band_kernel.py), one coarse level through the rectangular
+  block-band prolongation;
+* ``multilevel_apply``, the flat layout's: a recursive (V- or W-) cycle
+  over any number of levels, every product on a flat pattern through the
+  CSR kernel (K3, ops/csr_kernel.py) — the level operators, and the
+  prolongations P and restrictions P^T as rectangular patterns, each with
+  its plan (``multilevel_to_device``); the optional level-0 band operator
+  runs K1.
+
+The host-side code (``build_prolongation``, ``build_multilevel_host``) is a
+numpy copy of the JAX package's; the device half is torch.
 """
 from __future__ import annotations
 
@@ -124,6 +135,84 @@ def _pin_dead(Kc, P_csr):
     return Kc
 
 
+def build_multilevel_host(K_flat, rows, cols, n: int, P_csr_list,
+                          row_scale=None, invert_coarse: bool = True):
+    """Host-side data for the multilevel V-cycle on an equilibrated SPD K.
+
+    ``P_csr_list``: geometric prolongations finest-first — entry ``l`` maps
+    level ``l+1`` DOFs to level ``l`` DOFs (level 0 = the fine operator).
+    ``row_scale``: the fine-grid equilibration vector s (K here is
+    S K_phys S).  The prolongations are built in PHYSICAL DOF space, so the
+    finest one must be mapped into scaled variables, P~ = S^-1 P — without
+    this the coarse correction cannot represent the scaled smooth error and
+    the cycle stalls near rate ~0.95; with it the JAX package measured a
+    rate of ~0.29 (its tests/test_mg.py).  Coarser levels keep physical
+    variables throughout (the Chebyshev smoother normalizes through D^-1,
+    so no per-level re-equilibration is needed).
+
+    Returns ``(arrays, static)``: ``arrays`` holds numpy arrays (per-level
+    inverse diagonals, flat coarse operators, flat prolongations, and the
+    coarsest level: its dense inverse ``Kc_inv32``, or with
+    ``invert_coarse=False`` its flat operator ``Kc_coo`` for the caller to
+    invert on its device); ``static`` the per-level lambda_max bounds and
+    DOF counts.  Everything is f32 as in the JAX package — the cycle is a
+    preconditioner — except ``Kc_coo``'s data, which stays f64 here: the
+    port inverts the coarsest operator in f64 (ops/dense.py), and the
+    Galerkin operator's spread (~1e7) would turn the f32 rounding of its
+    entries into an O(1) error of that inverse.
+    """
+    import scipy.sparse as sp
+
+    K = sp.csc_matrix((K_flat, (rows, cols)), shape=(n, n))
+    K = 0.5 * (K + K.T)
+
+    levels = []
+    lmaxs = []
+    ns = [n]
+    for li, P in enumerate(P_csr_list):
+        if li == 0 and row_scale is not None:
+            P = (sp.diags(1.0 / np.asarray(row_scale)) @ P).tocsr()
+        dinv, lmax = _dinv_lmax(K)
+        lv = {"dinv": dinv.astype(np.float32)}
+        if li > 0:
+            Kcoo = K.tocoo()
+            lv |= {
+                "Kf": Kcoo.data.astype(np.float32),
+                "rows": Kcoo.row.astype(np.int32),
+                "cols": Kcoo.col.astype(np.int32),
+            }
+        Pcoo = P.tocoo()
+        lv |= {
+            "P_rows": Pcoo.row.astype(np.int32),
+            "P_cols": Pcoo.col.astype(np.int32),
+            "P_vals": Pcoo.data.astype(np.float32),
+        }
+        levels.append(lv)
+        lmaxs.append(lmax)
+        ns.append(P.shape[1])
+
+        K = _pin_dead((P.T @ (K @ P)).tocsc(), P)
+        K = 0.5 * (K + K.T)
+
+    arrays = {"levels": tuple(levels)}
+    if invert_coarse:
+        # sparse LU + identity solves: no O(n^3) dense work and no f64
+        # dense copy of K on the host
+        import scipy.sparse.linalg as spla
+
+        lu = spla.splu(K.tocsc())
+        Kc_inv = lu.solve(np.eye(K.shape[0]))
+        arrays["Kc_inv32"] = np.ascontiguousarray(Kc_inv.astype(np.float32))
+    else:
+        Kcoo = K.tocoo()
+        arrays["Kc_coo"] = {"data": Kcoo.data.astype(np.float64),
+                            "rows": Kcoo.row.astype(np.int32),
+                            "cols": Kcoo.col.astype(np.int32),
+                            "n": K.shape[0]}
+    static = {"lmax": tuple(lmaxs), "n": tuple(ns)}
+    return arrays, static
+
+
 def _chebyshev_smooth(mg, K_mv, r, e0=None, steps: int = 4,
                       spectrum_fraction: float = 8.0):
     """Chebyshev polynomial smoothing on the interval
@@ -168,3 +257,103 @@ def twogrid_apply(pack, dinv, lmax, Pt, Kc_inv, r32, layout, rl,
     ec = rc @ Kc_inv.T
     e = e + rect_band_mv(Pt, ec, rl, slots)
     return _chebyshev_smooth(sm, K_mv, r32, e0=e, steps=smooth_steps)
+
+
+def multilevel_to_device(arrays, static, device, Kc_inv=None) -> dict:
+    """The host hierarchy of ``build_multilevel_host`` on ``device``, as
+    ``multilevel_apply`` reads it, built once: per level its inverse
+    diagonal, its f32 operator with its CSR plan (levels >= 1; level 0 is
+    the caller's fine operator), and its prolongation's f32 values with two
+    plans on them, P (n_l x n_{l+1}) and P^T (n_{l+1} x n_l, the swapped
+    pattern, reading the same values); the coarsest dense inverse in f32
+    (``Kc_inv``, any dtype on any device, else ``arrays["Kc_inv32"]``)."""
+    from .csr_kernel import build_csr
+
+    ns = tuple(int(v) for v in static["n"])
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    levels = []
+    for l, lv in enumerate(arrays["levels"]):
+        d = {"dinv": f32(lv["dinv"]), "P": f32(lv["P_vals"])[None],
+             "P_csr": build_csr(idx(lv["P_rows"]), idx(lv["P_cols"]), ns[l],
+                                ns[l + 1]),
+             "Pt_csr": build_csr(idx(lv["P_cols"]), idx(lv["P_rows"]),
+                                 ns[l + 1], ns[l])}
+        if l > 0:
+            d |= {"K": f32(lv["Kf"])[None],
+                  "csr": build_csr(idx(lv["rows"]), idx(lv["cols"]), ns[l])}
+        levels.append(d)
+    inv = arrays["Kc_inv32"] if Kc_inv is None else Kc_inv
+    return {"levels": levels,
+            "Kc_inv32": torch.as_tensor(inv, device=device).to(torch.float32),
+            "lmax": tuple(float(v) for v in static["lmax"]), "n": ns}
+
+
+def multilevel_apply(mg: dict, K0, csr0, r, smooth_steps: int = 4,
+                     w_cycle: bool | None = None, band0=None, layout=None):
+    """One symmetric multigrid cycle on (..., n) residuals (JAX
+    ``multilevel_apply``): Chebyshev pre-smooth, recursive coarse
+    correction, Chebyshev post-smooth at every level, the coarsest level
+    one GEMM with the dense inverse.  ``mg``: ``multilevel_to_device``'s
+    hierarchy; ``K0`` (nnz,) the fine operator's data on the plan ``csr0``
+    (cast to f32 once here; pass f32 to skip the cast).  Compute is f32
+    throughout; returns the correction in ``r``'s dtype.
+
+    ``w_cycle=True`` applies TWO recursive corrections per coarse visit (a
+    W-cycle): on the 2D plate hierarchy the coarse work shrinks ~4x per
+    level, so the extra visits cost ~25% while holding the multilevel rate
+    near the two-grid rate (the JAX package measured 0.49 V vs ~0.3 W at
+    three levels); None: a W-cycle where there are two or more smoothed
+    levels (with one, the coarse solve is the exact dense inverse and a
+    second visit would re-solve the same system).
+
+    ``band0``/``layout``: the f32 fine operator packed for the band kernel
+    (``pack_band_tiles``) in its RCM block-tridiagonal layout, which then
+    replaces the level-0 K3 product; the caller's pattern and residuals
+    must already live in the layout's RCM ordering.
+    """
+    # looked up at each call: chip_smoke.py's RectCount wraps it to count
+    # the launches on the rectangular plans
+    from .csr_kernel import csr_mv
+
+    levels = mg["levels"]
+    in_dtype = r.dtype
+    K032 = K0.to(torch.float32).reshape(1, -1)
+    if w_cycle is None:
+        w_cycle = len(levels) >= 2
+
+    def level_mv(l):
+        if l == 0:
+            if band0 is not None:
+                return lambda x: band_mv_f32(band0, x, layout)
+            return lambda x: csr_mv(K032, x, csr0)[0]
+        lv = levels[l]
+        return lambda x: csr_mv(lv["K"], x, lv["csr"])[0]
+
+    def coarse_correct(l, rc):
+        """Approximately solve K_l e = rc by one (or two) recursive
+        cycles; level len(levels) is the exact dense inverse."""
+        ec = cycle(l, rc)
+        if w_cycle and l < len(levels):
+            ec = ec + cycle(l, rc - level_mv(l)(ec))
+        return ec
+
+    def cycle(l, rl):
+        if l == len(levels):
+            return rl @ mg["Kc_inv32"].T
+        lv = levels[l]
+        K_mv = level_mv(l)
+        sm = {"dinv": lv["dinv"], "lmax": mg["lmax"][l]}
+        e = _chebyshev_smooth(sm, K_mv, rl, steps=smooth_steps)
+        res = rl - K_mv(e)
+        rc = csr_mv(lv["P"], res, lv["Pt_csr"])[0]          # P^T res
+        e = e + csr_mv(lv["P"], coarse_correct(l + 1, rc), lv["P_csr"])[0]
+        return _chebyshev_smooth(sm, K_mv, rl, e0=e, steps=smooth_steps)
+
+    return cycle(0, r.to(torch.float32)).to(in_dtype)

@@ -1,13 +1,16 @@
 """Mixed-precision frequency sweep: f64-grade FRFs, f32 two-grid work.
 
-Port of the JAX package's ``ops/mixed.py`` for its three tiers: the exact
-f64 operator on the flat pattern (K3, the CSR kernel of ops/csr_kernel.py)
-or in the RCM block-tridiagonal layout, preconditioned by the dense inverse
-of the reference stiffness (n <= 12288; f64 in the port, ops/dense.py) or
-by the band f32 two-grid cycle.
+Port of the JAX package's ``ops/mixed.py`` for its tiers: the exact f64
+operator on the flat pattern (K3, the CSR kernel of ops/csr_kernel.py) or
+in the RCM block-tridiagonal layout, preconditioned by the dense inverse
+of the reference stiffness (n <= 12288; f64 in the port, ops/dense.py), by
+the band f32 two-grid cycle, or on the flat layout by the f32 multilevel
+cycle (ops/mg.py).
 
-1. **Band basis** (host, init-time): the lowest ``m`` M-orthonormal modes of
-   the equilibrated reference pencil, from ARPACK shift-invert in f64.
+1. **Band basis** (init-time): the lowest ``m`` M-orthonormal modes of
+   the equilibrated reference pencil, from ARPACK shift-invert in f64 on
+   the host (``band_basis_host``), or factorization-free by LOBPCG on the
+   device (ops/lobpcg.py, ``Problem(basis="lobpcg")``).
 2. **Per-theta Rayleigh-Ritz in f64** on the device: band eigenpairs with a
    Rayleigh-quotient refinement, and the exactly projected m x m pencil.
 3. **Per-frequency solve**: exact band-resolvent start, then restarted
@@ -61,10 +64,10 @@ import torch
 from .band import band_mv, flat_to_band
 from .band_kernel import band_mv_f32
 from .csr_kernel import build_csr, csr_apply, csr_mv
-from .mg import twogrid_apply
+from .mg import multilevel_apply, twogrid_apply
 
-# f32 refinement rounds around the two-grid cycle (each round costs one
-# extra f32 band matvec + cycle and squares the cycle's error)
+# f32 refinement rounds around the two-grid / multilevel cycle (each round
+# costs one extra f32 fine matvec + cycle and squares the cycle's error)
 _MG_REFINE = 1
 # refinement rounds inside the dense preconditioner when it is the JAX
 # package's f32 inverse (each costs one extra GEMM + f32 SpMV and squares
@@ -535,7 +538,11 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     * ``mg``, the two-grid data {"tg_pack" (the f32 K_ref band packed by
       ops/band_kernel.pack_band_tiles), "dinv", "Pt", "Kc_inv", "slots",
       "lmax", "rl", "layout"} (band layout only): the complement
-      preconditioner is the two-grid cycle;
+      preconditioner is the two-grid cycle; or the flat multilevel data
+      {"multilevel" (ops/mg.multilevel_to_device), "Kref32" (nnz,) the
+      f32 reference stiffness on the pattern}: the multilevel cycle, every
+      product on K3 (the flat layout's, JAX ``ops/mixed.py:957-970``);
+      either with ``_MG_REFINE`` f32 refinement rounds;
     * else ``invK`` (n, n), the dense inverse of the reference stiffness,
       applied as one GEMM in its own precision: f64, the port's (see
       ops/dense.py), or f32, the JAX package's, with ``_PRECOND_REFINE``
@@ -569,13 +576,9 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     convergence signal of ``_pgmres``, (U_re, U_im, rn, rn_fin, rn0, tol),
     each norm (F,) in the units of b.
     """
-    if mg is not None and band is None:
-        raise NotImplementedError(
-            "The flat multilevel preconditioner (a multigrid without the "
-            "band layout) is not ported yet (ROADMAP Queue 1, item 14).")
     if mg is None and invK is None:
         raise ValueError("mixed_sweep needs a complement preconditioner: "
-                         "the two-grid data ``mg`` or the dense ``invK``.")
+                         "the multigrid data ``mg`` or the dense ``invK``.")
     f64 = torch.float64
     f32 = torch.float32
     dev = K_re.device
@@ -663,17 +666,31 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
     # ---- complement preconditioner: pc(x) in x's dtype ------------------
     if mg is not None:
-        def cycle(x32):
-            return twogrid_apply(mg["tg_pack"], mg["dinv"], mg["lmax"],
-                                 mg["Pt"], mg["Kc_inv"], x32, mg["layout"],
-                                 mg["rl"], mg["slots"])
+        if "tg_pack" in mg:
+            # band tier: the two-grid cycle, its fine products on K1
+            def cycle(x32):
+                return twogrid_apply(mg["tg_pack"], mg["dinv"], mg["lmax"],
+                                     mg["Pt"], mg["Kc_inv"], x32,
+                                     mg["layout"], mg["rl"], mg["slots"])
+
+            def Kref32_mv(y32):
+                return band_mv_f32(mg["tg_pack"], y32, mg["layout"])
+        else:
+            # flat layout: the multilevel cycle, every product on K3
+            K032 = mg["Kref32"].reshape(1, -1)
+
+            def cycle(x32):
+                return multilevel_apply(mg["multilevel"], K032, csr, x32)
+
+            def Kref32_mv(y32):
+                return csr_mv(K032, y32, csr)[0]
 
         def pc(x):
-            # the f32 two-grid cycle with f32 refinement rounds around it
+            # the f32 cycle with f32 refinement rounds around it
             x32 = x.to(f32)
             y32 = cycle(x32)
             for _ in range(_MG_REFINE):
-                r32 = x32 - band_mv_f32(mg["tg_pack"], y32, mg["layout"])
+                r32 = x32 - Kref32_mv(y32)
                 y32 = y32 + cycle(r32)
             return y32.to(x.dtype)
     else:

@@ -228,9 +228,25 @@ def test_residual_jacobian_on_card_matches_cpu(cuda_device):
     assert np.abs(J_g - J_c).max() <= 1e-5 * np.abs(J_c).max()
 
 
+@functools.lru_cache(maxsize=1)
+def _prolongation():
+    """The flat multilevel's prolongation P of the bench plate (1466 x 470:
+    the refine = 1 plate onto its factor-2 coarsening, as
+    ``Problem(precond="mg", operator_layout="flat")`` builds it)."""
+    p = pt.Problem(*_parts(), device="cpu")
+    c_mesh, c_free, c_con = p._coarse_level(2.0)
+    from plate_inverse_problem_tpu_torch.ops.mg import build_prolongation
+    return build_prolongation(p.mesh, c_mesh, p.op.free_idx, c_free,
+                              p.op.constrained, c_con,
+                              three_field=True).tocoo()
+
+
 def _csr_cases(device):
-    """The bench plate's pattern (n = 1466, in CSR order) and a shuffled
-    random one with an empty row (n = 1001), each with its CSR copy."""
+    """The bench plate's pattern (n = 1466, in CSR order), a shuffled
+    random one with an empty row (n = 1001), and the rectangular P (1466 x
+    470, in CSR order) and P^T (470 x 1466, the swapped pattern, read
+    through its permutation) of the flat multilevel cycle, each with its
+    CSR copy."""
     rows, cols, n, _ = _patterns()[0]
     rng = np.random.default_rng(5)
     m = 1001
@@ -238,12 +254,16 @@ def _csr_cases(device):
     A[m // 2] = False
     r, c = np.nonzero(A)
     perm = rng.permutation(r.size)
+    P = _prolongation()
     out = []
-    for rr, cc, nn in ((rows, cols, n), (r[perm], c[perm], m)):
-        out.append(csr_kernel.build_csr(torch.as_tensor(rr, device=device),
-                                        torch.as_tensor(cc, device=device),
-                                        nn))
+    for rr, cc, shape in ((rows, cols, (n, n)), (r[perm], c[perm], (m, m)),
+                          (P.row, P.col, P.shape),
+                          (P.col, P.row, P.shape[::-1])):
+        out.append(csr_kernel.build_csr(
+            torch.as_tensor(rr.astype(np.int64), device=device),
+            torch.as_tensor(cc.astype(np.int64), device=device), *shape))
     assert out[0].perm is None and out[1].perm is not None
+    assert out[2].perm is None and out[3].perm is not None
     return out
 
 
@@ -253,14 +273,14 @@ def _csr_cases(device):
                                        (torch.float32, 6, 37)])
 def test_csr_kernel_matches_plain(cuda_device, dtype, S, L):
     """K3 against its plain version: S operators (6: three of the kernel's
-    groups of 2 in registers, still one launch), L lanes, f64 and f32; two
-    launches give the same bits."""
+    groups of 2 in registers, still one launch), L lanes, f64 and f32, on
+    square and rectangular patterns; two launches give the same bits."""
     for csr in _csr_cases(cuda_device):
         rng = np.random.default_rng(S * L)
         data = torch.as_tensor(rng.standard_normal((S, csr.nnz)),
                                dtype=dtype, device=cuda_device)
-        x = torch.as_tensor(rng.standard_normal((L, csr.n)), dtype=dtype,
-                            device=cuda_device)
+        x = torch.as_tensor(rng.standard_normal((L, csr.n_cols)),
+                            dtype=dtype, device=cuda_device)
         n0 = csr_kernel.csr_mv_cuda.launches
         y = csr_kernel.csr_mv(data, x, csr)
         y_ref = csr_kernel.csr_mv_reference(data, x, csr)
@@ -278,7 +298,8 @@ def test_csr_kernel_matches_plain(cuda_device, dtype, S, L):
 @pytest.mark.parametrize("L", [1, 3, 16, 33, 1024])
 def test_csr_kernel_regimes(cuda_device, dtype, L):
     """Each of K3's kernels (one lane, narrow and wide lanes) at S in {1, 2,
-    5, 32} on the bench pattern and a shuffled one: against the plain
+    5, 32} on the bench pattern, a shuffled one and the multilevel cycle's
+    P and P^T: against the plain
     version, one launch a call counted under its regime, two calls bit for
     bit, and a non-contiguous x (a transposed view, read by its strides)
     giving the same bits."""
@@ -288,7 +309,7 @@ def test_csr_kernel_regimes(cuda_device, dtype, L):
             rng = np.random.default_rng(S * L + csr.n)
             data = torch.as_tensor(rng.standard_normal((S, csr.nnz)),
                                    dtype=dtype, device=cuda_device)
-            x = torch.as_tensor(rng.standard_normal((L, csr.n)),
+            x = torch.as_tensor(rng.standard_normal((L, csr.n_cols)),
                                 dtype=dtype, device=cuda_device)
             n0 = csr_kernel.csr_mv_cuda.launches
             r0 = csr_kernel.csr_mv_cuda.launches_by_regime[kind]

@@ -20,7 +20,9 @@ import torch
 import plate_inverse_problem_tpu as pip
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu.ops import mixed as jmixed
+from plate_inverse_problem_tpu_torch.ops import mg as tmg
 from plate_inverse_problem_tpu_torch.ops import mixed as tmixed
+from plate_inverse_problem_tpu_torch.ops.band import permute_vector
 from plate_inverse_problem_tpu_torch.oracle import splu_frf
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -160,8 +162,11 @@ def test_unported_sweep_options_raise(setup, sweeps):
     with K_im as a third exact operator: on this isotropic plate, where
     K_im = beta K_re, ``ki_proportional=False`` gives the scalar-loss sweep
     to 1e-8 of a lane's max |U| (K_im u is applied, not scaled).  The
-    two-grid without the band layout (the flat multilevel preconditioner)
-    still raises, naming its ROADMAP item."""
+    multigrid without the band layout, which it also refused, is the flat
+    multilevel preconditioner: the sweep on the flat pattern (the band
+    layout's numbering, its P's rows permuted alike) with a two-level
+    hierarchy meets the two-grid sweep to 3e-6 of a lane's max |U| and
+    the splu oracle to 1e-6."""
     _, _, pp, x = setup
     _, (Ut_re, Ut_im) = sweeps
     od_t = pp.getFRCore()[1]
@@ -171,8 +176,22 @@ def test_unported_sweep_options_raise(setup, sweeps):
     err = np.abs((U_re - Ut_re) + 1j * (U_im - Ut_im)).max(axis=1)
     assert np.all(err <= 1e-8 * scale)
     t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in x.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        tmixed.mixed_sweep(
-            t["K_re"], t["K_im"], od_t["MIn"], t["B_re"], t["B_im"],
-            t["omegas"], od_t["rows"], od_t["cols"], pp.n_free, od_t["W64"],
-            mg={"tg_pack": pp._band_pack})
+    lay = pp._band_layout
+    c_mesh, c_free, c_con = pp._coarse_level(2.0)
+    P = tmg.build_prolongation(pp.mesh, c_mesh, pp.op.free_idx, c_free,
+                               pp.op.constrained, c_con, three_field=True)
+    arr, st = tmg.build_multilevel_host(
+        od_t["Kref64"].numpy(), od_t["rows"].numpy(), od_t["cols"].numpy(),
+        pp.n_free, [P[lay.perm].tocsr()],
+        row_scale=permute_vector(lay, pp._eq_scale))
+    U_re, U_im = (u.numpy() for u in tmixed.mixed_sweep(
+        t["K_re"], t["K_im"], od_t["MIn"], t["B_re"], t["B_im"],
+        t["omegas"], od_t["rows"], od_t["cols"], pp.n_free, od_t["W64"],
+        mg={"multilevel": tmg.multilevel_to_device(arr, st, "cpu"),
+            "Kref32": od_t["Kref64"].float()}))
+    err = np.abs((U_re - Ut_re) + 1j * (U_im - Ut_im)).max(axis=1)
+    assert np.all(err <= 3e-6 * scale)
+    y = _readout(setup[1], U_re, U_im,
+                 pp.accelerometer.transverse_sensitivity)
+    ref = splu_frf(pp, FREQS)
+    assert np.all(np.abs(y - ref) <= 1e-6 * np.abs(ref))

@@ -163,14 +163,17 @@ def test_solve_forward_own_basis_matches_oracle(port_problem):
     {},   # 'auto' on this small plate resolves to flat + dense
 ])
 def test_unported_tiers_raise(kw):
-    """The tier combinations the port once refused: the two dense ones now
-    build on their own operator data and meet the splu oracle to 1e-6;
-    (flat, mg), the flat multilevel preconditioner, still raises."""
-    p = pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
-    if kw.get("precond") == "mg":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-            p.getFRCore()
-        return
+    """The tier combinations the port once refused now build on their own
+    operator data and meet the splu oracle to 1e-6: the two dense ones,
+    and (flat, mg), the flat multilevel preconditioner (on the refine = 1
+    plate: the refine = 0.5 one has no coarser level to build)."""
+    mg = kw.get("precond") == "mg"
+    p = pt.Problem(*_port_parts(refine=1.0 if mg else 0.5), device="cpu",
+                   **kw)
+    if mg:
+        p.getFRCore()
+        assert p._tier[:2] == ("flat", "mg")
+        assert len(p._multilevel["levels"]) == 1
     freqs = FREQS[::3]
     y = p.solveForward(freqs).numpy()
     ref = splu_frf(p, freqs)
@@ -179,19 +182,20 @@ def test_unported_tiers_raise(kw):
 
 @pytest.mark.parametrize("kw", [{"engine": "modal"}, {"basis": "lobpcg"}])
 def test_unported_options_raise(kw):
-    """Of the options the port once refused, engine='modal' is ported: it
-    builds the modal engine, which meets the splu oracle to 1e-9 (an exact
-    f64 solve); basis='lobpcg' still raises naming its ROADMAP item."""
+    """The options the port once refused are ported: engine='modal' builds
+    the modal engine, which meets the splu oracle to 1e-9 (an exact f64
+    solve); basis='lobpcg' builds the LOBPCG band basis (the dense tier at
+    n = 470), and the mixed sweep on it meets the oracle to 1e-6."""
+    p = pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
+    freqs = FREQS[::3]
+    y = p.solveForward(freqs).numpy()
+    ref = splu_frf(p, freqs)
     if "engine" in kw:
-        p = pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
         assert p.getFRCore()[0].engine == "modal"
-        freqs = FREQS[::3]
-        y = p.solveForward(freqs).numpy()
-        ref = splu_frf(p, freqs)
         assert np.all(np.abs(y - ref) <= 1e-9 * ref)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.Problem(*_port_parts(refine=0.5), device="cpu", **kw)
+    assert p._basis_resolved == "lobpcg"
+    assert np.all(np.abs(y - ref) <= 1e-6 * ref)
 
 
 class _FreqDepIsotropic(pt.Isotropic):
