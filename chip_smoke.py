@@ -155,7 +155,27 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    the refined splu, its gradient against central differences, vmap
    against calls, ``matvec`` against the plain version, the LU's time
    beside its bound; (d) K3 against its plain version and the library
-   call on the 21k chain's P and P^T at RECT_LANES lanes.
+   call on the 21k chain's P and P^T at RECT_LANES lanes;
+13. the diagnostics, K3's long rows and the compat layer
+   (``[slice11]``): (a) K3 on a synthetic pattern whose rows reach
+   300-3000 distinct columns (LONG_N rows, every LONG_EVERY-th a long row:
+   the long-row kernel beside each tile kernel) against its plain version
+   (LONG_TOL in f64), two launches bit for bit, timed beside its bound and
+   ``torch.sparse.mm``; (b) ``diagnostics.polish_peaks`` at the bench
+   plate and on phase 2's 21k Problem at theta = truth x POLISH_SCALE: the
+   peak against the refined splu before and after (ORACLE_TOL after), K3
+   launches in both and K1 at 21k, and JAX tests/test_diagnostics.py's
+   starved budget returned verbatim; (c) ``diagnostics.oracle_check`` of
+   the bench and 21k sweeps (and in phase 9 (e) as
+   ``examples/edp_import.py`` runs it) to ORACLE_TOL; (d)
+   ``diagnostics.parity``'s expansion at the bench plate against its mixed
+   sweep (EXP_TOL) with its checksum interval, and the reference's golden
+   checksum inside the interval on tests/test_golden_parity.py's plate;
+   (e) ``diagnostics.profile_call`` of one steady bench sweep: its Chrome
+   trace names K3's kernels as often as the launch counter counts; (f)
+   ``device_report`` and ``test_function`` on 5e7 f32 against numpy
+   (``examples/test_device_lib.py``); (g) tests/test_compat.py's script
+   on the card.
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -164,8 +184,9 @@ Run from the repository root:  python3 chip_smoke.py
 (``--ab SOURCE``, repeatable, also builds another version of K1, with the
 earlier dense-band or the packed C interface, and times it beside the
 kernel in the tree, in turns; ``--ab-csr SOURCE`` does the same for K3
-with the first cut's C interface, at every phase 9 (a) case, and requires
-its bits to be the kernel's.)
+with the first cut's C interface or the tiled one before the long rows
+(commit 499a5fc), at every phase 9 (a) case, and requires its bits to be
+the kernel's.)
 """
 from __future__ import annotations
 
@@ -358,6 +379,23 @@ SPARSE_GRAD_TOL = 1e-6
 SPARSE_MV_TOL = 1e-14
 # phase 12 (d): the lane counts of K3 on the 21k chain's P and P^T
 RECT_LANES = (1, 16, 1024)
+# phase 13 (a): the synthetic long-row pattern (rows, every how many rows a
+# long one, its distinct columns) and K3's bound against its plain version
+# there, of max |y| (a long row's 300-3000 terms in a tree against the
+# scatter's order)
+LONG_N = 16384
+LONG_EVERY = 64
+LONG_COLS = (300, 3000)
+LONG_TOL = 1e-14
+# phase 13 (b): theta / truth of the polish (JAX tests/test_diagnostics.py)
+POLISH_SCALE = (1.1, 0.9, 1.2)
+# phase 13 (d): the expansion against the sweep (the JAX test's bound, 48
+# modes at least) and the reference's golden checksum of the symm plate
+EXP_TOL = 5e-6
+GOLDEN = 341.9363
+# phase 13 (f): 2x + sin(x) in f32 against numpy's, absolute (|y| < 13:
+# a few f32 ulps)
+DEVICE_LIB_TOL = 1e-5
 # phase 9 (e): the script of examples/edp_import.py
 EDP_SCRIPT = """
 // a plate with a circular hole, clamped on its RIGHT border (label 2 --
@@ -1290,6 +1328,13 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
         failed.append(str(err))
     s10_s = time.perf_counter() - t12
     print(f"[time] phase 12 in {s10_s:.1f} s", flush=True)
+    t13 = time.perf_counter()
+    try:
+        s11 = slice11(dev, p, freqs, fr)
+    except AssertionError as err:
+        failed.append(str(err))
+    s11_s = time.perf_counter() - t13
+    print(f"[time] phase 13 in {s11_s:.1f} s", flush=True)
     if failed:
         raise AssertionError(" || ".join(failed))
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
@@ -1314,14 +1359,18 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                "slice8": {k: v for k, v in s8.items()
                           if k not in ("k1", "k3")},
                "engines": {k: v for k, v in eng.items() if k != "k3"},
-               "slice10": s10}
+               "slice10": s10,
+               "slice11": {k: v for k, v in s11.items()
+                           if k not in ("k1", "k3")}}
     summary["phases_s"] = time.perf_counter() - t_phases
     summary["phases_2_9_s"] = summary_s
     summary["phase_11_s"] = eng_s
     summary["phase_12_s"] = s10_s
-    print(f"[time] phases 2-12 in {summary['phases_s']:.1f} s (phase 10: "
-          f"{summary['phases_s'] - summary_s - eng_s - s10_s:.1f} s, phase "
-          f"11: {eng_s:.1f} s, phase 12: {s10_s:.1f} s)", flush=True)
+    summary["phase_13_s"] = s11_s
+    print(f"[time] phases 2-13 in {summary['phases_s']:.1f} s (phase 10: "
+          f"{summary['phases_s'] - summary_s - eng_s - s10_s - s11_s:.1f} s,"
+          f" phase 11: {eng_s:.1f} s, phase 12: {s10_s:.1f} s, phase 13: "
+          f"{s11_s:.1f} s)", flush=True)
     k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
                 "grad_21k": inv["k3_grad"],
                 "dense_sweep_1466": dense["bench"]["k3"],
@@ -1334,7 +1383,8 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                 "mg_flat_rj_1466": s10["mg_1466"]["k3_rj"],
                 "mg_flat_sweeps_21k": s10["mg_20916"]["k3"],
                 "mg_flat_rect_21k": s10["mg_20916"]["k3_rect"],
-                "sparse_api": s10["sparse"]["k3"]}
+                "sparse_api": s10["sparse"]["k3"],
+                **s11["k3"]}
     if not all(v > 0 for v in k3_paths.values()):
         raise AssertionError(f"K3 launched no time on a path: {k3_paths}")
     print(f"[summary] {json.dumps(summary)}", flush=True)
@@ -1352,7 +1402,8 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                              "lobpcg_basis_21k":
                                  s10["lobpcg_20916"]["k1_basis"],
                              "mg_flat_sweeps_1466": s10["mg_1466"]["k1"],
-                             "mg_flat_sweeps_21k": s10["mg_20916"]["k1"]},
+                             "mg_flat_sweeps_21k": s10["mg_20916"]["k1"],
+                             **s11["k1"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
@@ -1373,6 +1424,11 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
             "label", "n", "n_cols", "nnz", "L", "dtype", "max_abs_err", "ms",
             "flushed_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
             for r in s10["rect"]],
+        "long_rows": [{k: r[k] for k in (
+            "label", "n", "nnz", "n_long", "S", "L", "dtype", "max_abs_err",
+            "rel_err", "ms", "flushed_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "long_launches")}
+            for r in s11["long_rows"]],
         **{k: s6["k3"]["headline"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -2007,16 +2063,20 @@ def csr_bound_ms(csr, S: int, L: int, itemsize: int) -> tuple[float, str]:
 
 
 def load_ab_csr(source: str):
-    """Build another version of K3 from ``source`` (the first cut's C
-    interface ``csr_mv_f64_launch`` / ``csr_mv_f32_launch(data, rowptr,
-    col, xt, y, S, L, n, nnz, stream)``, x transposed to (n, L)), for an
-    A/B beside the kernel in the tree (it is not part of the port), and
-    return (name, run), ``run(data, x, csr) -> y`` with its transposed copy
-    of x."""
+    """Build another version of K3 from ``source``, for an A/B beside the
+    kernel in the tree (it is not part of the port), and return (name,
+    run), ``run(data, x, csr) -> y``.  Two C interfaces are taken: the
+    first cut's ``csr_mv_f64_launch`` / ``csr_mv_f32_launch(data, rowptr,
+    col, xt, y, S, L, n, nnz, stream)``, x transposed to (n, L) by a copy
+    (commit 1a1f122), and the tiled kernels' ``csr_mv_{l1,narrow,wide}_
+    {f64,f32}`` on the plan as ``build_csr`` makes it, before the long
+    rows' argument was added (commit 499a5fc); the latter on a pattern
+    without long rows only."""
     import ctypes
 
     import torch
     from plate_inverse_problem_tpu_torch.ops import band_kernel
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
 
     name = os.path.splitext(os.path.basename(source))[0]
     lib_path = os.path.join(band_kernel.BUILD_DIR, f"libab_csr_{name}.so")
@@ -2027,13 +2087,45 @@ def load_ab_csr(source: str):
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
     lib = ctypes.CDLL(lib_path)
+    tiled = hasattr(lib, "csr_mv_wide_f64")
     fns = {}
     for dt, tdt in (("f64", torch.float64), ("f32", torch.float32)):
-        fn = getattr(lib, f"csr_mv_{dt}_launch")
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[tdt] = fn
+        if tiled:
+            for regime in ("L1", "narrow", "wide"):
+                fn = getattr(lib, f"csr_mv_{regime.lower()}_{dt}")
+                fn.argtypes = [ctypes.c_void_p] * 11 \
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
+                    + [ctypes.c_int] * 3 + [ctypes.c_longlong] \
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                fns[tdt, regime] = fn
+        else:
+            fn = getattr(lib, f"csr_mv_{dt}_launch")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+                ctypes.c_longlong, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[tdt] = fn
+
+    def run_tiled(data, x, csr):
+        if csr.n_long:
+            raise ValueError(f"{source} predates K3's long rows")
+        S, n = data.shape[0], csr.n
+        L = x.numel() // csr.n_cols
+        y = torch.empty((S, L, n), dtype=x.dtype, device=x.device)
+        x2 = x.reshape(L, csr.n_cols)
+        rc = fns[x.dtype, ck.regime(L)](
+            data.contiguous().data_ptr(), csr.tile_ptr.data_ptr(),
+            csr.tile_rows.data_ptr(), csr.col_ptr.data_ptr(),
+            csr.tile_cols.data_ptr(), csr.slot.data_ptr(),
+            csr.row_off.data_ptr(), csr.rowptr.data_ptr(),
+            csr.col.data_ptr(),
+            0 if csr.perm is None else csr.perm.data_ptr(), x2.data_ptr(),
+            *x2.stride(), y.data_ptr(), S, L, n, csr.nnz, csr.n_tiles,
+            csr.max_rows, csr.max_cols, csr.max_nnz, csr.max_block_nnz,
+            torch.cuda.current_stream().cuda_stream)
+        if rc < 0:
+            raise RuntimeError(f"{source}: cudaError {-rc}")
+        return y
 
     def run(data, x, csr):
         S, n = data.shape[0], csr.n
@@ -2049,11 +2141,12 @@ def load_ab_csr(source: str):
             raise RuntimeError(f"{source}: cudaError {-rc}")
         return y
 
-    return name, run
+    return name, run_tiled if tiled else run
 
 
 def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
-                ab=(), ones: bool = False, tag: str = "[slice6] (a)") -> dict:
+                ab=(), ones: bool = False, tag: str = "[slice6] (a)",
+                tol: float | None = None) -> dict:
     """K3 vs its plain version on random data (S, nnz) and x (L, n) from a
     numpy seed (x = 1 with ``ones``, the panels' row sums) on the pattern
     ``csr``; two launches must agree bit for bit, and so must the A/B
@@ -2063,11 +2156,13 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
     version, the library call (one
     ``torch.sparse.mm`` of the S operators stacked as one (S n, n) CSR
     matrix on x^T, given x^T) and the A/B kernels, in turns; the kernel
-    also with the L2 flushed."""
+    also with the L2 flushed.  ``tol``: the bound against the plain
+    version, of max |y| (None: CSR_TOL)."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
 
+    tol = CSR_TOL[dtype] if tol is None else tol
     tdt = torch.float64 if dtype == "f64" else torch.float32
     dev = csr.col.device
     n, nnz, n_cols = csr.n, csr.nnz, csr.n_cols
@@ -2117,7 +2212,7 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
     rec = {k: float(np.mean(v)) for k, v in times.items()}
     bound, bound_by = csr_bound_ms(csr, S, L, itemsize)
     rec.update(label=label, S=S, L=L, n=n, n_cols=n_cols, nnz=nnz,
-               dtype=dtype,
+               n_long=csr.n_long, dtype=dtype,
                regime=kind,
                max_abs_err=max_abs, rel_err=max_abs / scale,
                library_rel_err=lib_rel, deterministic=same,
@@ -2131,14 +2226,14 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
     shape = f"n={n}" if n == n_cols else f"{n}x{n_cols}"
     print(f"{tag} K3 {label}: {dtype} S={S} L={L} {shape} nnz={nnz} "
           f"({kind})  max|dy|={max_abs:.3e} rel={rec['rel_err']:.3e} (tol "
-          f"{CSR_TOL[dtype]}), two launches identical: {same}"
+          f"{tol}), two launches identical: {same}"
           + (f", A/B identical: {ab_same}" if ab else "")
           + f"  kernel {rec['ms']:.4f} ms (L2 flushed "
           f"{rec['flushed_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  library"
           f" (torch.sparse.mm) {rec['library_ms']:.4f} ms (rel "
           f"{lib_rel:.1e}){others}  bound {bound:.4f} ms ({bound_by}), "
           f"kernel at {100 * bound / rec['ms']:.1f} % of it", flush=True)
-    if not rec["rel_err"] <= CSR_TOL[dtype] or not same \
+    if not rec["rel_err"] <= tol or not same \
             or not all(ab_same.values()):
         raise AssertionError(f"K3 disagrees at {label}: rel "
                              f"{rec['rel_err']:.3e}, identical {same}, "
@@ -2352,6 +2447,8 @@ def edp_plate(dev) -> dict:
     import warnings
 
     import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.diagnostics import (
+        oracle_check as oracle_check_diag)
     from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
     tag = "[slice6] (e)"
@@ -2374,7 +2471,13 @@ def edp_plate(dev) -> dict:
     idx = [3, int(np.argmax(np.abs(fr))), 60, 120]
     ref = splu_frf(p, freqs[idx])
     rel = np.abs(fr[idx] - ref) / np.abs(ref)
+    # the script's own audit (examples/edp_import.py: oracle_check)
+    example = oracle_check_diag(p, freqs, fr=fr)
+    print(f"{tag} the script's oracle_check: engine '{example['engine']}' "
+          f"worst rel err vs f64 splu oracle: {example['worst_rel_err']:.2e} "
+          f"(at {example['at_hz']:.0f} Hz; tol {ORACLE_TOL})", flush=True)
     rec = {"n_free": p.n_free, "nnz": int(p.op.pattern.nnz),
+           "oracle_check": example,
            "clamped_labels": list(geom.clamped_labels),
            "test_point": list(geom.test_point), "tier": list(p._tier),
            "sweep_first_s": sweep_s[0], "sweep_steady_s": sweep_s[1],
@@ -2388,6 +2491,7 @@ def edp_plate(dev) -> dict:
           + f"; worst {rec['worst_rel_err']:.3e} (tol {ORACLE_TOL})",
           flush=True)
     if not (rec["worst_rel_err"] <= ORACLE_TOL and p.is_symmetric_path
+            and example["worst_rel_err"] <= ORACLE_TOL
             and tuple(geom.clamped_labels) == (2,)
             and np.iscomplexobj(fr)):
         raise AssertionError(f"{tag} failed: {rec}")
@@ -3282,6 +3386,347 @@ def engines(dev) -> dict:
                  "direct_rj_fwd_1466": out["direct"]["k3_rj"],
                  "modal_sweep_11910": out["scale"]["k3"]}
     out["k3_direct_sweep_1466"] = out["direct"]["k3"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the diagnostics, K3's long rows, the compat layer
+# ---------------------------------------------------------------------------
+
+def long_row_pattern(dev, n: int = LONG_N, seed: int = 0):
+    """Phase 13 (a)'s synthetic pattern (a dense row of a synthetic pencil
+    or a coarse restriction at a large factor; no plate has one): n x n, a
+    band of 25 columns a row (K3's tiles), and every LONG_EVERY-th row with
+    LONG_COLS[0]-LONG_COLS[1] distinct random columns (K3's long rows), in
+    a shuffled order (the data read through the plan's permutation), with
+    its CSR copy on ``dev``."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
+
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for i in range(n):
+        c = np.arange(max(0, i - 12), min(n, i + 13))
+        if i % LONG_EVERY == 7:
+            k = int(rng.integers(LONG_COLS[0], LONG_COLS[1] + 1))
+            c = np.union1d(c, rng.choice(n, k, replace=False))
+        rows.append(np.full(c.size, i))
+        cols.append(c)
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    perm = rng.permutation(r.size)
+    return ck.build_csr(torch.as_tensor(r[perm], device=dev),
+                        torch.as_tensor(c[perm], device=dev), n)
+
+
+def long_rows(dev) -> list:
+    """Phase 13 (a): K3 with long rows beside each tile kernel, against
+    its plain version (LONG_TOL of max |y| in f64, CSR_TOL in f32), two
+    launches bit for bit, timed beside its bound and torch.sparse.mm."""
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
+
+    csr = long_row_pattern(dev)
+    lens = np.diff(csr.rowptr.cpu().numpy())[csr.long_rows.cpu().numpy()]
+    print(f"[slice11] (a) K3 long rows: n={csr.n} nnz={csr.nnz}, "
+          f"{csr.n_long} long rows of {lens.min()}-{lens.max()} entries "
+          f"({lens.sum()} of the nonzeros), {csr.n_tiles} tiles for the "
+          f"rest; build_csr {1e3 * csr.plan_s:.1f} ms on the host",
+          flush=True)
+    recs = []
+    for seed, (S, L, dt, label) in enumerate((
+            (2, 1024, "f64", "long rows S=2 L=1024 (wide + long)"),
+            (2, 16, "f64", "long rows S=2 L=16 (narrow + long)"),
+            (32, 1, "f64", "long rows S=32 L=1 (one lane + long)"),
+            (1, 1024, "f32", "long rows f32 S=1 L=1024"))):
+        before = dict(ck.csr_mv_cuda.launches_by_regime)
+        rec = compare_csr(csr, S, L, dt, label, seed, ones=L == 1,
+                          tag="[slice11] (a)",
+                          tol=LONG_TOL if dt == "f64" else None)
+        after = ck.csr_mv_cuda.launches_by_regime
+        rec["long_launches"] = after["long"] - before["long"]
+        if rec["long_launches"] <= 0:
+            raise AssertionError(f"{label}: the long-row kernel never ran")
+        recs.append(rec)
+    return recs
+
+
+def polish_plate(p, freqs, label: str) -> dict:
+    """Phase 13 (b) on ``p``: the sweep at theta = truth x POLISH_SCALE,
+    then ``polish_peaks`` (one pass) with its K1 / K3 launches; the
+    polished peaks against the refined splu before and after
+    (ORACLE_TOL after)."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.diagnostics import polish_peaks
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
+    from plate_inverse_problem_tpu_torch.oracle import splu_frf
+
+    th = np.asarray(p.parameters, np.float64) * np.asarray(POLISH_SCALE)
+    fr = p.solveForward(freqs, th).cpu().numpy()
+    band_kernel.band_mv_f32_cuda.launches = 0
+    csr_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fr_pol, info = polish_peaks(p, freqs, fr=fr, params=th)
+    torch.cuda.synchronize()
+    pol_s = time.perf_counter() - t0
+    rec = {"n_free": p.n_free, "polish_s": pol_s,
+           "k1": band_kernel.band_mv_f32_cuda.launches,
+           "k3": csr_kernel.csr_mv_cuda.launches, "mode": info["mode"],
+           "f_hz": info["freqs_hz"]}
+    i = info["indices"]
+    ref = splu_frf(p, freqs[i], th)
+    rec["before"] = (np.abs(fr[i] - ref) / np.abs(ref)).tolist()
+    rec["after"] = (np.abs(fr_pol[i] - ref) / np.abs(ref)).tolist()
+    mask = np.ones(freqs.size, bool)
+    mask[i] = False
+    rec["others_unchanged"] = bool(np.array_equal(fr_pol[mask], fr[mask]))
+    print(f"[slice11] (b) polish_peaks {label} (n={p.n_free}, theta = truth "
+          f"x {POLISH_SCALE}): peaks at {rec['f_hz']} Hz, rel err vs the "
+          f"refined splu before {rec['before']}, after {rec['after']} (tol "
+          f"{ORACLE_TOL}); {pol_s:.3f} s, K1 {rec['k1']}, K3 {rec['k3']} "
+          f"launches; other points unchanged: {rec['others_unchanged']}",
+          flush=True)
+    if not (info["mode"] == "residual" and max(rec["after"]) <= ORACLE_TOL
+            and rec["others_unchanged"] and rec["k3"] > 0):
+        raise AssertionError(f"polish_peaks {label}: {rec}")
+    return rec
+
+
+def polish_starved(dev) -> dict:
+    """Phase 13 (b): JAX tests/test_diagnostics.py's starved case on the
+    card — a Krylov budget of one cycle far from the basis point makes the
+    correction non-contracting, and the safeguard returns the sweep's
+    value verbatim."""
+    import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.diagnostics import polish_peaks
+
+    acc = pt.Accelerometer("AP1030")
+    mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
+    geom = pt.Geometry("symm", acc, pt.GeometryParams(100e-3, 20e-3, 2e-3,
+                                                      10e-3, None), ny=1)
+    p = pt.Problem(geom, mat, acc, device=dev, n_refine=1, refine_tol=1e-14)
+    freqs = np.linspace(60.0, 400.0, 17)
+    th = np.asarray(p.parameters) * np.array([1.35, 0.72, 1.6])
+    fr = p.solveForward(freqs, th).cpu().numpy()
+    fr_p, info = polish_peaks(p, freqs, fr=fr, params=th, passes=2)
+    rec = {"improved": info["improved"],
+           "verbatim": bool(np.array_equal(fr_p, fr))}
+    print(f"[slice11] (b) starved budget (symm ny=1, n_refine=1): improved "
+          f"{rec['improved']}, returned verbatim {rec['verbatim']}",
+          flush=True)
+    if rec["improved"] != [False] or not rec["verbatim"]:
+        raise AssertionError(f"starved polish: {rec}")
+    return rec
+
+
+def audit(p, freqs, fr, label: str) -> dict:
+    """Phase 13 (c): ``diagnostics.oracle_check`` of a sweep (plain splu at
+    the peak and three points over the band), to ORACLE_TOL."""
+    from plate_inverse_problem_tpu_torch.diagnostics import oracle_check
+
+    t0 = time.perf_counter()
+    rep = oracle_check(p, freqs, fr=fr)
+    rep["s"] = time.perf_counter() - t0
+    print(f"[slice11] (c) oracle_check {label}: engine {rep['engine']}, "
+          f"worst rel err {rep['worst_rel_err']:.3e} at {rep['at_hz']:.2f} "
+          f"Hz of {rep['checked_hz']} (tol {ORACLE_TOL}); {rep['s']:.2f} s",
+          flush=True)
+    if not rep["worst_rel_err"] <= ORACLE_TOL:
+        raise AssertionError(f"oracle_check {label}: {rep}")
+    return rep
+
+
+def expansion(p, freqs, fr) -> dict:
+    """Phase 13 (d): the mode-acceleration expansion at the bench plate
+    against its mixed sweep (EXP_TOL), with its checksum interval; and on
+    tests/test_golden_parity.py's plate (symm ny = 4) the reference's
+    golden 341.9363 inside the interval of a 1 % resonance error bar, the
+    port's own checksum near 147 (the JAX test's bounds)."""
+    import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.diagnostics import parity
+
+    t0 = time.perf_counter()
+    exp = parity.modal_frf_expansion(p, 600.0, n_modes_min=48)
+    exp_s = time.perf_counter() - t0
+    fe = parity.frf_from_expansion(exp, freqs)
+    rel = float(np.max(np.abs(fe - fr) / np.abs(fr)))
+    lo, hi = parity.checksum_interval(exp, freqs, [0.01], slack=1.0,
+                                      n_samples=800)
+    rec = {"n_free": p.n_free, "modes": int(exp["lam"].size),
+           "expansion_s": exp_s, "rel_vs_sweep": rel,
+           "checksum": float(fe.sum()), "interval": [lo, hi],
+           "resonances_hz": parity.resonances_hz(exp, 600.0).tolist()}
+    acc = pt.Accelerometer("AP1030")
+    mat = pt.get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
+    geom = pt.Geometry("symm", acc, pt.GeometryParams(100e-3, 20e-3, 2e-3,
+                                                      10e-3, None), ny=4)
+    q = pt.Problem(geom, mat, acc, device=p.device, engine="modal")
+    t0 = time.perf_counter()
+    eq = parity.modal_frf_expansion(q, 600.0, n_modes_min=48)
+    rec["golden_expansion_s"] = time.perf_counter() - t0
+    f50 = np.linspace(40.0, 600.0, 50)
+    rec["golden_n_free"] = q.n_free
+    rec["golden_ours"] = float(parity.frf_from_expansion(eq, f50).sum())
+    rec["golden_interval"] = list(parity.checksum_interval(
+        eq, f50, [0.01], slack=1.0, n_samples=800))
+    print(f"[slice11] (d) modal_frf_expansion n={p.n_free}: {rec['modes']} "
+          f"modes in {exp_s:.3f} s (generalized_eigh on the card), "
+          f"resonances {rec['resonances_hz']} Hz, against the mixed sweep "
+          f"{rel:.3e} (tol {EXP_TOL}); checksum {rec['checksum']:.6f} in "
+          f"[{lo:.4f}, {hi:.4f}] at a 1 % eigenvalue bar; symm ny=4 (n="
+          f"{q.n_free}, {rec['golden_expansion_s']:.3f} s): checksum "
+          f"{rec['golden_ours']:.4f}, interval {rec['golden_interval']} "
+          f"(the golden {GOLDEN} inside)", flush=True)
+    glo, ghi = rec["golden_interval"]
+    if not (rel <= EXP_TOL and lo <= rec["checksum"] <= hi
+            and glo < GOLDEN < ghi and abs(rec["golden_ours"] - 147.0) < 6.0):
+        raise AssertionError(f"modal expansion: {rec}")
+    return rec
+
+
+def traced_sweep(p, freqs) -> dict:
+    """Phase 13 (e): ``diagnostics.profile_call`` of one steady bench
+    sweep through the core: its Chrome trace names K3's kernels exactly as
+    often as the launch counter counts them, and the device's busy share
+    of the call from the trace's kernel times."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.diagnostics import profile
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+
+    core, od = p.getFRCore()
+    f_t = torch.as_tensor(freqs, device=p.device)
+    th = torch.as_tensor(np.asarray(p.parameters, np.float64),
+                         device=p.device)
+    core(f_t, th, od)                      # steady: warm caches
+    csr_kernel.reset_launches()
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "traces")
+    _, run, wall = profile.profile_call(core, f_t, th, od,
+                                        label="bench_sweep", logdir=logdir,
+                                        warmup=False)
+    counted = csr_kernel.csr_mv_cuda.launches
+    with open(os.path.join(run, profile.TRACE_FILE)) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k3 = [e for e in kernels if "csr_mv_" in e.get("name", "")]
+    busy_ms = sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    rec = {"trace": os.path.relpath(run), "wall_s": wall,
+           "k3_counted": counted, "k3_in_trace": len(k3),
+           "kernels_in_trace": len(kernels), "device_busy_ms": busy_ms,
+           "k3_ms": sum(e.get("dur", 0.0) for e in k3) / 1e3}
+    print(f"[slice11] (e) profile_call bench sweep: {wall:.4f} s wall, "
+          f"{len(kernels)} kernels in the Chrome trace, device busy "
+          f"{busy_ms:.2f} ms ({100 * busy_ms / (1e3 * wall):.1f} %), K3 "
+          f"{len(k3)} in the trace ({rec['k3_ms']:.2f} ms) against "
+          f"{counted} counted; trace {rec['trace']}", flush=True)
+    if counted <= 0 or len(k3) != counted:
+        raise AssertionError(f"trace vs counter: {rec}")
+    return rec
+
+
+def device_lib() -> dict:
+    """Phase 13 (f): examples/test_device_lib.py's flow on the port:
+    ``device_report`` and ``test_function`` on 5e7 f32 against numpy."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.diagnostics import (
+        device_report, test_function)
+
+    rep = device_report()
+    x = np.random.default_rng(0).standard_normal(5 * 10**7).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    y = test_function(x)
+    dt = time.perf_counter() - t0
+    err = float(np.abs(y - (2.0 * x + np.sin(x))).max())
+    rec = {"report": rep, "s": dt, "max_abs_err": err}
+    print(f"[slice11] (f) device_report {rep}; test_function on 5e7 f32 in "
+          f"{dt:.3f} s (copies included), max |delta| vs numpy {err:.3e} "
+          f"(tol {DEVICE_LIB_TOL})", flush=True)
+    dev0 = rep["devices"][0]
+    if not (rep["backend"] == "cuda"
+            and rep["n_devices"] == torch.cuda.device_count()
+            and dev0["name"] == torch.cuda.get_device_name(0)
+            and dev0["power_limit"] is not None and y.dtype == np.float32
+            and err <= DEVICE_LIB_TOL):
+        raise AssertionError(f"device report / test_function: {rec}")
+    return rec
+
+
+def compat_script() -> dict:
+    """Phase 13 (g): tests/test_compat.py's script, verbatim but for its
+    import, on the card (the Problem's default device)."""
+    import plate_inverse_problem_tpu_torch.compat as jp
+
+    acc = jp.Accelerometer.Accelerometer("AP1030")
+    geom = jp.Geometry.Geometry(
+        "symm", acc, jp.Geometry.GeometryParams(100e-3, 20e-3, 2e-3, 10e-3,
+                                                None),
+        ny=1,
+    )
+    mat = jp.Material.get_material(7920.0, "isotropic", E=200e9, G=75e9,
+                                   beta=0.003)
+    p = jp.Problem.Problem(geom, mat, acc)
+    fr = p.solveForward(np.linspace(40, 100, 3))
+    ok = (fr.is_cuda and bool(np.all(np.isfinite(fr.cpu().numpy())))
+          and hasattr(jp.Optimizers, "optimize_trust_region")
+          and hasattr(jp.Input, "Compressor") and hasattr(jp.Utils, "plot_fr")
+          and hasattr(jp.Sparse, "sweep_solve"))
+    print(f"[slice11] (g) compat script on {fr.device}: FRF "
+          f"{fr.cpu().numpy().tolist()}, surface complete: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("the compat script failed on the card")
+    return {"fr": fr.cpu().numpy().tolist()}
+
+
+def slice11(dev, p21, freqs, fr21) -> dict:
+    """Phase 13 on ``dev``; ``p21`` / ``fr21``: phase 2's 21k Problem and
+    its FRF at the truth.  Every part runs before a failed check raises.
+    Returns the numbers for [summary], with K1's and K3's launches by
+    path under "k1" / "k3"."""
+    import torch
+
+    out, failed = {}, []
+
+    def run(key, fn, *args):
+        try:
+            out[key] = fn(*args)
+        except AssertionError as err:
+            failed.append(str(err))
+
+    t0 = time.perf_counter()
+    run("long_rows", long_rows, dev)
+    torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t0
+    bench = sh_i_problem(dev, 1.0)
+    fr_bench = bench.solveForward(freqs).cpu().numpy()
+    t0 = time.perf_counter()
+    run("polish_1466", polish_plate, bench, freqs, "bench plate")
+    run("polish_21k", polish_plate, p21, freqs, "21k plate (two-grid)")
+    run("starved", polish_starved, dev)
+    if "polish_21k" in out and out["polish_21k"]["k1"] <= 0:
+        failed.append("the 21k polish launched no K1")
+    out["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run("audit_1466", audit, bench, freqs, fr_bench, "bench plate")
+    run("audit_21k", audit, p21, freqs, fr21, "21k plate")
+    out["c_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run("expansion", expansion, bench, freqs, fr_bench)
+    out["d_s"] = time.perf_counter() - t0
+    run("trace", traced_sweep, bench, freqs)
+    run("device_lib", device_lib)
+    run("compat", compat_script)
+    del bench
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 13 failed: " + " | ".join(failed))
+    out["k1"] = {"polish_21k": out["polish_21k"]["k1"]}
+    out["k3"] = {"polish_1466": out["polish_1466"]["k3"],
+                 "polish_21k": out["polish_21k"]["k3"],
+                 "traced_sweep_1466": out["trace"]["k3_counted"]}
     return out
 
 

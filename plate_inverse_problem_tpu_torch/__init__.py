@@ -30,8 +30,15 @@ frequency's convergence and ``Problem.getModePicture`` draws a deflection
 shape.  Geometries come from templates, FreeFEM ``.edp`` scripts or
 ``.msh`` meshes.  ``plate_inverse_problem_tpu_torch.ops`` holds the
 reference's standalone sparse API (``create_symbolic``, ``matvec``,
-``spsolve``, ``find_permutation``) for any square system.  The package imports torch, numpy and scipy, never jax
-(matplotlib only inside ``getModePicture``).
+``spsolve``, ``find_permutation``) for any square system.
+``diagnostics`` audits a sweep against the host f64 splu
+(``oracle_check``), polishes its resonance peaks by one exact host
+residual (``polish_peaks``, also ``solveForward(polish_peaks=...)``),
+runs the parity study's modal expansion, guards against non-finite
+values, captures ``torch.profiler`` traces and reports the devices;
+``compat`` gives the reference's module layout.  The package imports
+torch, numpy and scipy, never jax (matplotlib only inside
+``getModePicture`` and the plotting helpers).
 """
 from . import config
 from .convert import opdata_from_jax

@@ -70,7 +70,26 @@
 //    (operator, row), neighbouring threads on neighbouring rows, a block's
 //    128 rows' entries and columns staged first; one launch for every
 //    operator.
-//  * Each call is one launch, of the kernel the wrapper picks from L.
+//  * Long rows (more than 256 distinct columns, or more entries than a
+//    tile's staging holds: a dense row of a synthetic pencil, a coarse
+//    level's restriction at a large coarsening factor; no plate pattern
+//    has one): the plan keeps them out of every tile and lists them, and a
+//    kernel of their own follows the tiles' one on the stream.  One block
+//    of 8 warps takes a long row for 8 (lane, operator) items, a warp an
+//    item; thread g of a warp sums the entries g, g + 32, ... in ascending
+//    order, one FMA each, reading the data (through perm) and x straight
+//    from global memory, and the warp's 32 partial sums are reduced by a
+//    fixed shuffle tree: the same bits in every run.  (A first cut with
+//    a block of 256 threads a (row, lane), reduced through shared memory,
+//    took 11.1 ms at S = 2, L = 1024 on chip_smoke.py's long-row pattern,
+//    a warp a lane 5.0 ms, a warp an item 4.3 ms, on an NVIDIA H100 80GB
+//    HBM3 at 700 W.)  The one-lane kernel skips
+//    the long rows, and a block of it whose entries outgrow its staging
+//    reads them from global memory.  The regime is simple, not fast: it
+//    reads x at the row's columns once a lane and operator, from L2, and
+//    the row's values once a lane, from L1.
+//  * Each call is one launch, of the kernel the wrapper picks from L, and
+//    a second for the long rows where the plan has any.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,6 +106,8 @@ constexpr int UNROLL = 4;        // entries of a row per unrolled step
 constexpr int BATCH = 8;         // x gathers in flight per narrow thread
 constexpr int L1_ROWS = 128;     // rows (threads) of a one-lane block
 constexpr int L1_BATCH = 8;      // loads in flight per one-lane thread
+constexpr int LONG_NT = 256;     // threads of a long-row block
+constexpr int LONG_LANES = LONG_NT / 32;   // its (lane, operator) items
 
 struct Plan {
     const int* tile_ptr;    // (T+1): tile t holds tile_rows[tile_ptr[t] ..]
@@ -396,22 +417,27 @@ csr_mv_narrow_kernel(const T* __restrict__ data, Plan p,
 
 // One block per (L1_ROWS consecutive rows, operator blockIdx.y): their
 // entries (one contiguous run) and columns staged, then one thread per row.
+// A block whose run holds more than max_block_nnz entries (it has a long
+// row) reads them from global memory; a long row (row_off -1, where the
+// plan has any: n_long > 0) is the long-row kernel's.
 template <typename T>
 __global__ void __launch_bounds__(L1_ROWS)
 csr_mv_l1_kernel(const T* __restrict__ data, Plan p,
                  const T* __restrict__ x, long long sxc, T* __restrict__ y,
-                 int n, long long nnz)
+                 int n, long long nnz, int max_block_nnz, int n_long)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     const int i0 = blockIdx.x * L1_ROWS;
     const int s = blockIdx.y;
     const int k0 = __ldg(p.rowptr + i0);
     const int kn = __ldg(p.rowptr + min(n, i0 + L1_ROWS)) - k0;
+    const bool staged = kn <= max_block_nnz;             // the whole block
     T* ds = reinterpret_cast<T*>(smem);                  // [kn]
     int* cs = reinterpret_cast<int*>(ds + kn);           // [kn]
     // L1_BATCH entries a thread at once: their data slots are all loaded
     // before the first copy is issued
-    for (int j0 = threadIdx.x; j0 < kn; j0 += L1_ROWS * L1_BATCH) {
+    for (int j0 = threadIdx.x; staged && j0 < kn;
+         j0 += L1_ROWS * L1_BATCH) {
         int kd[L1_BATCH];
 #pragma unroll
         for (int u = 0; u < L1_BATCH; ++u) {
@@ -431,18 +457,66 @@ csr_mv_l1_kernel(const T* __restrict__ data, Plan p,
     __syncthreads();
     const int i = i0 + threadIdx.x;
     if (i >= n) return;
-    const int k1 = __ldg(p.rowptr + i + 1) - k0;
+    if (n_long > 0 && __ldg(p.row_off + i) < 0) return;
     T acc = T(0);
-    for (int k = __ldg(p.rowptr + i) - k0; k < k1; k += L1_BATCH) {
-        T xv[L1_BATCH];
+    if (staged) {
+        const int k1 = __ldg(p.rowptr + i + 1) - k0;
+        for (int k = __ldg(p.rowptr + i) - k0; k < k1; k += L1_BATCH) {
+            T xv[L1_BATCH];
 #pragma unroll
-        for (int j = 0; j < L1_BATCH; ++j)
-            xv[j] = k + j < k1 ? __ldg(x + cs[k + j] * sxc) : T(0);
+            for (int j = 0; j < L1_BATCH; ++j)
+                xv[j] = k + j < k1 ? __ldg(x + cs[k + j] * sxc) : T(0);
 #pragma unroll
-        for (int j = 0; j < L1_BATCH; ++j)
-            if (k + j < k1) acc = fma(ds[k + j], xv[j], acc);
+            for (int j = 0; j < L1_BATCH; ++j)
+                if (k + j < k1) acc = fma(ds[k + j], xv[j], acc);
+        }
+    } else {     // the same sum, its entries read from global memory
+        const int k1 = __ldg(p.rowptr + i + 1);
+        for (int k = __ldg(p.rowptr + i); k < k1; ++k)
+            acc = fma(__ldg(data + s * nnz + data_slot(p, k)),
+                      __ldg(x + __ldg(p.col + k) * sxc), acc);
     }
     y[(size_t)s * n + i] = acc;
+}
+
+// ---- long rows -----------------------------------------------------------
+
+// One block per long row long_rows[blockIdx.x] and LONG_LANES (lane,
+// operator) items q = blockIdx.y * LONG_LANES + w (and every gridDim.y *
+// LONG_LANES-th item after them; lane q / S, operator q % S, so the warps
+// of a block share a lane's x in L1 and the row's values and columns);
+// warp w takes one item: its thread g sums the row's entries g, g + 32,
+// ... in ascending order, one FMA each, data (through perm) and x read
+// from global memory, and the 32 partial sums are added by a fixed
+// shuffle tree: the same bits in every run.
+template <typename T>
+__global__ void __launch_bounds__(LONG_NT)
+csr_mv_long_kernel(const T* __restrict__ data, const int* __restrict__ rowptr,
+                   const int* __restrict__ col, const int* __restrict__ perm,
+                   const int* __restrict__ long_rows,
+                   const T* __restrict__ x, long long sxl, long long sxc,
+                   T* __restrict__ y, int S, int L, int n, long long nnz)
+{
+    const int i = __ldg(long_rows + blockIdx.x);
+    const int k0 = __ldg(rowptr + i);
+    const int k1 = __ldg(rowptr + i + 1);
+    const int g = threadIdx.x & 31;
+    const long long items = (long long)S * L;
+    for (long long q = (long long)blockIdx.y * LONG_LANES + (threadIdx.x >> 5);
+         q < items; q += (long long)gridDim.y * LONG_LANES) {
+        const int l = static_cast<int>(q / S);
+        const int s = static_cast<int>(q % S);
+        const T* xl = x + l * sxl;
+        const T* ds = data + s * nnz;
+        T acc = T(0);
+        for (int k = k0 + g; k < k1; k += 32)
+            acc = fma(__ldg(ds + (perm ? __ldg(perm + k) : k)),
+                      __ldg(xl + __ldg(col + k) * sxc), acc);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            acc += __shfl_down_sync(0xffffffffu, acc, o);
+        if (g == 0) y[((size_t)s * L + l) * n + i] = acc;
+    }
 }
 
 // ---- launchers -----------------------------------------------------------
@@ -468,7 +542,7 @@ int done(cudaError_t err)
 struct Shape {
     int S, L, n;
     long long nnz;
-    int n_tiles, max_rows, max_cols, max_nnz, max_block_nnz;
+    int n_tiles, max_rows, max_cols, max_nnz, max_block_nnz, n_long;
 };
 
 template <typename T>
@@ -528,8 +602,25 @@ int launch_l1(const T* data, const Plan& p, const T* x, long long sxc, T* y,
     const size_t smem = (sizeof(T) + sizeof(int)) * (size_t)sh.max_block_nnz;
     const cudaError_t err = allow_smem(csr_mv_l1_kernel<T>, smem);
     if (err != cudaSuccess) return -static_cast<int>(err);
-    csr_mv_l1_kernel<T><<<grid, L1_ROWS, smem, st>>>(data, p, x, sxc, y,
-                                                     sh.n, sh.nnz);
+    csr_mv_l1_kernel<T><<<grid, L1_ROWS, smem, st>>>(
+        data, p, x, sxc, y, sh.n, sh.nnz, sh.max_block_nnz, sh.n_long);
+    return done(cudaSuccess);
+}
+
+template <typename T>
+int launch_long(const T* data, const int* rowptr, const int* col,
+                const int* perm, const int* long_rows, int n_long,
+                const T* x, long long sxl, long long sxc, T* y, int S, int L,
+                int n, long long nnz, void* stream)
+{
+    if (S <= 0 || L <= 0 || n_long <= 0) return 0;
+    if (n_long > n) return -static_cast<int>(cudaErrorInvalidValue);
+    const long long item_blocks =
+        ((long long)S * L + LONG_LANES - 1) / LONG_LANES;
+    const dim3 grid(n_long, item_blocks < 65535 ? item_blocks : 65535);
+    csr_mv_long_kernel<T><<<grid, LONG_NT, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        data, rowptr, col, perm, long_rows, x, sxl, sxc, y, S, L, n, nnz);
     return done(cudaSuccess);
 }
 
@@ -562,9 +653,10 @@ int launch(Regime regime, const T* data, const Plan& p, const T* x,
 // uint8, row_off (n,), rowptr (n+1,), col (nnz,), int32 unless stated, and
 // its largest tile's rows, columns and entries and the most
 // entries L1_ROWS consecutive rows hold; x[l, c] at x + l * sxl + c * sxc;
-// y (S, L, n) contiguous; all on the current device.  Each launches one
-// kernel on `stream` (the regime its name says: L = 1, 2 <= L < 32, L >=
-// 32) and returns 1, 0 for an empty product, or minus the cudaError of a
+// y (S, L, n) contiguous; n_long, the plan's long rows (rows of no tile);
+// all on the current device.  Each launches one kernel on `stream` (the
+// regime its name says: L = 1, 2 <= L < 32, L >= 32) for the tiles' rows
+// and returns 1, 0 for an empty product, or minus the cudaError of a
 // launch that failed.
 #define CSR_MV_ENTRY(NAME, T, REGIME)                                         \
     extern "C" int NAME(const T* data, const int* tile_ptr,                   \
@@ -576,12 +668,12 @@ int launch(Regime regime, const T* data, const Plan& p, const T* x,
                         int n,                                                \
                         long long nnz, int n_tiles, int max_rows,             \
                         int max_cols, int max_nnz, int max_block_nnz,         \
-                        void* stream)                                         \
+                        int n_long, void* stream)                             \
     {                                                                         \
         const Plan p{tile_ptr, tile_rows, col_ptr, tile_cols, slot, row_off,  \
                      rowptr, col, perm};                                      \
         const Shape sh{S, L, n, nnz, n_tiles, max_rows, max_cols, max_nnz,    \
-                       max_block_nnz};                                        \
+                       max_block_nnz, n_long};                                \
         return launch<T>(REGIME, data, p, x, sxl, sxc, y, sh, stream);        \
     }
 
@@ -591,3 +683,20 @@ CSR_MV_ENTRY(csr_mv_wide_f64, double, WIDE)
 CSR_MV_ENTRY(csr_mv_l1_f32, float, ONE_LANE)
 CSR_MV_ENTRY(csr_mv_narrow_f32, float, NARROW)
 CSR_MV_ENTRY(csr_mv_wide_f32, float, WIDE)
+
+// The long rows long_rows (n_long,) int32 of the pattern (rowptr, col,
+// perm as above), for all S operators and L lanes, into the same y: one
+// launch on `stream`, after the tiles' kernel.  Returns 1, 0 for an empty
+// product, or minus the cudaError of a launch that failed.
+#define CSR_MV_LONG_ENTRY(NAME, T)                                            \
+    extern "C" int NAME(const T* data, const int* rowptr, const int* col,     \
+                        const int* perm, const int* long_rows, int n_long,    \
+                        const T* x, long long sxl, long long sxc, T* y,       \
+                        int S, int L, int n, long long nnz, void* stream)     \
+    {                                                                         \
+        return launch_long<T>(data, rowptr, col, perm, long_rows, n_long, x,  \
+                              sxl, sxc, y, S, L, n, nnz, stream);             \
+    }
+
+CSR_MV_LONG_ENTRY(csr_mv_long_f64, double)
+CSR_MV_LONG_ENTRY(csr_mv_long_f32, float)

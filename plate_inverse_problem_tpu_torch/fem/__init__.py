@@ -5,7 +5,7 @@ Host copy of the JAX package's ``fem`` for both paths, the 3-field
 (row, col) pattern, Dirichlet reduction, the accelerometer-disk readout
 rows and the test-point interpolation row.
 """
-from .quadrature import TRI_DEGREE5
+from .quadrature import TRI_DEGREE2, TRI_DEGREE5
 from .morley import build_morley
 from .p1 import build_p1
 from .assembly import (
@@ -17,6 +17,7 @@ from .assembly import (
 )
 
 __all__ = [
+    "TRI_DEGREE2",
     "TRI_DEGREE5",
     "build_morley",
     "build_p1",

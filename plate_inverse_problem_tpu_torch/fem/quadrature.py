@@ -3,12 +3,21 @@
 The rule is given as barycentric coordinates (Q, 3) plus weights (Q,) that
 sum to 1 (multiply by the element area).  Degree-5 (7-point) matches
 FreeFEM's default ``int2d`` rule (qf5pT), which the reference relies on for
-the indicator-weighted correction integrals.  The JAX package's lower-degree
-rules are used by none of the ported code and are not copied.
+the indicator-weighted correction integrals.  The degree-2 rule is exported
+as the JAX package's ``fem`` exports it; its degree-4 rule is used by none
+of the ported code and is not copied.
 """
 from __future__ import annotations
 
 import numpy as np
+
+# degree 2, 3 edge-midpoint points
+TRI_DEGREE2 = (
+    np.array(
+        [[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]], dtype=np.float64
+    ),
+    np.array([1.0 / 3.0] * 3, dtype=np.float64),
+)
 
 # degree 5, 7 points (FreeFEM qf5pT)
 _s15 = np.sqrt(15.0)

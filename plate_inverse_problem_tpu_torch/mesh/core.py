@@ -110,6 +110,18 @@ class TriangleMesh:
 
     # ------------------------------------------------------------------
 
+    def areas(self) -> np.ndarray:
+        p = self.nodes[self.triangles]
+        return 0.5 * np.abs(
+            (p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+            - (p[:, 1, 1] - p[:, 0, 1]) * (p[:, 2, 0] - p[:, 0, 0])
+        )
+
+    def edge_lengths(self) -> np.ndarray:
+        a = self.nodes[self.edges[:, 0]]
+        b = self.nodes[self.edges[:, 1]]
+        return np.linalg.norm(b - a, axis=1)
+
     def boundary_edges(self) -> np.ndarray:
         return np.nonzero(self.boundary_edge_mask)[0]
 

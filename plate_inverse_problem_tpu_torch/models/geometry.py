@@ -63,17 +63,23 @@ class Geometry:
     3) 'symm' — accelerometer on the width symmetry line (needs accel_x only).
 
     The clamped Dirichlet border (label 1) is the short side at x == length.
+
+    ``mesh=`` (with ``height=`` or ``params``) takes a ready mesh instead,
+    such as ``mesh.adapt.adapted_mesh``'s; ``export_vtk=True`` writes the
+    mesh to ``geometry/export.vtu`` in the package when it is built.
     """
 
     def __init__(
         self,
-        edp_or_template: str | os.PathLike,
+        edp_or_template: str | os.PathLike = None,
         accelerometer: Accelerometer = None,
         params: GeometryParams = None,
         *,
         height: float = None,
+        mesh: TriangleMesh = None,
         ny: int | None = None,
         refine: float = 1.0,
+        export_vtk: bool = False,  # write geometry/export.vtu in the package
         clamped_labels: tuple[int, ...] | None = None,
     ):
         self.template = None
@@ -86,7 +92,16 @@ class Geometry:
             tuple(int(x) for x in clamped_labels)
             if clamped_labels is not None else (1,))
 
-        if edp_or_template in TEMPLATES:
+        if mesh is not None:
+            # direct mesh injection (an adapted mesh, mesh/adapt.py; no
+            # reference analog)
+            self._mesh = mesh
+            if params is None and height is None:
+                raise ValueError("Height must be given with an explicit mesh.")
+            if params is None:
+                params = GeometryParams(None, None, height, None, None)
+
+        elif edp_or_template in TEMPLATES:
             if params is None:
                 raise ValueError(
                     "`params` argument cannot be None when using a template."
@@ -208,6 +223,7 @@ class Geometry:
         self.accel_r = accelerometer.radius if accelerometer is not None else None
         self._ny = ny
         self._refine = refine
+        self._export_vtk = export_vtk
 
     # ------------------------------------------------------------------
 
@@ -232,13 +248,23 @@ class Geometry:
                 ny=self._ny,
                 refine=self._refine,
             )
+        if self._export_vtk:
+            # counterpart of the reference's savevtk hook (Geometry.py:224-232)
+            from ..mesh.io import save_vtu
+            from ..utils.paths import get_package_dir
+
+            out = os.path.join(get_package_dir(), "geometry")
+            os.makedirs(out, exist_ok=True)
+            save_vtu(self._mesh, os.path.join(out, "export.vtu"))
+            self._export_vtk = False
         return self._mesh
 
     @property
     def can_coarsen(self) -> bool:
         """True when a coarser mesh of the same domain can be generated —
-        template-based and .edp-script geometries; .msh imports have no
-        parametric description to regenerate from."""
+        template-based and .edp-script geometries; .msh imports and
+        injected meshes have no parametric description to regenerate
+        from."""
         return (self.template is not None
                 or getattr(self, "_edp_text", None) is not None)
 
@@ -257,6 +283,7 @@ class Geometry:
         g = Geometry.__new__(Geometry)
         g.__dict__.update(self.__dict__)
         g._mesh = None
+        g._export_vtk = False
         if self.template is not None:
             g._refine = self._refine / factor
         else:

@@ -26,10 +26,9 @@ mesh.  ``diagnoseSweep`` returns the mixed sweep's per-frequency
 convergence signal; ``solveInverse`` runs Gauss-Newton, trust region,
 Newton, L-BFGS, gradient and coordinate descent and scipy's global
 optimizers, on a compressed reference FRF if asked; ``getModePicture``
-draws the deflection shape at one frequency from a host LU solve.
-
-Options that resolve to what this port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item.
+draws the deflection shape at one frequency from a host LU solve;
+``solveForward(polish_peaks=...)`` corrects the scanned resonance peaks by
+one exact host residual (``diagnostics.oracle.polish_peaks``).
 """
 from __future__ import annotations
 
@@ -542,6 +541,9 @@ class Problem:
         *,
         cpu: int | None = 0,            # accepted for reference API
                                         # parity; unused
+        ozaki: bool | None = None,      # the JAX package's TPU f64
+                                        # emulation switch; accepted and
+                                        # unused (IEEE f64 on the card)
         spath: str | os.PathLike = None,
         device: torch.device | str = "cuda",   # "cpu" on request
         engine: str | None = "mixed",   # 'mixed' | 'modal' | 'direct';
@@ -1522,15 +1524,27 @@ class Problem:
                      polish_peaks=False) -> torch.Tensor:
         """Forward FRF for a set of frequencies [Hz] (reference
         Problem.py:611-639), a tensor on the device: real magnitude on the
-        3-field path, complex amplitude on the symmetric path."""
-        if polish_peaks not in (False, None):
-            raise NotImplementedError(
-                "polish_peaks is not ported yet (ROADMAP Queue 1, item F.17: "
-                "oracle.polish_peaks).")
+        3-field path, complex amplitude on the symmetric path.
+
+        ``polish_peaks``: True polishes the global |FRF| peak, an int k the
+        k largest local maxima, a sequence explicit indices: each gets one
+        host-exact residual correction fed back through the engine
+        (``diagnostics.oracle.polish_peaks``; the modal and direct engines
+        take the host splu value there); the other points are returned as
+        the sweep gave them.
+        """
         if params is None:
             params = self.parameters
         self._check_band(freqs)
-        return self.getFRFunction()(freqs, params)
+        fr = self.getFRFunction()(freqs, params)
+        if polish_peaks is False or polish_peaks is None:
+            return fr
+        from ..diagnostics.oracle import polish_peaks as _polish
+
+        peaks = 1 if polish_peaks is True else polish_peaks
+        fr_pol, _ = _polish(self, freqs, fr=fr, params=_numpy(params),
+                            peaks=peaks)
+        return torch.as_tensor(fr_pol, device=fr.device)
 
     def diagnoseSweep(self, freqs, params: np.ndarray = None) -> dict:
         """Per-frequency convergence signal of the mixed engine's sweep

@@ -22,17 +22,24 @@ tolerance.  The pieces:
 * ``CSRPattern`` / ``build_csr`` — a CSR copy of the flat (rows, cols)
   pattern (rows sorted, a ``rowptr`` added) and the kernel's plan: row
   tiles in reverse Cuthill-McKee order, each with its row list, its
-  distinct columns and a one-byte slot per nonzero into them; built once
-  per ``getFRCore``;
+  distinct columns and a one-byte slot per nonzero into them, and the
+  long rows, which no tile can hold (more than 256 distinct columns);
+  built once per ``getFRCore``;
 * ``scatter_mv`` — the plain torch version: ``index_add_`` over the flat
   COO pattern, used for CPU tensors and as the kernel's reference;
 * ``csr_mv_cuda`` — checks its inputs, picks the kernel from the lane
   count L (``regime``: one lane, narrow, wide), hands the data and x over
   where they lie (the data through the CSR permutation, x by its strides),
   allocates the output with ``torch.empty``, launches one kernel on the
-  current stream and raises if the launch fails;
+  current stream for the tiles' rows and, where the plan has long rows,
+  the long-row kernel after it (a block a long row and 8 (lane,
+  operator) items, a warp an item, its threads striding over the row's
+  entries, their partial sums reduced by a fixed shuffle tree: the same
+  bits in every run, though in another order than a tile's rows), and
+  raises if a launch fails;
   ``csr_mv_cuda.launches`` counts the kernels launched, as the C launcher
-  reports them, and ``csr_mv_cuda.launches_by_regime`` the same by regime;
+  reports them, and ``csr_mv_cuda.launches_by_regime`` the same by regime
+  (``"long"`` for the long rows');
 * ``csr_mv`` — the dispatch: the kernel for a CUDA tensor, the plain
   version for a CPU tensor, nothing else;
 * ``CSRMatVec`` / ``csr_apply`` — the same map as a
@@ -77,6 +84,9 @@ WIDE_LANES = 32
 OP_GROUP = 2
 L1_ROWS = 128
 SMEM_BUDGET = 115712
+# the entries a one-lane block stages at most: an H100 block's shared
+# memory (232,448 bytes) over an f64 value and an int32 column each
+L1_STAGE_MAX = 232448 // 12
 
 _lib = None
 
@@ -102,10 +112,14 @@ class CSRPattern:
     ascending, at most MAX_TILE_COLS), ``slot`` (nnz,) uint8 gives each
     CSR entry's place in its row's tile list, in CSR order, and ``row_off``
     (n,) int32 each row's first entry in its tile's list of entries (its
-    rows' entries in row order).  ``max_rows`` / ``max_cols`` /
-    ``max_nnz``: the largest tile's; ``max_block_nnz``: the most entries
-    L1_ROWS consecutive rows hold; ``plan_s``: ``build_csr``'s host
-    seconds."""
+    rows' entries in row order).  ``long_rows`` (int32, ascending): the
+    rows that no tile can hold (more than MAX_TILE_COLS distinct columns
+    or MAX_TILE_NNZ entries), summed by the long-row kernel; they are in
+    no tile, their ``row_off`` is -1 and their slots 0.  ``max_rows`` /
+    ``max_cols`` / ``max_nnz``: the largest tile's; ``max_block_nnz``: the
+    most entries L1_ROWS consecutive rows without a long row hold, at most
+    L1_STAGE_MAX (the one-lane kernel's staging); ``plan_s``:
+    ``build_csr``'s host seconds."""
     rows: torch.Tensor
     cols: torch.Tensor
     rowptr: torch.Tensor
@@ -119,6 +133,7 @@ class CSRPattern:
     tile_cols: torch.Tensor
     slot: torch.Tensor
     row_off: torch.Tensor
+    long_rows: torch.Tensor
     max_rows: int
     max_cols: int
     max_nnz: int
@@ -134,13 +149,17 @@ class CSRPattern:
         return self.tile_ptr.numel() - 1
 
     @property
+    def n_long(self) -> int:
+        return self.long_rows.numel()
+
+    @property
     def plan_bytes(self) -> int:
         """Bytes of the index data the tiled kernels read: the slots, the
         row and column lists with their pointers and offsets, ``rowptr``
         and ``perm`` where there is one."""
         return sum(t.numel() * t.element_size() for t in (
             self.slot, self.tile_rows, self.tile_cols, self.tile_ptr,
-            self.col_ptr, self.row_off, self.rowptr) + (
+            self.col_ptr, self.row_off, self.rowptr, self.long_rows) + (
                 () if self.perm is None else (self.perm,)))
 
 
@@ -169,8 +188,10 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int, width: int):
     in that order while it holds at most
     TILE_ROWS rows, MAX_TILE_COLS distinct columns and MAX_TILE_NNZ entries
     (so every block fits SMEM_BUDGET), and the next group starts a new
-    one.  A group that alone holds too much is split into its rows;
-    raises ValueError where a single row does."""
+    one.  A group that alone holds too much is split into its rows; a row
+    that alone holds too much is a long row: it joins no tile (tile -1,
+    ``row_off`` -1, slots 0) and is returned in ``long_rows``, for the
+    long-row kernel."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -190,6 +211,7 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int, width: int):
     gkeys = np.unique((row_of // g) * width + col)
     gptr = np.searchsorted(gkeys, np.arange(ng + 1) * width)
     units = []                         # (first row, rows, entries, columns)
+    long_rows = []                     # rows no tile can hold
     for q in order:
         r0, r1 = q * g, min(n, q * g + g)
         cols = gkeys[gptr[q]:gptr[q + 1]] % width
@@ -198,16 +220,14 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int, width: int):
             continue
         for i in range(r0, r1):
             cols = np.unique(col[rowptr[i]:rowptr[i + 1]])
-            if not fits(1, cols.size, rowptr[i + 1] - rowptr[i]):
-                raise ValueError(
-                    f"row {i} has {rowptr[i + 1] - rowptr[i]} entries on "
-                    f"{cols.size} distinct columns, more than a tile of the "
-                    f"kernel can hold ({MAX_TILE_COLS} columns, "
-                    f"{MAX_TILE_NNZ} entries).")
-            units.append((i, 1, rowptr[i + 1] - rowptr[i], cols))
-    # greedy tiles over the units, a column marker for the running union
+            if fits(1, cols.size, rowptr[i + 1] - rowptr[i]):
+                units.append((i, 1, rowptr[i + 1] - rowptr[i], cols))
+            else:
+                long_rows.append(i)
+    # greedy tiles over the units, a column marker for the running union;
+    # a long row keeps tile -1
     mark = np.zeros(width, bool)
-    tile_of = np.empty(n, np.int64)
+    tile_of = np.full(n, -1, np.int64)
     touched, n_rows, n_nnz, n_cols, t = [], 0, 0, 0, 0
     for r0, nr, ne, cols in units:
         new = cols[~mark[cols]]
@@ -221,23 +241,29 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int, width: int):
         n_nnz += ne
         n_cols += new.size
         tile_of[r0:r0 + nr] = t
-    n_tiles = t + 1 if n else 0
-    keys = tile_of[row_of] * width + col
+    n_tiles = t + 1 if units else 0
+    in_tile = tile_of[row_of] >= 0          # the entries of the tiles' rows
+    entry_tile = tile_of[row_of[in_tile]]
+    keys = entry_tile * width + col[in_tile]
     ukeys = np.unique(keys)
     counts = np.bincount(ukeys // width, minlength=n_tiles)
-    sizes = np.bincount(tile_of, minlength=n_tiles)
+    sizes = np.bincount(tile_of[tile_of >= 0], minlength=n_tiles)
     col_ptr = np.r_[0, np.cumsum(counts)]
-    slot = np.searchsorted(ukeys, keys) - col_ptr[tile_of[row_of]]
-    tile_rows = np.lexsort((np.arange(n), tile_of))   # by tile, then row
-    # each row's first entry in its tile's list of entries (rows in order)
+    slot = np.zeros(col.size, np.int64)     # 0 on a long row's entries
+    slot[in_tile] = np.searchsorted(ukeys, keys) - col_ptr[entry_tile]
+    # by tile, then row; the long rows (tile -1) sort first and are dropped
+    tile_rows = np.lexsort((np.arange(n), tile_of))[len(long_rows):]
+    # each row's first entry in its tile's list of entries (rows in order);
+    # -1 marks a long row
     lens = np.diff(rowptr)[tile_rows]
     tile_ptr = np.r_[0, np.cumsum(sizes)]
     run = np.r_[0, np.cumsum(lens)]
-    row_off = np.empty(n, np.int64)
+    row_off = np.full(n, -1, np.int64)
     row_off[tile_rows] = run[:-1] - np.repeat(run[tile_ptr[:-1]], sizes)
     tile_nnz = np.diff(run[tile_ptr])
     return (tile_ptr, tile_rows, col_ptr, ukeys % width, slot, row_off,
-            int(sizes.max()) if n else 0,
+            np.sort(np.asarray(long_rows, np.int64)),
+            int(sizes.max()) if sizes.size else 0,
             int(counts.max()) if counts.size else 0,
             int(tile_nnz.max()) if tile_nnz.size else 0)
 
@@ -259,11 +285,15 @@ def build_csr(rows, cols, n: int, n_cols: int | None = None) -> CSRPattern:
     perm = (None if np.array_equal(order, np.arange(r.size))
             else torch.as_tensor(order, dtype=torch.int32, device=dev))
     col = c[order]
-    (tile_ptr, tile_rows, col_ptr, tile_cols, slot, row_off, max_rows,
-     max_cols, max_nnz) = _plan(rowptr, col, int(n), n_cols)
-    # the one-lane kernel stages the entries of L1_ROWS consecutive rows
-    ends = rowptr[np.minimum(np.arange(0, n, L1_ROWS) + L1_ROWS, n)]
-    max_block_nnz = int((ends - rowptr[0:n:L1_ROWS]).max()) if n else 0
+    (tile_ptr, tile_rows, col_ptr, tile_cols, slot, row_off, long_rows,
+     max_rows, max_cols, max_nnz) = _plan(rowptr, col, int(n), n_cols)
+    # the one-lane kernel stages the entries of L1_ROWS consecutive rows,
+    # up to L1_STAGE_MAX; a block with a long row, or more entries, reads
+    # them from global memory instead
+    starts = np.arange(0, n, L1_ROWS)
+    runs = rowptr[np.minimum(starts + L1_ROWS, n)] - rowptr[starts]
+    runs[long_rows // L1_ROWS] = 0
+    max_block_nnz = min(int(runs.max()) if n else 0, L1_STAGE_MAX)
 
     def i32(a):
         return torch.as_tensor(a, dtype=torch.int32, device=dev)
@@ -275,7 +305,8 @@ def build_csr(rows, cols, n: int, n_cols: int | None = None) -> CSRPattern:
         tile_ptr=i32(tile_ptr), tile_rows=i32(tile_rows), col_ptr=i32(col_ptr),
         tile_cols=i32(tile_cols),
         slot=torch.as_tensor(slot, dtype=torch.uint8, device=dev),
-        row_off=i32(row_off), max_rows=max_rows, max_cols=max_cols, max_nnz=max_nnz,
+        row_off=i32(row_off), long_rows=i32(long_rows), max_rows=max_rows,
+        max_cols=max_cols, max_nnz=max_nnz,
         max_block_nnz=max_block_nnz, plan_s=time.perf_counter() - t0)
 
 
@@ -286,20 +317,27 @@ def build() -> str:
     report = compile_source(SOURCE, _LIB_PATH)
     if _lib is None:
         lib = ctypes.CDLL(_LIB_PATH)
-        for regime in REGIMES:
-            for dt in ("f64", "f32"):
+        for dt in ("f64", "f32"):
+            for regime in REGIMES[:3]:
                 fn = getattr(lib, f"csr_mv_{regime.lower()}_{dt}")
                 fn.argtypes = [ctypes.c_void_p] * 11 \
                     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
                     + [ctypes.c_int] * 3 + [ctypes.c_longlong] \
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            fn = getattr(lib, f"csr_mv_long_{dt}")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] \
+                + [ctypes.c_void_p] + [ctypes.c_longlong] * 2 \
+                + [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+                + [ctypes.c_longlong, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return report
 
 
-# the kernels by lane count: one lane, 2 to 31, and 32 or more
-REGIMES = ("L1", "narrow", "wide")
+# the tile kernels by lane count: one lane, 2 to 31, and 32 or more; and
+# the long rows' kernel, launched beside them where the plan has long rows
+REGIMES = ("L1", "narrow", "wide", "long")
 
 
 def regime(L: int) -> str:
@@ -341,8 +379,10 @@ def csr_mv_cuda(data, x, csr: CSRPattern):
     """y = data x through the CUDA kernel: data (S, nnz) f64 or f32 in the
     flat order, x (..., n_cols) of the same dtype, both on the pattern's
     CUDA device; output (S, ..., n).  One launch, of the kernel ``regime``
-    picks for L = prod(x.shape[:-1]) lanes, reading x where it lies (its
-    strides; a copy only where x cannot be viewed as (L, n_cols))."""
+    picks for L = prod(x.shape[:-1]) lanes, for the tiles' rows, and one of
+    the long-row kernel where the plan has long rows, reading x where it
+    lies (its strides; a copy only where x cannot be viewed as (L,
+    n_cols))."""
     _check(data, x, csr)
     if data.dtype != x.dtype or x.dtype not in (torch.float64,
                                                 torch.float32):
@@ -363,25 +403,42 @@ def csr_mv_cuda(data, x, csr: CSRPattern):
     kind = regime(L)
     x2 = x.reshape(L, csr.n_cols)
     sxl, sxc = x2.stride()
-    fn = getattr(_lib, f"csr_mv_{kind.lower()}_"
-                       f"{'f64' if x.dtype == torch.float64 else 'f32'}")
-    args = (d.data_ptr(), csr.tile_ptr.data_ptr(), csr.tile_rows.data_ptr(),
+    dt = "f64" if x.dtype == torch.float64 else "f32"
+    perm = 0 if csr.perm is None else csr.perm.data_ptr()
+    launches = []
+    if csr.n_tiles:     # the rows of the tiles
+        launches.append((kind, getattr(_lib, f"csr_mv_{kind.lower()}_{dt}"), (
+            d.data_ptr(), csr.tile_ptr.data_ptr(), csr.tile_rows.data_ptr(),
             csr.col_ptr.data_ptr(), csr.tile_cols.data_ptr(),
             csr.slot.data_ptr(), csr.row_off.data_ptr(),
-            csr.rowptr.data_ptr(), csr.col.data_ptr(),
-            0 if csr.perm is None else csr.perm.data_ptr(), x2.data_ptr(), sxl,
-            sxc, y.data_ptr(), S, L, n, csr.nnz, csr.n_tiles, csr.max_rows,
-            csr.max_cols, csr.max_nnz, csr.max_block_nnz)
+            csr.rowptr.data_ptr(), csr.col.data_ptr(), perm, x2.data_ptr(),
+            sxl, sxc, y.data_ptr(), S, L, n, csr.nnz, csr.n_tiles,
+            csr.max_rows, csr.max_cols, csr.max_nnz, csr.max_block_nnz,
+            csr.n_long)))
+    if csr.n_long:      # the long rows, after them on the same stream
+        launches.append(("long", getattr(_lib, f"csr_mv_long_{dt}"), (
+            d.data_ptr(), csr.rowptr.data_ptr(), csr.col.data_ptr(), perm,
+            csr.long_rows.data_ptr(), csr.n_long, x2.data_ptr(), sxl, sxc,
+            y.data_ptr(), S, L, n, csr.nnz)))
     if x.device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        _launch(launches)
     else:
         with torch.cuda.device(x.device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc < 0:
-        raise RuntimeError(f"csr_mv kernel launch failed: cudaError {-rc}.")
-    csr_mv_cuda.launches += rc
-    csr_mv_cuda.launches_by_regime[kind] += rc
+            _launch(launches)
     return y.reshape((S,) + lead + (n,))
+
+
+def _launch(launches) -> None:
+    """Run the (regime, C function, arguments) launches in order on the
+    current stream, counting each; raise on a failed one."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, fn, args in launches:
+        rc = fn(*args, stream)
+        if rc < 0:
+            raise RuntimeError(f"csr_mv {name} kernel launch failed: "
+                               f"cudaError {-rc}.")
+        csr_mv_cuda.launches += rc
+        csr_mv_cuda.launches_by_regime[name] += rc
 
 
 csr_mv_cuda.launches = 0

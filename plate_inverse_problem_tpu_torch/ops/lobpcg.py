@@ -135,6 +135,8 @@ def lobpcg_pencil(apply_KM, apply_T, X0, *, n_wanted: int,
     f64 on the device is the start block, b >= n_wanted (extra rows act
     as a guard block that accelerates the wanted modes).
 
+    Differs from the JAX ``lobpcg_pencil``: no ``opd`` argument.
+
     Returns (lam (b,), X (b, n) M-orthonormal, relres (b,), n_iter), the
     first three f64 tensors on X0's device; convergence is judged on the
     first ``n_wanted`` modes.
@@ -313,6 +315,8 @@ def band_basis_lobpcg(K_flat_ref, M_flat, rows, cols, n: int,
                       tol: float = 2e-4, maxiter: int = 250,
                       guard: int | None = None, seed: int = 0):
     """Factorization-free counterpart of ``ops.mixed.band_basis_host``.
+    Differs from the JAX ``band_basis_lobpcg``: it returns tensors, and
+    takes the pattern's K3 plan (``csr``) and a ``seed``.
 
     Same contract: returns (W (n, m) f64 M-orthonormal, lam (m,)), here
     tensors on the operator data's device, covering the sweep band [0,

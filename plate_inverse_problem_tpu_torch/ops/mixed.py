@@ -138,6 +138,23 @@ def band_basis_host(K_flat_ref: np.ndarray, M_flat: np.ndarray,
     return np.ascontiguousarray(W), lam
 
 
+def static_preconditioner_host(K_flat_ref: np.ndarray, rows: np.ndarray,
+                               cols: np.ndarray, n: int) -> np.ndarray:
+    """Dense inverse (n, n) of the symmetric part of the equilibrated
+    reference stiffness (JAX ``ops/mixed.py`` ``static_preconditioner_host``),
+    the dense tier's complement preconditioner.  Differs from the JAX
+    function: f64 (``dense.inv_refined``, the port's rule for dense
+    inverses, ops/dense.py), where the JAX one returns its f32 downcast;
+    computed with torch on the host."""
+    from .dense import inv_refined
+    from .scatter import to_dense
+
+    K = to_dense(torch.as_tensor(np.asarray(K_flat_ref, np.float64)),
+                 torch.as_tensor(np.asarray(rows)).long(),
+                 torch.as_tensor(np.asarray(cols)).long(), n)
+    return np.ascontiguousarray(inv_refined(0.5 * (K + K.T)).numpy())
+
+
 # ---------------------------------------------------------------------------
 # batched split-complex flexible GMRES
 # ---------------------------------------------------------------------------
@@ -522,7 +539,10 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
                 refine_tol: float = 3e-7, freq_chunk: int | None = None,
                 ki_proportional: bool = True, k_cycle: int | None = None,
                 adjoint: bool = False, csr=None, diagnostics: bool = False):
-    """f64-grade frequency sweep, split-complex interface.
+    """f64-grade frequency sweep, split-complex interface.  Differs from
+    the JAX ``mixed_sweep``: K and B come split (K_re, K_im, B_re, B_im),
+    the preconditioner's data as keywords (``band``, ``mg``, ``invK``),
+    and the result is (U_re, U_im).
 
     K_re/K_im/M_flat (nnz,) f64 flat operator data on the pattern
     (rows, cols); B_re/B_im (F, n) f64 right-hand sides; omegas (F,) f64;

@@ -107,7 +107,9 @@ def _modal_solve(K_re, K_im, M_flat, B_re, B_im, Z, lam, omegas, rows, cols,
 def modal_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
                 basis, csr, refine_steps: int = 2, *, adjoint: bool = False,
                 ki_proportional: bool = True):
-    """Modal-resolvent sweep: (U_re, U_im), each (L, n) f64.  ``basis``:
+    """Modal-resolvent sweep: (U_re, U_im), each (L, n) f64.  Differs
+    from the JAX ``modal_sweep``: K and B come split (K_re, K_im, B_re,
+    B_im) and the basis is given, not computed here.  ``basis``:
     (lam, Z) of ``modal_basis`` for this K_re, which the Problem computes
     once per parameter set (truncated to ``n_modes`` there: a Rayleigh-Ritz
     approximation that the refinement rounds correct only in part)."""
@@ -165,7 +167,9 @@ def dense_operator(K_re, K_im, M_flat, omegas, rows, cols, n: int):
 
 def direct_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
                  chunk: int = 16, *, adjoint: bool = False):
-    """Chunked dense-LU sweep: (U_re, U_im), each (L, n) f64.
+    """Chunked dense-LU sweep: (U_re, U_im), each (L, n) f64.  Differs
+    from the JAX ``direct_sweep``: K and B come split (K_re, K_im, B_re,
+    B_im), and the result is split too.
 
     The lanes are grouped by frequency (a tangent or adjoint batch repeats
     each frequency), the distinct frequencies taken ``chunk`` at a time in
@@ -226,7 +230,8 @@ def sweep_solve(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
     Problem's per-parameter-set ``basis`` and K3 refinement over ``csr``)
     or 'direct' (chunked dense LU).  The mixed engine has its own entry,
     ``ops/mixed.py``'s ``mixed_sweep``.  Returns (U_re, U_im), each (L, n)
-    f64."""
+    f64.  Differs from the JAX ``sweep_solve``: K and B come split, and
+    the mixed engine is not dispatched here."""
     if engine == "modal":
         return modal_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows,
                            cols, n, basis, csr, adjoint=adjoint,

@@ -59,8 +59,10 @@ def _operator(problem, theta, dtype=np.complex128, omega=0.0):
     real = np.longdouble if dtype == np.clongdouble else np.float64
     if p.is_symmetric_path:
         D = _moduli(p, theta, omega).astype(dtype)
-        K_flat = D @ op.Ks.astype(real)
-        bK = D @ op.fKs.astype(real)
+        # summed over the moduli in order, entry by entry (the JAX
+        # package's einsum; a matmul would round otherwise)
+        K_flat = np.einsum("k,kn->n", D, op.Ks.astype(real))
+        bK = np.einsum("k,kn->n", D, op.fKs.astype(real))
     else:
         Av, Bv, Dv = (c.astype(dtype) for c in _moduli(p, theta, omega))
         K_flat = sum(Av[i] * op.mats["A" + s].astype(real)

@@ -44,15 +44,22 @@ def _check_plan(csr):
         t.numpy().astype(np.int64) for t in (
             csr.tile_ptr, csr.tile_rows, csr.col_ptr, csr.tile_cols,
             csr.slot, csr.rowptr, csr.col))
+    long_rows = csr.long_rows.numpy().astype(np.int64)
     assert csr.slot.dtype == torch.uint8
-    # every row in exactly one tile, so every nonzero exactly once
-    assert np.array_equal(np.sort(tile_rows), np.arange(n))
+    # every row in exactly one tile or among the long rows (ascending), so
+    # every nonzero exactly once
+    assert np.array_equal(np.sort(np.r_[tile_rows, long_rows]), np.arange(n))
+    assert np.all(np.diff(long_rows) > 0)
     sizes = np.diff(tile_ptr)
-    assert tile_ptr[0] == 0 and tile_ptr[-1] == n and np.all(sizes >= 1)
-    assert np.all(sizes <= ck.TILE_ROWS) and csr.max_rows == sizes.max()
-    tile_of = np.repeat(np.arange(csr.n_tiles), sizes)[np.argsort(tile_rows)]
-    assert np.bincount(tile_of[np.repeat(np.arange(n), np.diff(rowptr))],
-                       minlength=csr.n_tiles).sum() == nnz
+    assert tile_ptr[0] == 0 and tile_ptr[-1] == n - long_rows.size
+    assert np.all(sizes >= 1) and np.all(sizes <= ck.TILE_ROWS)
+    assert csr.max_rows == (sizes.max() if sizes.size else 0)
+    tile_of = np.full(n, -1)
+    tile_of[tile_rows] = np.repeat(np.arange(csr.n_tiles), sizes)
+    row_of = np.repeat(np.arange(n), np.diff(rowptr))
+    in_tile = tile_of[row_of] >= 0
+    assert (np.bincount(tile_of[row_of[in_tile]], minlength=csr.n_tiles).sum()
+            + np.diff(rowptr)[long_rows].sum()) == nnz
     for t in range(csr.n_tiles):
         assert np.all(np.diff(tile_rows[tile_ptr[t]:tile_ptr[t + 1]]) > 0)
     # each tile's columns distinct and ascending, within the kernel's limits
@@ -70,19 +77,28 @@ def _check_plan(csr):
         r = tile_rows[tile_ptr[t]:tile_ptr[t + 1]]
         assert np.array_equal(row_off[r], np.r_[0, np.cumsum(lens[r])[:-1]])
         assert lens[r].sum() <= csr.max_nnz
+    # the one-lane kernel stages the blocks without a long row
     ends = rowptr[np.minimum(np.arange(0, n, ck.L1_ROWS) + ck.L1_ROWS, n)]
-    assert n == 0 or csr.max_block_nnz == (ends - rowptr[0:n:ck.L1_ROWS]).max()
+    runs = ends - rowptr[0:n:ck.L1_ROWS]
+    runs[long_rows // ck.L1_ROWS] = 0
+    assert n == 0 or csr.max_block_nnz == min(runs.max(), ck.L1_STAGE_MAX)
     # every slot points at its own column, in its own tile's list
-    row_of = np.repeat(np.arange(n), np.diff(rowptr))
-    base = col_ptr[tile_of[row_of]]
-    assert np.all(slot < counts[tile_of[row_of]])
-    assert np.array_equal(tile_cols[base + slot], col)
+    base = col_ptr[tile_of[row_of[in_tile]]]
+    assert np.all(slot[in_tile] < counts[tile_of[row_of[in_tile]]])
+    assert np.array_equal(tile_cols[base + slot[in_tile]], col[in_tile])
+    # a long row is in no tile because it fits none: no offset, slots 0
+    assert np.all(row_off[long_rows] == -1) and np.all(slot[~in_tile] == 0)
+    for i in long_rows:
+        k = col[rowptr[i]:rowptr[i + 1]]
+        assert (np.unique(k).size > ck.MAX_TILE_COLS
+                or k.size > ck.MAX_TILE_NNZ)
 
 
 def _planned(data, x, csr):
     """Plain torch emulation of the tiled kernels' order: x staged at every
     tile's columns, read through the slots, each row's entries summed in
-    ascending CSR order."""
+    ascending CSR order; a long row's entries in that order from x
+    itself."""
     n = csr.n
     d = data if csr.perm is None else data[:, csr.perm]
     x2 = x.reshape(-1, n)
@@ -90,14 +106,18 @@ def _planned(data, x, csr):
         t.long() for t in (csr.tile_ptr, csr.tile_rows, csr.col_ptr,
                            csr.tile_cols, csr.slot, csr.rowptr))
     staged = x2[:, tile_cols]                     # (L, every tile's columns)
-    tile_of = torch.repeat_interleave(
-        torch.arange(csr.n_tiles), tile_ptr.diff())[torch.argsort(tile_rows)]
+    tile_of = torch.full((n,), -1, dtype=torch.long)
+    tile_of[tile_rows] = torch.repeat_interleave(
+        torch.arange(csr.n_tiles), tile_ptr.diff())
     lens = rowptr.diff()
+    col = csr.col.long()
     acc = torch.zeros(d.shape[0], x2.shape[0], n, dtype=d.dtype)
     for j in range(int(lens.max()) if n else 0):
         live = torch.nonzero(lens > j).flatten()
         k = rowptr[live] + j
-        xv = staged[:, col_ptr[tile_of[live]] + slot[k]]
+        t = tile_of[live]
+        xv = torch.where(t >= 0, staged[:, col_ptr[t.clamp(min=0)] + slot[k]],
+                         x2[:, col[k]])
         acc[:, :, live] += d[:, k][:, None, :] * xv[None]
     return acc.reshape((d.shape[0],) + x.shape[:-1] + (n,))
 
@@ -153,12 +173,22 @@ def test_plan_invariants_on_irregular_patterns(seed, n, wide):
 
 def test_plan_raises_on_a_row_too_wide():
     """A row with more distinct columns than a tile holds cannot be split:
-    the plan raises instead of handing the kernel an overfull tile."""
+    the plan hands it to the long-row kernel instead of an overfull tile
+    (it no longer raises), and the other rows keep their tiles; the
+    planned order still gives the scatter's product."""
     n = 400
     rows = np.r_[np.zeros(300, np.int64), np.arange(1, n)]
     cols = np.r_[np.arange(300), np.arange(1, n)]
-    with pytest.raises(ValueError, match="distinct columns"):
-        ck.build_csr(torch.as_tensor(rows), torch.as_tensor(cols), n)
+    csr = ck.build_csr(torch.as_tensor(rows), torch.as_tensor(cols), n)
+    assert csr.long_rows.tolist() == [0] and csr.n_long == 1
+    _check_plan(csr)
+    rng = np.random.default_rng(5)
+    data = torch.as_tensor(rng.standard_normal((2, rows.size)))
+    x = torch.as_tensor(rng.standard_normal((3, n)))
+    y_ref = ck.scatter_mv(data, x, torch.as_tensor(rows),
+                          torch.as_tensor(cols), n)
+    tol = 1e-13 * float(y_ref.abs().max())
+    assert float((_planned(data, x, csr) - y_ref).abs().max()) <= tol
 
 
 def test_planned_order_matches_scatter_and_jax():

@@ -96,9 +96,11 @@ def test_api_gaps_raise_not_implemented(call, monkeypatch):
     ``chunk=8`` builds the direct sweep's 24 matrices 8 at a time (and
     factors each alone, one LU a frequency), and
     ``n_modes=12`` truncates the modal basis (another FRF than the full
-    basis, whose n_modes = n gives the full basis's bits).
-    ``polish_peaks`` still raises naming its ROADMAP item; ``cpu=`` is
-    accepted and ignored."""
+    basis, whose n_modes = n gives the full basis's bits), and
+    ``polish_peaks=True`` corrects the |FRF| peak by one exact host
+    residual (to 1e-8 of the refined splu, no further off than the
+    sweep's own value) and leaves the other points as the sweep gave
+    them; ``cpu=`` is accepted and ignored."""
     parts = _steel(pt)
     if call == "chunk":
         sizes = {"dense": [], "lu": []}
@@ -131,9 +133,14 @@ def test_api_gaps_raise_not_implemented(call, monkeypatch):
                        n_modes=full.n_free)
         assert np.array_equal(q.solveForward(FREQS).numpy(), y_full)
     else:
-        with pytest.raises(NotImplementedError, match="F.17"):
-            p = pt.Problem(*parts, device="cpu", cpu=4)   # accepted, unused
-            p.solveForward(FREQS, polish_peaks=True)
+        p = pt.Problem(*parts, device="cpu", cpu=4)   # accepted, unused
+        y = p.solveForward(FREQS).numpy()
+        y_pol = p.solveForward(FREQS, polish_peaks=True).numpy()
+        i = int(np.argmax(y))
+        ref = splu_frf(p, FREQS[i:i + 1])[0]
+        assert abs(y_pol[i] - ref) <= min(1e-8 * ref, abs(y[i] - ref))
+        others = np.arange(FREQS.size) != i
+        np.testing.assert_array_equal(y_pol[others], y[others])
 
 
 def test_band_basis_and_newton_path_reproducible():

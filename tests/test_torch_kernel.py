@@ -15,12 +15,16 @@ of a row run in another order); K3 to 1e-12 of max |y| in f64 and 1e-5 in
 f32 with each of its three kernels, one launch a call, two launches and
 two sweeps bit for bit (it sums in one fixed order), and the same bits
 from a non-contiguous x;
+K3's long rows (more than 256 distinct columns) through the long-row
+kernel beside each tile kernel, on mixed, rectangular and all-long
+patterns, to the same bounds and bit for bit twice;
 K3's autograd Function on the card against the CPU's to 1e-12; the FRF
 against the host f64 splu oracle to 1e-6 relative (the repo's gate); the
 adjoint Gauss-Newton residual and Jacobian on the card against the same
 call on the CPU (plain K1), on one set of operator data: r to 3e-6, J to
 1e-5 of max |J| (the f32 preconditioner rounds differently, as against
-the JAX package).
+the JAX package); ``polish_peaks`` on the card against the refined splu to
+1e-8.
 """
 import functools
 
@@ -373,3 +377,96 @@ def test_csr_apply_autograd_on_card_matches_cpu(cuda_device):
     for a, b in zip(run(csr_g, cuda_device), run(csr_c, "cpu")):
         assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
     assert csr_kernel.csr_mv_cuda.launches > n0
+
+
+def _long_cases(device):
+    """K3 patterns with long rows (more distinct columns than a tile's
+    256): a mixed square one (n = 900: a band of 9 columns a row, and every
+    37th row with 300-900 distinct random columns), a rectangular 400 x
+    3200 one (long rows of 300-3000 columns), both in a shuffled order (the
+    data read through the permutation), and a dense 400 x 400 one (every
+    row long, no tile), each with its CSR copy."""
+    rng = np.random.default_rng(17)
+    out = []
+    for n_rows, n_cols in ((900, 900), (400, 3200)):
+        r, c = [], []
+        for i in range(n_rows):
+            j = i * n_cols // n_rows
+            cols = np.arange(max(0, j - 4), min(n_cols, j + 5))
+            if i % 37 == 5:
+                k = int(rng.integers(300, min(3000, n_cols) + 1))
+                cols = np.union1d(cols, rng.choice(n_cols, k, replace=False))
+            r.append(np.full(cols.size, i))
+            c.append(cols)
+        r, c = np.concatenate(r), np.concatenate(c)
+        perm = rng.permutation(r.size)
+        out.append((r[perm], c[perm], n_rows, n_cols))
+    r, c = np.nonzero(np.ones((400, 400), bool))
+    out.append((r, c, 400, 400))
+    cases = [csr_kernel.build_csr(torch.as_tensor(r, device=device),
+                                  torch.as_tensor(c, device=device), nr, nc)
+             for r, c, nr, nc in out]
+    assert cases[0].n_tiles > 0 and cases[0].n_long > 0
+    assert cases[2].n_tiles == 0 and cases[2].n_long == 400
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 3, 33, 1024])
+def test_csr_kernel_long_rows(cuda_device, dtype, L):
+    """The long-row regime beside each tile kernel (one lane, narrow,
+    wide) on a mixed pattern, a rectangular one and an all-long one, at S
+    in {1, 2, 3}: against the plain version (1e-12 / 1e-5 of max |y|),
+    one launch of the tile kernel where there are tiles and one of the
+    long-row kernel, each counted under its regime, two calls bit for bit,
+    and a non-contiguous x giving the same bits."""
+    kind = csr_kernel.regime(L)
+    for csr in _long_cases(cuda_device):
+        for S in (1, 2, 3):
+            rng = np.random.default_rng(S * L + csr.n_cols)
+            data = torch.as_tensor(rng.standard_normal((S, csr.nnz)),
+                                   dtype=dtype, device=cuda_device)
+            x = torch.as_tensor(rng.standard_normal((L, csr.n_cols)),
+                                dtype=dtype, device=cuda_device)
+            n0 = csr_kernel.csr_mv_cuda.launches
+            by = dict(csr_kernel.csr_mv_cuda.launches_by_regime)
+            y = csr_kernel.csr_mv_cuda(data, x, csr)
+            torch.cuda.synchronize()
+            tiles = 1 if csr.n_tiles else 0
+            assert csr_kernel.csr_mv_cuda.launches == n0 + tiles + 1
+            now = csr_kernel.csr_mv_cuda.launches_by_regime
+            assert now["long"] == by["long"] + 1
+            assert now[kind] == by[kind] + tiles
+            y_ref = csr_kernel.csr_mv_reference(data, x, csr)
+            tol = 1e-12 if dtype == torch.float64 else 1e-5
+            assert float((y - y_ref).abs().max()) <= tol * float(
+                y_ref.abs().max())
+            assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x, csr))
+            x_t = x.t().contiguous().t()
+            assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x_t, csr))
+
+
+@pytest.mark.cuda
+def test_polish_peaks_on_card_meets_refined_splu(cuda_device):
+    """``polish_peaks`` on the bench plate (n = 1466) on the card, theta
+    off the basis point: its correction sweep runs K3, the polished peak
+    meets the longdouble-refined splu to 1e-8 (the JAX test's bound), and
+    ``solveForward(polish_peaks=True)`` gives a CUDA tensor of the same
+    values."""
+    from plate_inverse_problem_tpu_torch.diagnostics import polish_peaks
+
+    p = pt.Problem(*_parts(), device=cuda_device)
+    th = np.asarray(p.parameters) * np.array([1.1, 0.9, 1.2])
+    freqs = np.linspace(40.0, 600.0, 64)
+    fr = p.solveForward(freqs, th)
+    csr_kernel.reset_launches()
+    fr_pol, info = polish_peaks(p, freqs, fr=fr, params=th)
+    assert info["mode"] == "residual" and csr_kernel.csr_mv_cuda.launches > 0
+    i = info["indices"]
+    ref = splu_frf(p, freqs[i], th)
+    assert np.all(np.abs(fr_pol[i] - ref) <= 1e-8 * np.abs(ref))
+    fr_sf = p.solveForward(freqs, th, polish_peaks=True)
+    assert fr_sf.is_cuda
+    np.testing.assert_allclose(fr_sf.cpu().numpy(), fr_pol, rtol=1e-12,
+                               atol=0.0)

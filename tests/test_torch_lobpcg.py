@@ -4,7 +4,8 @@ lobpcg.py; ``Problem(basis="lobpcg")``) held against the JAX package's
 
 * ``lobpcg_pencil`` on the JAX test's synthetic pencil (n = 400, 1e8
   spectral spread, the same start block and the same f32 inverse in the
-  GCR T, ``gcr_T``):
+  GCR T, ``gcr_T``; its dense rows are K3's long rows, through the sparse
+  API's ``matvec``):
   eigenvalues to 1e-8 relative of the JAX function's (both converge to
   relres 1e-6, so their Ritz values differ at ~relres^2) and the spans'
   principal angles to 1 - 1e-8, M-orthonormal to 1e-10.
@@ -28,6 +29,7 @@ import torch
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu.fem.assembly import MODULI_INDICES
 from plate_inverse_problem_tpu.ops import lobpcg as jlob
+from plate_inverse_problem_tpu_torch import ops as tops
 from plate_inverse_problem_tpu_torch.ops import lobpcg as tlob
 from plate_inverse_problem_tpu_torch.ops.dense import inv_refined
 from plate_inverse_problem_tpu_torch.ops.mixed import (
@@ -75,16 +77,23 @@ def test_lobpcg_pencil_synthetic_matches_jax():
     lam_j, X_j, _, it_j = jlob.lobpcg_pencil(*applies, opd, X0j, n_wanted=m,
                                              tol=1e-6, maxiter=60)
 
-    # the pencil is dense (rows of 400 columns: more than a K3 tile holds),
-    # so its products are dense GEMMs here; T is the port's GCR around the
-    # dense f32 inverse, as in the JAX test
-    Kt, Mt = torch.as_tensor(K), torch.as_tensor(M)
+    # the pencil is dense: its rows of 400 columns, more than a K3 tile
+    # holds, are K3's long rows, through the sparse API's matvec on the
+    # full pattern; T is the port's GCR around the dense f32 inverse, as in
+    # the JAX test
+    (prow, pcol), pat = tops.create_symbolic(
+        n, np.stack([rows, cols], axis=1))
+    assert pat.plans("cpu")[0].n_long == n
+    Kd, Md = (torch.as_tensor(A[prow, pcol]) for A in (K, M))
     invK = torch.as_tensor(invK32)
 
-    def apply_KM(U):
-        return U @ Kt, U @ Mt
+    def apply_K(U):
+        return tops.matvec(pat, Kd, U)
 
-    apply_T = tlob.gcr_T(lambda U: U @ Kt,
+    def apply_KM(U):
+        return apply_K(U), tops.matvec(pat, Md, U)
+
+    apply_T = tlob.gcr_T(apply_K,
                          lambda x: _dense_apply(invK, x).double(), 4)
     lam, X, relres, it = tlob.lobpcg_pencil(
         apply_KM, apply_T, apply_T(torch.as_tensor(X0)), n_wanted=m,

@@ -266,7 +266,16 @@ def test_package_imports_no_jax():
             "plate_inverse_problem_tpu_torch.oracle, "
             "plate_inverse_problem_tpu_torch.ops.csr_kernel, "
             "plate_inverse_problem_tpu_torch.mesh.edp, "
-            "plate_inverse_problem_tpu_torch.io.compress; "
+            "plate_inverse_problem_tpu_torch.io.compress, "
+            "plate_inverse_problem_tpu_torch.compat, "
+            "plate_inverse_problem_tpu_torch.diagnostics, "
+            "plate_inverse_problem_tpu_torch.diagnostics.parity, "
+            "plate_inverse_problem_tpu_torch.diagnostics.checks, "
+            "plate_inverse_problem_tpu_torch.diagnostics.profile, "
+            "plate_inverse_problem_tpu_torch.diagnostics.ritz, "
+            "plate_inverse_problem_tpu_torch.io.checkpoint, "
+            "plate_inverse_problem_tpu_torch.mesh.adapt, "
+            "plate_inverse_problem_tpu_torch.utils; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
