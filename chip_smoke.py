@@ -175,7 +175,31 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    trace names K3's kernels as often as the launch counter counts; (f)
    ``device_report`` and ``test_function`` on 5e7 f32 against numpy
    (``examples/test_device_lib.py``); (g) tests/test_compat.py's script
-   on the card.
+   on the card;
+14. frequency sharding over torch.distributed (``[slice12]``), each rank a
+   process started with the ``spawn`` method (``parallel.ranks``): (a)
+   the bench plate (n = 1466, 512 points) at one rank per card over NCCL
+   — the sharded FRF against the unsharded sweep (its bits at world 1),
+   the training step against ``LossFunction.value_and_grad`` (SHARD_TOL,
+   SHARD_GRAD_TOL), the adjoint and forward-mode Gauss-Newton steps at
+   truth x SHARD_THETA against ``ResidualFunction`` and the host normal
+   equations (SHARD_TOL), each step timed beside its single-process
+   counterpart; the regrouping witness (the step with its lanes in two
+   batches, ``freq_chunk`` N_FREQ / 2) and the control (a pad lane left
+   in) that bracket SHARD_REGROUP_TOL; (b) the same plate on two gloo
+   ranks on the card, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh
+   (``invK64`` in row blocks) against (a) (DOF_FRF_TOL for the dof mesh's
+   FRF, SHARD_REGROUP_TOL for the Gauss-Newton updates) and the freq
+   mesh's updates against the witness (SHARD_TOL), every rank and run the
+   same bits; (c) the 13862-DOF pure-bending plate (band + two-grid)
+   on the (freq 1, dof 2) mesh, the coarse inverse in row blocks, its
+   peak against the refined splu (ORACLE_TOL) and K1 in every rank; (d)
+   ``python -m plate_inverse_problem_tpu_torch.parallel``'s workflow on
+   the modal engine with device "cuda", in the NCCL rank (torchrun's
+   path) and in this process (the plain run's), against the JAX
+   package's CPU run of
+   ``examples/multichip.py`` (MULTICHIP_JAX, MULTICHIP_TOL).  Each step
+   prints its wall, its collectives' seconds and K1 / K3 per rank.
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -396,6 +420,35 @@ GOLDEN = 341.9363
 # phase 13 (f): 2x + sin(x) in f32 against numpy's, absolute (|y| < 13:
 # a few f32 ulps)
 DEVICE_LIB_TOL = 1e-5
+# phase 14: theta / truth of the sharded steps (JAX tests/test_parallel.py),
+# the bounds against the single-process port (the JAX parallel tests':
+# FRF, loss and Gauss-Newton update relative, gradient of its max) and the
+# dof mesh's FRF bound (the JAX dof test's)
+SHARD_THETA = (1.02, 0.99, 1.05)
+SHARD_TOL = 1e-9
+SHARD_GRAD_TOL = 1e-8
+DOF_FRF_TOL = 1e-7
+# phase 14 (b), and (a) on several cards: the Gauss-Newton update of lanes
+# solved in other batches (the ranks' shares, or the dense preconditioner's
+# GEMM in column blocks) against the whole batch's, relative.  The update
+# is ill-conditioned in the E-G valley, and a batch's FGMRES stops on its
+# own lanes: on an NVIDIA H100 80GB HBM3 at 700 W the single-process step
+# with its 512 lanes in two batches of 256 (the witness, in (a)) moves G's
+# update by 4.4e-8 (adjoint) / 6.7e-8 (fwd), the same figures as the two
+# ranks of (b)'s freq mesh; the dof mesh moves it 3.8e-8, four cards
+# 2.8e-8.  The control, one pad lane left in, moves it 3.0e-3: the bound
+# sits between them, 15x above the largest sound reading
+SHARD_REGROUP_TOL = 1e-6
+REGROUP_STEPS = ("gn_chunk", "gn_fwd_chunk")
+# phase 14 (d): the JAX package's own CPU run of examples/multichip.py
+# (XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
+# python3 .probes/multichip_jax.py: the example's code, its numbers printed
+# in full; modal engine, a (freq 4, dof 2) mesh of virtual devices), and
+# the port's bound against it, relative
+MULTICHIP_JAX = {"losses": [0.03031934638051415, 0.029388834416543528,
+                            0.028150455103617637],
+                 "final_rsq": 1.6832674222076234e-05}
+MULTICHIP_TOL = 1e-6
 # phase 9 (e): the script of examples/edp_import.py
 EDP_SCRIPT = """
 // a plate with a circular hole, clamped on its RIGHT border (label 2 --
@@ -1191,7 +1244,7 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
-    """Phases 2-12 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-14 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources`` / ``ab_csr_sources``: other versions of K1 / K3 to time
     beside them (A/B only)."""
     import torch
@@ -1337,6 +1390,10 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     print(f"[time] phase 13 in {s11_s:.1f} s", flush=True)
     if failed:
         raise AssertionError(" || ".join(failed))
+    t14 = time.perf_counter()
+    s12 = slice12(dev)
+    s12_s = time.perf_counter() - t14
+    print(f"[time] phase 14 in {s12_s:.1f} s", flush=True)
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
               "sweep_21k": k3_sweep_regimes,
               "rj_21k": inv["k3_rj_by_regime"],
@@ -1361,16 +1418,19 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                "engines": {k: v for k, v in eng.items() if k != "k3"},
                "slice10": s10,
                "slice11": {k: v for k, v in s11.items()
+                           if k not in ("k1", "k3")},
+               "slice12": {k: v for k, v in s12.items()
                            if k not in ("k1", "k3")}}
     summary["phases_s"] = time.perf_counter() - t_phases
     summary["phases_2_9_s"] = summary_s
     summary["phase_11_s"] = eng_s
     summary["phase_12_s"] = s10_s
     summary["phase_13_s"] = s11_s
-    print(f"[time] phases 2-13 in {summary['phases_s']:.1f} s (phase 10: "
-          f"{summary['phases_s'] - summary_s - eng_s - s10_s - s11_s:.1f} s,"
-          f" phase 11: {eng_s:.1f} s, phase 12: {s10_s:.1f} s, phase 13: "
-          f"{s11_s:.1f} s)", flush=True)
+    summary["phase_14_s"] = s12_s
+    s8_s = summary["phases_s"] - summary_s - eng_s - s10_s - s11_s - s12_s
+    print(f"[time] phases 2-14 in {summary['phases_s']:.1f} s (phase 10: "
+          f"{s8_s:.1f} s, phase 11: {eng_s:.1f} s, phase 12: {s10_s:.1f} s, "
+          f"phase 13: {s11_s:.1f} s, phase 14: {s12_s:.1f} s)", flush=True)
     k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
                 "grad_21k": inv["k3_grad"],
                 "dense_sweep_1466": dense["bench"]["k3"],
@@ -1384,7 +1444,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                 "mg_flat_sweeps_21k": s10["mg_20916"]["k3"],
                 "mg_flat_rect_21k": s10["mg_20916"]["k3_rect"],
                 "sparse_api": s10["sparse"]["k3"],
-                **s11["k3"]}
+                **s11["k3"], **s12["k3"]}
     if not all(v > 0 for v in k3_paths.values()):
         raise AssertionError(f"K3 launched no time on a path: {k3_paths}")
     print(f"[summary] {json.dumps(summary)}", flush=True)
@@ -1403,7 +1463,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                                  s10["lobpcg_20916"]["k1_basis"],
                              "mg_flat_sweeps_1466": s10["mg_1466"]["k1"],
                              "mg_flat_sweeps_21k": s10["mg_20916"]["k1"],
-                             **s11["k1"]},
+                             **s11["k1"], **s12["k1"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
@@ -3729,6 +3789,297 @@ def slice11(dev, p21, freqs, fr21) -> dict:
                  "traced_sweep_1466": out["trace"]["k3_counted"]}
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 14: frequency sharding over torch.distributed
+# ---------------------------------------------------------------------------
+
+def shard_workflow() -> dict:
+    """The ``python -m plate_inverse_problem_tpu_torch.parallel`` workflow
+    as the module runs it (device "cuda": this rank's card, or the current
+    one without a process group), on the engine the JAX package's CPU run
+    of it takes (modal: an exact f64 solve on both sides; the mixed
+    engine's 1e-9-grade solves move the Gauss-Newton iterates in the E-G
+    valley the run ends in by ~1e-4); with its seconds and K3 launches."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+    from plate_inverse_problem_tpu_torch.parallel.__main__ import workflow
+
+    k3 = csr_kernel.csr_mv_cuda.launches
+    t0 = time.perf_counter()
+    out = workflow("cuda", engine="modal", echo=lambda *a: None)
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    out["k3"] = csr_kernel.csr_mv_cuda.launches - k3
+    return out
+
+
+def shard_rank_nccl(rank, dev, out_dir, spec, workflow_too=True):
+    """Phase 14 (a) and (d) in one rank of the NCCL world: the sharded
+    checks with the single-process references, then the workflow as
+    torchrun's ranks run it."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.parallel import ranks
+
+    ranks.sharded_checks(rank, dev, out_dir, spec)
+    if workflow_too:
+        torch.save(shard_workflow(),
+                   os.path.join(out_dir, f"workflow{rank}.pt"))
+
+
+def shard_rank_gloo(rank, dev, dir_b, spec_b, dir_c, spec_c):
+    """Phase 14 (b) then (c) in one rank of the two-rank gloo world."""
+    from plate_inverse_problem_tpu_torch.parallel import ranks
+
+    ranks.sharded_checks(rank, dev, dir_b, spec_b)
+    ranks.sharded_checks(rank, dev, dir_c, spec_c)
+
+
+def shard_bits(recs, failed: list,
+               keys=("frf", "train", "gn_adjoint", "gn_fwd")) -> None:
+    """Every rank's runs of each step give the first's bits (else a line in
+    ``failed``)."""
+    def raw(run):
+        parts = run if isinstance(run, tuple) else (run,)
+        return b"".join(np.atleast_1d(np.asarray(x)).tobytes()
+                        for x in parts)
+
+    for key in keys:
+        if key in recs[0]:
+            runs = [raw(run) for r in recs for run in r[key]]
+            if any(b != runs[0] for b in runs):
+                failed.append(f"[slice12] {key}: ranks or runs differ in "
+                              "their bits")
+
+
+def shard_report(label, recs, steps) -> dict:
+    """Print each step's wall seconds (synchronised; the fastest of its
+    steady runs, the second on, where it ran more than once), collective
+    seconds and K1 / K3 launches per rank; returns them."""
+    out = {}
+    for step in steps:
+        row = {"s": [min(r["s"][step][1:] or r["s"][step]) for r in recs],
+               "collective_s": [min(r["collective_s"][step][1:]
+                                    or r["collective_s"][step]) for r in recs],
+               "k1": [r["k1"][step] for r in recs],
+               "k3": [r["k3"][step] for r in recs]}
+        print(f"[slice12] {label} {step}: wall "
+              + " / ".join(f"{x:.4f}" for x in row["s"]) + " s, collectives "
+              + " / ".join(f"{x:.4f}" for x in row["collective_s"])
+              + f" s, K1 {row['k1']}, K3 {row['k3']} (per rank; the fastest "
+              "steady run's seconds, every run's launches)", flush=True)
+        out[step] = row
+    return out
+
+
+def shard_close(name, x, ref, tol, failed: list, rel_max=False) -> float:
+    """Print x's deviation from ref (relative, or of ref's max |entry|) and
+    record it in ``failed`` when it exceeds tol."""
+    x, ref = np.asarray(x), np.asarray(ref)
+    dev = np.abs(x - ref) / (np.max(np.abs(ref)) if rel_max else np.abs(ref))
+    err = float(np.max(dev))
+    each = f" {np.array2string(dev, precision=2)}" if 1 < dev.size <= 8 else ""
+    print(f"[slice12] {name}: {err:.3e}{each} (tol {tol:g})", flush=True)
+    if not err <= tol:
+        failed.append(f"[slice12] {name}: {err:.3e} > {tol:g}")
+    return err
+
+
+def slice12(dev, parts: str = "abcd") -> dict:
+    """Phase 14: the sharded sweep, training step and Gauss-Newton step,
+    each rank a process started with torch.multiprocessing's spawn method.
+    (a) the bench plate over NCCL, one rank per card, against the
+    single-process port; (b) the same plate, two ranks on ``dev`` over
+    gloo, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh, against (a);
+    (c) the 13862-DOF pure-bending plate (band + two-grid) on the (freq 1,
+    dof 2) mesh, its coarse inverse partitioned; (d) the package's
+    parallel workflow, in the NCCL world and in this process without a
+    process group (the plain ``python -m`` run), against the JAX
+    package's CPU run.
+    ``parts``: which of them to run ((a) always: (b) is held against it).
+    A rank's exception raises here."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.parallel import ranks
+
+    world = torch.cuda.device_count()
+    root = os.path.join("build", "parallel")
+    dirs = {k: os.path.join(root, k) for k in "abc"}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    bench = {"geometry": "sh_i", "refine": 1.0}
+    steps = ("train", "gn_adjoint", "gn_fwd")
+    common = {"freqs": (40.0, 600.0, N_FREQ), "theta": SHARD_THETA,
+              "repeats": 2, "steps": steps}
+    out, failed = {}, []
+
+    def done():
+        if failed:
+            raise AssertionError("phase 14 failed: " + " | ".join(failed))
+        return out
+
+    # ---- (a) + (d): NCCL, one rank per card -------------------------------
+    t0 = time.perf_counter()
+    ranks.spawn(shard_rank_nccl, world, dirs["a"],
+                {"plate": bench, "meshes": [(world, 1)], "reference": True,
+                 **common, "steps": steps + REGROUP_STEPS,
+                 "chunk": N_FREQ // 2, "control": True},
+                "d" in parts, device="cuda")
+    out["a_s"] = time.perf_counter() - t0
+    a = ranks.load(dirs["a"], world)
+    ma = [r["meshes"][0] for r in a]
+    ref = {k: ma[0]["ref_" + k][0]
+           for k in ("frf", "train", "gn_adjoint", "gn_fwd")}
+    print(f"[slice12] (a) bench plate n={a[0]['n_free']} tier {a[0]['tier']}"
+          f", NCCL world {world} (freq {world}, dof 1), {N_FREQ} points: "
+          f"{out['a_s']:.1f} s with the spawn and the rank's build "
+          f"({a[0]['build_s']:.2f} s)", flush=True)
+    if world == 1:
+        if not np.array_equal(ma[0]["frf"][0], ref["frf"]):
+            failed.append("[slice12] (a) the sharded FRF is not the "
+                                 "unsharded sweep's bits at world 1")
+        print("[slice12] (a) FRF: the unsharded sweep's bits", flush=True)
+    for m in ma:
+        shard_close("(a) FRF vs unsharded", m["frf"][0][:N_FREQ],
+                    ref["frf"], SHARD_TOL, failed)
+        shard_close("(a) loss vs LossFunction", m["train"][0][0],
+                    ref["train"][0], SHARD_TOL, failed)
+        shard_close("(a) grad vs LossFunction", m["train"][0][1],
+                    ref["train"][1], SHARD_GRAD_TOL, failed, rel_max=True)
+        for mode in ("adjoint", "fwd"):
+            rsq, th = m[f"gn_{mode}"][0]
+            shard_close(f"(a) GN {mode} |r|^2 vs host normal equations", rsq,
+                        ref[f"gn_{mode}"][0], SHARD_TOL, failed)
+            shard_close(f"(a) GN {mode} update vs host normal equations", th,
+                        ref[f"gn_{mode}"][1],
+                        SHARD_TOL if world == 1 else SHARD_REGROUP_TOL,
+                        failed)
+        # the regrouping witness: the same rank's step with its lanes in
+        # two batches of N_FREQ / 2 (at world 1 the single-process port
+        # batched as the (freq 2, dof 1) mesh of (b) batches it) against
+        # the whole batch, and the control: a pad lane left in
+        for mode, name in zip(("adjoint", "fwd"), REGROUP_STEPS):
+            (rsq, th), (rsq_w, th_w) = m[f"gn_{mode}"][0], m[name][0]
+            shard_close(f"(a) GN {mode} |r|^2, freq_chunk {N_FREQ // 2} vs "
+                        "the whole batch", rsq_w, rsq, SHARD_TOL, failed)
+            out.setdefault("witness", []).append(shard_close(
+                f"(a) GN {mode} update, freq_chunk {N_FREQ // 2} vs the "
+                "whole batch (witness)", th_w, th, SHARD_REGROUP_TOL,
+                failed))
+        ctrl = shard_close("(a) GN adjoint update, a pad lane left in vs "
+                           "host normal equations (control: must exceed "
+                           "the bound)", m["ctrl_pad"][0][1],
+                           ref["gn_adjoint"][1], np.inf, failed)
+        out.setdefault("control", []).append(ctrl)
+        if not ctrl > SHARD_REGROUP_TOL:
+            failed.append(f"[slice12] (a) the control's {ctrl:.3e} is "
+                          f"within the regrouping bound {SHARD_REGROUP_TOL:g}"
+                          ": the bound cannot see a pad lane left in")
+    shard_bits(ma, failed)
+    out["a"] = shard_report("(a)", ma, ("frf",) + steps + REGROUP_STEPS + (
+        "ref_frf", "ref_train", "ref_gn_adjoint", "ref_gn_fwd", "ctrl_pad"))
+    if min(sum(m["k3"].values()) for m in ma) <= 0:
+        failed.append("[slice12] (a) a rank launched no K3")
+
+    if "d" not in parts:
+        return done()
+    # (d) the workflow against the JAX package's CPU run: rank 0 of the
+    # NCCL world (torchrun's path) and this process, no process group
+    # (the plain run's path)
+    wfs = {"NCCL rank 0": torch.load(os.path.join(dirs["a"], "workflow0.pt"),
+                                     weights_only=False),
+           "plain process": shard_workflow()}
+    for label, wf in wfs.items():
+        print(f"[slice12] (d) parallel workflow, {label} ({wf['s']:.2f} s, "
+              f"K3 {wf['k3']}): FRF sum {wf['frf_sum']:.4f}, losses "
+              f"{wf['losses']}, GN "
+              f"{[(f'{x:.6e}', ok) for x, _, ok in wf['gn']]}, final "
+              f"|r|^2 {wf['rsq']!r}", flush=True)
+        shard_close(f"(d) {label} training losses vs JAX", wf["losses"],
+                    MULTICHIP_JAX["losses"], MULTICHIP_TOL, failed)
+        shard_close(f"(d) {label} final |r|^2 vs JAX", wf["rsq"],
+                    MULTICHIP_JAX["final_rsq"], MULTICHIP_TOL, failed)
+    out["d"] = {label: {k: w[k] for k in ("s", "k3", "frf_sum", "losses",
+                                          "rsq")}
+                for label, w in wfs.items()}
+    if "b" not in parts:
+        return done()
+
+    # ---- (b) + (c): two gloo ranks on one card ---------------------------
+    t0 = time.perf_counter()
+    ranks.spawn(shard_rank_gloo, 2, dirs["b"],
+                {"plate": bench, "meshes": [(2, 1), (1, 2)], **common},
+                dirs["c"],
+                {"plate": {"geometry": "sh_i", "refine": 4.0,
+                           "accel": False},
+                 "meshes": [(1, 2)], "freqs": (40.0, 600.0, N_FREQ),
+                 "theta": SHARD_THETA, "repeats": 1, "steps": (),
+                 "oracle": True},
+                backend="gloo", device=f"cuda:{dev.index or 0}")
+    out["bc_s"] = time.perf_counter() - t0
+    b = ranks.load(dirs["b"], 2)
+    n = b[0]["n_free"]
+    for i, label in enumerate(("(b) freq 2", "(b) dof 2")):
+        mb = [r["meshes"][i] for r in b]
+        shard_bits(mb, failed)
+        frf_tol = SHARD_TOL if i == 0 else DOF_FRF_TOL
+        shard_close(f"{label} FRF vs (a)", mb[0]["frf"][0][:N_FREQ],
+                    ma[0]["frf"][0][:N_FREQ], frf_tol, failed)
+        shard_close(f"{label} loss vs (a)", mb[0]["train"][0][0],
+                    ma[0]["train"][0][0], SHARD_TOL, failed)
+        shard_close(f"{label} grad vs (a)", mb[0]["train"][0][1],
+                    ma[0]["train"][0][1], SHARD_GRAD_TOL, failed,
+                    rel_max=True)
+        for mode in ("adjoint", "fwd"):
+            (rsq, th), (rsq_a, th_a) = (mb[0][f"gn_{mode}"][0],
+                                        ma[0][f"gn_{mode}"][0])
+            shard_close(f"{label} GN {mode} |r|^2 vs (a)", rsq, rsq_a,
+                        SHARD_TOL, failed)
+            shard_close(f"{label} GN {mode} update vs (a)", th, th_a,
+                        SHARD_REGROUP_TOL, failed)
+            if i == 0 and world == 1:
+                # two ranks of 256 lanes each: the witness's batches
+                th_w = ma[0][REGROUP_STEPS[mode == "fwd"]][0][1]
+                shard_close(f"{label} GN {mode} update vs (a)'s witness",
+                            th, th_w, SHARD_TOL, failed)
+        want = {} if i == 0 else {"invK64": (n // 2, n)}
+        if any(m["shards"] != want for m in mb):
+            failed.append(f"[slice12] {label}: shards "
+                                 f"{mb[0]['shards']}, not {want}")
+        if min(sum(m["k3"].values()) for m in mb) <= 0:
+            failed.append(f"[slice12] {label}: a rank launched no K3")
+        out[f"b{i}"] = shard_report(label, mb, ("frf",) + steps)
+    c = ranks.load(dirs["c"], 2)
+    mc = [r["meshes"][0] for r in c]
+    shard_bits(mc, failed)
+    f_pk, err = mc[0]["peak"]
+    print(f"[slice12] (c) two-grid plate n={c[0]['n_free']} tier "
+          f"{c[0]['tier']} (build {c[0]['build_s']:.2f} s), 2 gloo ranks as "
+          f"(freq 1, dof 2), coarse inverse rows {mc[0]['shards']}: peak "
+          f"{f_pk:.2f} Hz vs the refined splu {err:.3e} (tol {ORACLE_TOL:g})"
+          f"; {out['bc_s']:.1f} s for (b) + (c) with the spawn", flush=True)
+    if not err <= ORACLE_TOL:
+        failed.append(f"[slice12] (c) peak {err:.3e} > {ORACLE_TOL}")
+    if any("mg_Kcinv" not in m["shards"] for m in mc):
+        failed.append("[slice12] (c) the coarse inverse was not "
+                             "partitioned")
+    out["c"] = shard_report("(c)", mc, ("frf",))
+    if min(m["k1"]["frf"] for m in mc) <= 0:
+        failed.append("[slice12] (c) a rank launched no K1")
+    out["k1"] = {f"slice12_twogrid_rank{r}": m["k1"]["frf"]
+                 for r, m in enumerate(mc)}
+    out["k3"] = {**{f"slice12_nccl_rank{r}": sum(m["k3"].values())
+                    for r, m in enumerate(ma)},
+                 **{f"slice12_gloo_rank{r}": sum(
+                     sum(r_["meshes"][i]["k3"].values()) for i in (0, 1))
+                    for r, r_ in enumerate(b)},
+                 **{f"slice12_twogrid_rank{r}": m["k3"]["frf"]
+                    for r, m in enumerate(mc)},
+                 "slice12_workflow": wfs["NCCL rank 0"]["k3"],
+                 "slice12_workflow_plain": wfs["plain process"]["k3"]}
+    return done()
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -36,11 +36,13 @@ reference's standalone sparse API (``create_symbolic``, ``matvec``,
 residual (``polish_peaks``, also ``solveForward(polish_peaks=...)``),
 runs the parity study's modal expansion, guards against non-finite
 values, captures ``torch.profiler`` traces and reports the devices;
-``compat`` gives the reference's module layout.  The package imports
+``compat`` gives the reference's module layout; ``parallel`` shards the
+sweep, the training step and the Gauss-Newton step over
+``torch.distributed`` ranks.  The package imports
 torch, numpy and scipy, never jax (matplotlib only inside
 ``getModePicture`` and the plotting helpers).
 """
-from . import config
+from . import config, parallel
 from .convert import opdata_from_jax
 from .io.compress import Compressor
 from .models.accelerometer import Accelerometer, AccelerometerParams
@@ -106,5 +108,6 @@ __all__ = [
     "optimize_lbfgs",
     "optimize_newton",
     "optimize_trust_region",
+    "parallel",
     "save_msh",
 ]

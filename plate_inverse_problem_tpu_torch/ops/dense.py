@@ -32,3 +32,15 @@ def inv_refined(A):
                                      torch.ones_like(d)))
     X = torch.linalg.inv(A.double() * s[:, None] * s[None, :])
     return (X * s[None, :] * s[:, None]).to(A.dtype)
+
+
+def dense_apply(inv, x):
+    """A dense inverse applied to every row of (..., n), x @ inv.T, in
+    inv's dtype: one GEMM (f64: DGEMM; f32: SGEMM, IEEE f32 with TF32 off,
+    config.py), or for an inverse row-partitioned over a mesh's dof axis
+    (``parallel.freq_shard.RowShard``) this rank's column block and the
+    dof group's all_reduce."""
+    x = x.to(inv.dtype)
+    if isinstance(inv, torch.Tensor):
+        return torch.matmul(x, inv.T)
+    return inv.apply_t(x)

@@ -12,7 +12,7 @@ the Problem's device:
   the RCM block-tridiagonal f64 product (ops/band.py ``band_mv``), and
 * the mixed engine's own complement preconditioner as T ~= K^-1: the
   port's dense f64 inverse below 12288 DOF (one GEMM,
-  ``mixed._dense_apply``), the band two-grid cycle above (its band matvec
+  ``dense.dense_apply``), the band two-grid cycle above (its band matvec
   the band kernel, K1) — the same object that preconditions the sweep.
 
 With T ~= K^-1 the preconditioned pencil has O(1) effective condition
@@ -217,7 +217,7 @@ def _make_applies(n: int, K64, M64, csr=None, band=None, precond=None):
     of the inner flexible GCR wrapped around the cycle (``gcr_T``).
     """
     from .csr_kernel import csr_mv
-    from .mixed import _dense_apply
+    from .dense import dense_apply
     from .mg import twogrid_apply
 
     if band is not None:
@@ -247,7 +247,7 @@ def _make_applies(n: int, K64, M64, csr=None, band=None, precond=None):
         invK = precond["invK"]
 
         def cycle(x):
-            return _dense_apply(invK, x).to(F64)
+            return dense_apply(invK, x).to(F64)
     elif kind == "twogrid":
         pc = precond
 

@@ -32,6 +32,7 @@ import torch
 
 from .band import rect_band_mv, rect_band_tmv
 from .band_kernel import band_mv_f32
+from .dense import dense_apply
 
 
 def build_prolongation(fine_mesh, coarse_mesh, fine_free_idx, coarse_free_idx,
@@ -254,7 +255,7 @@ def twogrid_apply(pack, dinv, lmax, Pt, Kc_inv, r32, layout, rl,
     e = _chebyshev_smooth(sm, K_mv, r32, steps=smooth_steps)
     res = r32 - K_mv(e)
     rc = rect_band_tmv(Pt, res, rl, slots)
-    ec = rc @ Kc_inv.T
+    ec = dense_apply(Kc_inv, rc)
     e = e + rect_band_mv(Pt, ec, rl, slots)
     return _chebyshev_smooth(sm, K_mv, r32, e0=e, steps=smooth_steps)
 

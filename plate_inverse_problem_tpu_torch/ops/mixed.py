@@ -64,6 +64,7 @@ import torch
 from .band import band_mv, flat_to_band
 from .band_kernel import band_mv_f32
 from .csr_kernel import build_csr, csr_apply, csr_mv
+from .dense import dense_apply as _dense_apply
 from .mg import multilevel_apply, twogrid_apply
 
 # f32 refinement rounds around the two-grid / multilevel cycle (each round
@@ -518,13 +519,6 @@ def _dd_spmv(data, x, rows, cols, n: int, csr=None):
             sums = csr_mv(torch.cat([p_hi, (p - p_hi) + e]), ones, csr)[:, 0]
             out[k, lo_:lo_ + _DD_ROWS] = sums[:p.shape[0]] + sums[p.shape[0]:]
     return out
-
-
-def _dense_apply(invK, x):
-    """The dense preconditioner's product, invK applied to every row of
-    (..., n) in invK's dtype: one GEMM (f64: DGEMM; f32: SGEMM, IEEE f32
-    with TF32 off, config.py)."""
-    return torch.matmul(x.to(invK.dtype), invK.T)
 
 
 def _flat_seg(nnz: int) -> int:

@@ -2,8 +2,8 @@
 against the JAX package on the CPU.
 
 * every name of a JAX subpackage's ``__all__`` (models, ops, utils, io,
-  mesh, diagnostics, fem, optimize) imports from the port's, except the
-  two on ROADMAP's "do not port" list (``jacobi_eigh``,
+  mesh, diagnostics, fem, optimize, parallel) imports from the port's,
+  except the two on ROADMAP's "do not port" list (``jacobi_eigh``,
   ``generalized_jacobi_eigh``); ``spmv_flat`` and
   ``static_preconditioner_host`` against the JAX functions; the JAX
   keywords ``Problem(ozaki=...)`` and ``Geometry(mesh=...)`` are taken;
@@ -36,7 +36,7 @@ from plate_inverse_problem_tpu_torch.ops import sparse_api as tsa
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SUBPACKAGES = ("models", "ops", "utils", "io", "mesh", "diagnostics", "fem",
-               "optimize")
+               "optimize", "parallel")
 NOT_PORTED = {"jacobi_eigh", "generalized_jacobi_eigh"}
 GP = (100e-3, 20e-3, 2e-3, 10e-3, None)
 

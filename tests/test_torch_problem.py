@@ -275,7 +275,9 @@ def test_package_imports_no_jax():
             "plate_inverse_problem_tpu_torch.diagnostics.ritz, "
             "plate_inverse_problem_tpu_torch.io.checkpoint, "
             "plate_inverse_problem_tpu_torch.mesh.adapt, "
-            "plate_inverse_problem_tpu_torch.utils; "
+            "plate_inverse_problem_tpu_torch.utils, "
+            "plate_inverse_problem_tpu_torch.parallel.ranks, "
+            "plate_inverse_problem_tpu_torch.parallel.__main__; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
