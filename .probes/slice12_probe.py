@@ -6,7 +6,8 @@ the card's name and power limit and the card count, runs
 
 ``--parts`` picks the parts (default "abcd"; (a) always runs); with four
 cards, ``--parts ad`` runs (a) at world 4 over NCCL and the workflow on a
-(freq 2, dof 2) mesh.
+(freq 2, dof 2) mesh, and the default runs (e) over NCCL as (freq 1,
+dof 4) as well.
 
 Run from the repository root:  python3 .probes/slice12_probe.py [--parts ad]
 """

@@ -188,12 +188,21 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    batches, ``freq_chunk`` N_FREQ / 2) and the control (a pad lane left
    in) that bracket SHARD_REGROUP_TOL; (b) the same plate on two gloo
    ranks on the card, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh
-   (``invK64`` in row blocks) against (a) (DOF_FRF_TOL for the dof mesh's
-   FRF, SHARD_REGROUP_TOL for the Gauss-Newton updates) and the freq
-   mesh's updates against the witness (SHARD_TOL), every rank and run the
-   same bits; (c) the 13862-DOF pure-bending plate (band + two-grid)
-   on the (freq 1, dof 2) mesh, the coarse inverse in row blocks, its
-   peak against the refined splu (ORACLE_TOL) and K1 in every rank; (d)
+   (each dof rank owning its rows of ``invK64``) against (a) (DOF_FRF_TOL
+   for the dof mesh's FRF, SHARD_REGROUP_TOL for the Gauss-Newton
+   updates) and the freq mesh's updates against the witness (SHARD_TOL),
+   every rank and run the same bits; (c) the 13862-DOF pure-bending plate
+   (band + two-grid) on the (freq 1, dof 2) mesh, each rank owning its
+   rows of the coarse inverse, its peak against the refined splu
+   (ORACLE_TOL) and K1 in every rank; (b) and (c) print, per rank, the
+   bytes held of each dense inverse and the device memory before and
+   after placement; (e) the 11910-DOF dense-tier plate on the (freq 1,
+   dof 2) mesh, in (b)'s spawn: each rank's allocated memory falls by at
+   least 0.95 x the half of ``invK64`` it gave up, both ranks hold the
+   FRF's bits, the FRF meets the unsharded sweep of this process
+   (DOF_FRF_TOL) and the refined splu at 4 points incl. the peak
+   (ORACLE_TOL), K3 and the row blocks' GEMMs ran in each rank (on two
+   cards or more, the same run over NCCL is printed too); (d)
    ``python -m plate_inverse_problem_tpu_torch.parallel``'s workflow on
    the modal engine with device "cuda", in the NCCL rank (torchrun's
    path) and in this process (the plain run's), against the JAX
@@ -1289,6 +1298,11 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
           f"tiles of {pack.n_row_tiles} row tiles, {pack_mb:.2f} MB packed, "
           f"{nnz} numeric nonzeros; built once in getFRCore in "
           f"{1e3 * p._pack_build_s:.1f} ms (part of construction)", flush=True)
+    print("[ctor] MB a dof rank of a mesh holds: whole (ROADMAP 4b-ii) "
+          + ", ".join(f"{k} {od[k].numel() * od[k].element_size() / 1e6:.2f}"
+                      for k in ("W64", "mg_band0", "mg_Pt", "mg_dinv"))
+          + f", the K1 pack {pack_mb:.2f}; by rows (n/d of it) mg_Kcinv "
+          f"{od['mg_Kcinv'].numel() * 4 / 1e6:.2f}", flush=True)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
     ab = [load_ab_kernel(src) for src in ab_sources]
@@ -3829,12 +3843,13 @@ def shard_rank_nccl(rank, dev, out_dir, spec, workflow_too=True):
                    os.path.join(out_dir, f"workflow{rank}.pt"))
 
 
-def shard_rank_gloo(rank, dev, dir_b, spec_b, dir_c, spec_c):
-    """Phase 14 (b) then (c) in one rank of the two-rank gloo world."""
+def shard_rank_gloo(rank, dev, *parts):
+    """Phase 14 (b), (c) and (e) in turn in one rank of the two-rank gloo
+    world: ``parts`` is (out_dir, spec) pairs, flattened."""
     from plate_inverse_problem_tpu_torch.parallel import ranks
 
-    ranks.sharded_checks(rank, dev, dir_b, spec_b)
-    ranks.sharded_checks(rank, dev, dir_c, spec_c)
+    for out_dir, spec in zip(parts[::2], parts[1::2]):
+        ranks.sharded_checks(rank, dev, out_dir, spec)
 
 
 def shard_bits(recs, failed: list,
@@ -3864,13 +3879,42 @@ def shard_report(label, recs, steps) -> dict:
                "collective_s": [min(r["collective_s"][step][1:]
                                     or r["collective_s"][step]) for r in recs],
                "k1": [r["k1"][step] for r in recs],
-               "k3": [r["k3"][step] for r in recs]}
+               "k3": [r["k3"][step] for r in recs],
+               "k5": [r["k5"][step] for r in recs]}
         print(f"[slice12] {label} {step}: wall "
               + " / ".join(f"{x:.4f}" for x in row["s"]) + " s, collectives "
               + " / ".join(f"{x:.4f}" for x in row["collective_s"])
-              + f" s, K1 {row['k1']}, K3 {row['k3']} (per rank; the fastest "
-              "steady run's seconds, every run's launches)", flush=True)
+              + f" s, K1 {row['k1']}, K3 {row['k3']}, row-block GEMMs (K5) "
+              f"{row['k5']} (per rank; the fastest steady run's seconds, "
+              "every run's launches)", flush=True)
         out[step] = row
+    return out
+
+
+def shard_memory(label, recs, i: int = 0) -> list:
+    """Print, per rank, the bytes its Problem holds of each dense inverse
+    after mesh ``i`` placed it, the device memory allocated and reserved
+    before and after the placement (reserved also after ``empty_cache``)
+    and the build's peak; returns them."""
+    out = []
+    for r, rec in enumerate(recs):
+        m = rec["meshes"][i]
+        mem = m["memory"]
+        drop = mem["before"]["allocated"] - mem["placed"]["allocated"]
+        row = {"held": m["held"], "drop": drop, "build_peak":
+               rec["build_peak"], **mem}
+        print(f"[slice12] {label} rank {r} memory: holds "
+              + (", ".join(f"{k} {v / 1e6:.1f} MB"
+                           for k, v in m["held"].items()) or "no inverse")
+              + f"; allocated {mem['before']['allocated'] / 1e9:.4f} -> "
+              f"{mem['placed']['allocated'] / 1e9:.4f} GB (drop "
+              f"{drop / 1e6:.1f} MB), reserved "
+              f"{mem['before']['reserved'] / 1e9:.4f} -> "
+              f"{mem['placed']['reserved'] / 1e9:.4f} -> "
+              f"{mem['released']['reserved'] / 1e9:.4f} GB (after "
+              f"empty_cache); build peak {rec['build_peak'] / 1e9:.4f} GB",
+              flush=True)
+        out.append(row)
     return out
 
 
@@ -3894,10 +3938,11 @@ def slice12(dev, parts: str = "abcd") -> dict:
     single-process port; (b) the same plate, two ranks on ``dev`` over
     gloo, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh, against (a);
     (c) the 13862-DOF pure-bending plate (band + two-grid) on the (freq 1,
-    dof 2) mesh, its coarse inverse partitioned; (d) the package's
+    dof 2) mesh, its coarse inverse row-owned; (d) the package's
     parallel workflow, in the NCCL world and in this process without a
     process group (the plain ``python -m`` run), against the JAX
-    package's CPU run.
+    package's CPU run; (e) the 11910-DOF dense-tier plate on (b)'s ranks
+    as (freq 1, dof 2), ``invK64`` row-owned (``dof_dense``).
     ``parts``: which of them to run ((a) always: (b) is held against it).
     A rank's exception raises here."""
     import torch
@@ -3906,7 +3951,7 @@ def slice12(dev, parts: str = "abcd") -> dict:
 
     world = torch.cuda.device_count()
     root = os.path.join("build", "parallel")
-    dirs = {k: os.path.join(root, k) for k in "abc"}
+    dirs = {k: os.path.join(root, k) for k in ("a", "b", "c", "e", "e_nccl")}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     bench = {"geometry": "sh_i", "refine": 1.0}
@@ -4007,7 +4052,11 @@ def slice12(dev, parts: str = "abcd") -> dict:
     if "b" not in parts:
         return done()
 
-    # ---- (b) + (c): two gloo ranks on one card ---------------------------
+    # ---- (b), (c) + (e): two gloo ranks on one card ----------------------
+    spec_e = {"plate": {"geometry": "sh_i", "refine": 3.0},
+              "meshes": [(1, 2)], "freqs": (40.0, 600.0, N_FREQ),
+              "theta": SHARD_THETA, "repeats": 2, "steps": (),
+              "at_theta": True}
     t0 = time.perf_counter()
     ranks.spawn(shard_rank_gloo, 2, dirs["b"],
                 {"plate": bench, "meshes": [(2, 1), (1, 2)], **common},
@@ -4017,8 +4066,9 @@ def slice12(dev, parts: str = "abcd") -> dict:
                  "meshes": [(1, 2)], "freqs": (40.0, 600.0, N_FREQ),
                  "theta": SHARD_THETA, "repeats": 1, "steps": (),
                  "oracle": True},
+                dirs["e"], spec_e,
                 backend="gloo", device=f"cuda:{dev.index or 0}")
-    out["bc_s"] = time.perf_counter() - t0
+    out["bce_s"] = time.perf_counter() - t0
     b = ranks.load(dirs["b"], 2)
     n = b[0]["n_free"]
     for i, label in enumerate(("(b) freq 2", "(b) dof 2")):
@@ -4048,6 +4098,14 @@ def slice12(dev, parts: str = "abcd") -> dict:
         if any(m["shards"] != want for m in mb):
             failed.append(f"[slice12] {label}: shards "
                                  f"{mb[0]['shards']}, not {want}")
+        held = {"invK64": n * n * 8 // (1 if i == 0 else 2)}
+        if any(m["held"] != held for m in mb):
+            failed.append(f"[slice12] {label}: the ranks hold "
+                          f"{[m['held'] for m in mb]}, not {held}")
+        out[f"b{i}_memory"] = shard_memory(label, b, i)
+        if i == 1:
+            owned_rows(label, mb, out[f"b{i}_memory"], "invK64", n * n * 8,
+                       failed)
         if min(sum(m["k3"].values()) for m in mb) <= 0:
             failed.append(f"[slice12] {label}: a rank launched no K3")
         out[f"b{i}"] = shard_report(label, mb, ("frf",) + steps)
@@ -4059,15 +4117,24 @@ def slice12(dev, parts: str = "abcd") -> dict:
           f"{c[0]['tier']} (build {c[0]['build_s']:.2f} s), 2 gloo ranks as "
           f"(freq 1, dof 2), coarse inverse rows {mc[0]['shards']}: peak "
           f"{f_pk:.2f} Hz vs the refined splu {err:.3e} (tol {ORACLE_TOL:g})"
-          f"; {out['bc_s']:.1f} s for (b) + (c) with the spawn", flush=True)
+          f"; {out['bce_s']:.1f} s for (b), (c) and (e) with the spawn",
+          flush=True)
     if not err <= ORACLE_TOL:
         failed.append(f"[slice12] (c) peak {err:.3e} > {ORACLE_TOL}")
     if any("mg_Kcinv" not in m["shards"] for m in mc):
         failed.append("[slice12] (c) the coarse inverse was not "
                              "partitioned")
+    nc = mc[0]["shards"]["mg_Kcinv"][1]
+    if any(m["held"] != {"mg_Kcinv": m["shards"]["mg_Kcinv"][0] * nc * 4}
+           for m in mc):
+        failed.append(f"[slice12] (c) the ranks hold "
+                      f"{[m['held'] for m in mc]}, not their coarse rows")
+    out["c_memory"] = shard_memory("(c)", c)
+    owned_rows("(c)", mc, out["c_memory"], "mg_Kcinv", nc * nc * 4, failed)
     out["c"] = shard_report("(c)", mc, ("frf",))
     if min(m["k1"]["frf"] for m in mc) <= 0:
         failed.append("[slice12] (c) a rank launched no K1")
+    out["e"] = dof_dense(dev, dirs, spec_e, world, failed)
     out["k1"] = {f"slice12_twogrid_rank{r}": m["k1"]["frf"]
                  for r, m in enumerate(mc)}
     out["k3"] = {**{f"slice12_nccl_rank{r}": sum(m["k3"].values())
@@ -4077,9 +4144,115 @@ def slice12(dev, parts: str = "abcd") -> dict:
                     for r, r_ in enumerate(b)},
                  **{f"slice12_twogrid_rank{r}": m["k3"]["frf"]
                     for r, m in enumerate(mc)},
+                 **{f"slice12_dense_rank{r}": k
+                    for r, k in enumerate(out["e"]["k3"])},
                  "slice12_workflow": wfs["NCCL rank 0"]["k3"],
                  "slice12_workflow_plain": wfs["plain process"]["k3"]}
     return done()
+
+def owned_rows(label, ms, memory, key: str, whole: int,
+               failed: list) -> None:
+    """Each dof rank's placement gave up the rest of ``key`` (``whole``
+    bytes): its allocated memory fell by at least 0.95 x the bytes it no
+    longer holds, and its owned rows' product has the bits of the view's
+    before placement (else a line in ``failed``)."""
+    from plate_inverse_problem_tpu_torch.parallel import ranks
+
+    for r, (m, mem) in enumerate(zip(ms, memory)):
+        want = whole - m["held"][key]
+        if not mem["drop"] >= 0.95 * want:
+            failed.append(f"[slice12] {label} rank {r}'s allocated memory "
+                          f"fell by {mem['drop'] / 1e6:.1f} MB at placement,"
+                          f" under 0.95 x {want / 1e6:.1f} MB")
+        if m["view_bits"] != {key: True}:
+            failed.append(f"[slice12] {label} rank {r}: the owned rows' "
+                          f"product against the view's {m['view_bits']}")
+    print(f"[slice12] {label} owned rows' product vs the view's before "
+          f"placement ({ranks.VIEW_LANES} lanes): "
+          + ", ".join(str(m["view_bits"]) for m in ms), flush=True)
+
+
+def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
+    """Phase 14 (e): the n = 11910 dense-tier plate's FRF at truth x
+    SHARD_THETA on the two gloo ranks' (freq 1, dof 2) mesh (``spec``,
+    run in (b)'s spawn), each rank owning half the rows of ``invK64``:
+    its memory drop at placement, the ranks' bits, the FRF against the
+    unsharded sweep of the same plate and theta in this process
+    (DOF_FRF_TOL) and against the refined splu at 4 points incl. the peak
+    (ORACLE_TOL), K3 and the row blocks' GEMMs in each rank.  On two cards
+    or more the same run over NCCL, a rank a card as (freq 1, dof world),
+    is printed beside it and gates nothing."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.oracle import splu_frf
+    from plate_inverse_problem_tpu_torch.parallel import ranks
+
+    t0 = time.perf_counter()
+    e = ranks.load(dirs["e"], 2)
+    me = [r["meshes"][0] for r in e]
+    n = e[0]["n_free"]
+    print(f"[slice12] (e) dense-tier plate n={n} tier {e[0]['tier']} "
+          f"(build {e[0]['build_s']:.2f} s), 2 gloo ranks as (freq 1, dof "
+          f"2), invK64 rows {me[0]['shards']}", flush=True)
+    shard_bits(me, failed, ("frf",))
+    out = {"memory": shard_memory("(e)", e),
+           "frf": shard_report("(e)", me, ("frf",)),
+           "k3": [m["k3"]["frf"] for m in me]}
+    owned_rows("(e)", me, out["memory"], "invK64", n * n * 8, failed)
+    for r, m in enumerate(me):
+        rows = (r + 1) * n // 2 - r * n // 2
+        if m["held"] != {"invK64": rows * n * 8}:
+            failed.append(f"[slice12] (e) rank {r} holds {m['held']}, not "
+                          f"its {rows} rows of invK64")
+        if m["k3"]["frf"] <= 0 or m["k5"]["frf"] <= 0:
+            failed.append(f"[slice12] (e) rank {r} launched K3 "
+                          f"{m['k3']['frf']}, K5 {m['k5']['frf']} times")
+    # the unsharded sweep of the same plate and theta in this process
+    freqs = np.linspace(*spec["freqs"])
+    theta = e[0]["theta"]
+    t1 = time.perf_counter()
+    p = sh_i_problem(dev, 3.0)
+    p.getFRCore()
+    torch.cuda.synchronize()
+    out["unsharded_build_s"] = time.perf_counter() - t1
+    fr_u = p.solveForward(freqs, theta).cpu().numpy()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p.solveForward(freqs, theta)
+    torch.cuda.synchronize()
+    out["unsharded_s"] = time.perf_counter() - t1
+    fr = me[0]["frf"][0][:freqs.size]
+    out["vs_unsharded"] = shard_close(
+        "(e) FRF vs the unsharded sweep of this process", fr, fr_u,
+        DOF_FRF_TOL, failed)
+    idx = peak_points(fr)
+    exact = splu_frf(p, freqs[idx], theta)
+    out["vs_splu"] = shard_close(
+        f"(e) FRF vs the refined splu at {freqs[idx].round(3).tolist()} Hz "
+        f"(peak {freqs[idx[1]]:.3f})", fr[idx], exact, ORACLE_TOL, failed)
+    if world >= 2:
+        spec_n = {**spec, "meshes": [(1, world)]}
+        t1 = time.perf_counter()
+        ranks.spawn(ranks.sharded_checks, world, dirs["e_nccl"], spec_n,
+                    device="cuda")
+        en = ranks.load(dirs["e_nccl"], world)
+        mn = [r["meshes"][0] for r in en]
+        print(f"[slice12] (e) over NCCL, {world} cards as (freq 1, dof "
+              f"{world}): {time.perf_counter() - t1:.1f} s with the spawn "
+              "(printed, not gated)", flush=True)
+        shard_memory("(e) NCCL", en)
+        shard_report("(e) NCCL", mn, ("frf",))
+        shard_close("(e) NCCL FRF vs the unsharded sweep",
+                    mn[0]["frf"][0][:freqs.size], fr_u, DOF_FRF_TOL, [])
+    del p
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"[slice12] (e) in this process: the unsharded Problem's build "
+          f"{out['unsharded_build_s']:.2f} s, its steady sweep "
+          f"{out['unsharded_s']:.3f} s; (e)'s checks {out['s']:.1f} s after "
+          "the spawn", flush=True)
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

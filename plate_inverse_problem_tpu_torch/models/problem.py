@@ -120,6 +120,16 @@ def _has_adjoint_hooks(core) -> bool:
             and all(hasattr(core, a) for a in _ADJOINT_HOOKS))
 
 
+def _dof_placed_error(n_dof: int, i_dof: int) -> ValueError:
+    """The error of an unsharded call on a Problem whose dense inverses are
+    row-partitioned over a dof mesh (``Problem._place_rows``)."""
+    return ValueError(
+        f"this Problem's dense inverses are row-partitioned over a dof mesh "
+        f"(dof={n_dof}; this rank, dof index {i_dof}, holds only its rows): "
+        "it serves only collective calls on a mesh of that dof layout; "
+        "build another Problem for unsharded calls")
+
+
 # what the forward-mode r + J holds across its sweeps (the primal and
 # tangent solutions, their right-hand sides, jacfwd's batched outputs), in
 # f64 n-vectors a lane: 9.1 (isotropic, p = 3) and 12.5 (OrthotropicD4,
@@ -604,7 +614,9 @@ class Problem:
         self.operator_layout = operator_layout
         self.basis = basis
         self.basis_f32 = basis_f32
-        self._given_opdata = opdata
+        # the Problem's own dict (the tensors stay shared): placing its
+        # dense inverses on a dof mesh changes this Problem alone
+        self._given_opdata = None if opdata is None else dict(opdata)
 
         self.accelerometer = accel
         self.material = material
@@ -784,11 +796,60 @@ class Problem:
 
     def getFRCore(self):
         """(core, opdata): ``core(freqs, params, opdata)`` plus the
-        operator dict on the Problem's device (built once)."""
+        operator dict on the Problem's device (built once).  Raises once
+        the dense inverses are row-partitioned over a dof mesh."""
+        self._serves_collectives_only()
+        return self._core_memo()
+
+    def _core_memo(self):
+        """(core, opdata), built once; no check of a dof placement."""
         memo = getattr(self, "_fr_core_memo", None)
         if memo is None:
             memo = self._fr_core_memo = self._build_fr_core()
         return memo
+
+    def operator_data(self) -> dict:
+        """The operator dict the Problem holds (built once), placed or not:
+        on a Problem placed on a dof mesh (``_place_rows``) this rank's row
+        blocks stand in for its dense inverses."""
+        return self._core_memo()[1]
+
+    def _place_rows(self, layout: tuple, own: Callable) -> tuple:
+        """Place the dense inverses as rank ``layout[1]`` of a dof axis of
+        ``layout[0]``: ``own(key, value)`` is this rank's block of an entry
+        the axis partitions, None for an entry it leaves whole.  The first
+        layout that partitions an entry replaces those entries in the
+        Problem's operator dict, the one its ``getFRCore`` memo, its
+        ``getFRFunction`` and every loss or residual function made from it
+        share, so nothing of the Problem keeps the whole matrix.  From then
+        on the Problem serves only collective calls of that layout: its
+        unsharded entry points raise, and so does another layout here.
+        Returns (core, operator dict)."""
+        layout = tuple(layout)
+        memo = self._core_memo()
+        placed = getattr(self, "_dof_rows", None)
+        if placed is None:
+            blocks = {k: b for k, v in memo[1].items()
+                      if (b := own(k, v)) is not None}
+            if blocks:
+                memo[1].update(blocks)
+                self._dof_rows = layout
+        elif placed != layout:
+            raise ValueError(
+                f"the Problem's dense inverses are placed on a dof mesh as "
+                f"rank {placed[1]} of dof={placed[0]}; a mesh that makes "
+                f"this rank {layout[1]} of dof={layout[0]} cannot use them: "
+                "build another Problem for it")
+        return memo
+
+    def _serves_collectives_only(self) -> None:
+        """Raise once ``_place_rows`` has placed this Problem's dense
+        inverses on a dof mesh: this rank holds only its rows of them, so
+        only the mesh's collective calls can apply them (an unsharded call
+        would wait on a one-rank collective or multiply by a block)."""
+        placed = getattr(self, "_dof_rows", None)
+        if placed is not None:
+            raise _dof_placed_error(*placed)
 
     def _engine(self) -> str:
         """The requested engine, or for ``engine=None`` the JAX package's
@@ -1490,6 +1551,7 @@ class Problem:
         accelerometer magnitude (3-field path) or the complex128 test-point
         amplitude (symmetric path).  The callable exposes ``.core`` and
         ``.opdata``."""
+        self._serves_collectives_only()
         memo = getattr(self, "_fr_fn_memo", None)
         if memo is not None:
             return memo

@@ -14,16 +14,18 @@ reads the slots in rank order — a concatenation for the FRF, a sum for the
 loss, the gradient and the Gauss-Newton partials.  The result is the same
 bits on every rank and in every run, whatever algorithm the backend picks.
 
-The dof axis row-partitions the product by the two dense inverses
-(``invK64``, the dense tier's preconditioner, and ``mg_Kcinv``, the
-two-grid's coarse inverse): each rank of a dof group multiplies by its
-block of rows and the group's slot ``all_reduce`` fills in the product, so
-the group's ranks carry the same bits and their FGMRES decisions stay in
-lockstep.  The work is split, not yet the memory: the block is a view of
-the Problem's full inverse, which each rank's Problem keeps for its own
-unsharded calls.  The other buffers the JAX package places over ``dof``
-(``W64``, ``mg_band0``, ``mg_Pt``, ``mg_dinv``) stay replicated here, and
-``opdata_shardings`` says so.
+The dof axis row-partitions the dense inverses (``invK64``, the dense
+tier's preconditioner, the JAX package's f32 ``invK32`` where a Problem
+runs on its operator data, and ``mg_Kcinv``, the two-grid's coarse
+inverse), their memory as well as their product: the first dof mesh a
+Problem meets replaces each inverse in its operator data by this rank's
+own copy of its n/d rows and drops the full matrix.  Each rank of a dof
+group multiplies by its block and the group's slot ``all_reduce`` fills
+in the product, so the group's ranks carry the same bits and their FGMRES
+decisions stay in lockstep.  A placed Problem serves only the collective
+calls: its unsharded entry points raise.  The other buffers the JAX
+package places over ``dof`` (``W64``, ``mg_band0``, ``mg_Pt``,
+``mg_dinv``) stay replicated here, and ``opdata_shardings`` says so.
 Every collective has the process group's timeout: a rank that diverges
 raises instead of hanging.
 
@@ -46,6 +48,7 @@ import torch.distributed as dist
 from ..models.problem import (
     ResidualFunction,
     _as_tensor,
+    _dof_placed_error,
     _has_adjoint_hooks,
     _numpy,
     _re_im,
@@ -55,9 +58,10 @@ from ..models.problem import (
 
 # seconds a collective waits for its peers before it raises
 TIMEOUT_S = 300.0
-# opdata keys the dof axis row-partitions: the dense tier's inverse and the
-# two-grid's coarse inverse
-_ROW_PARTITIONED = ("invK64", "mg_Kcinv")
+# opdata keys the dof axis row-partitions: the dense tier's inverse (the
+# port's f64 one, or the JAX package's f32 one) and the two-grid's coarse
+# inverse
+_ROW_PARTITIONED = ("invK64", "invK32", "mg_Kcinv")
 
 
 def _device(device) -> torch.device:
@@ -221,37 +225,77 @@ def _rank_slice(mesh: Mesh, F: int) -> slice:
     return slice(lo, min(F, lo + s))
 
 
-class RowShard:
-    """Rows [lo, hi) of a dense (n, n) inverse on one rank of a dof group,
-    a view of the full matrix (no copy).  ``apply_t(x)`` is ``x @ inv.T``
-    for (..., n) rows x: this rank's column block of the product, filled in
-    by the group's slot all_reduce, so every rank of the group holds the
-    same bits."""
+def row_range(n: int, n_dof: int, i_dof: int) -> tuple[int, int]:
+    """Rows [lo, hi) of n that rank ``i_dof`` of a dof axis of ``n_dof``
+    owns: split as evenly as n allows."""
+    return i_dof * n // n_dof, (i_dof + 1) * n // n_dof
 
-    def __init__(self, full: torch.Tensor, mesh: Mesh):
-        n, d, k = full.shape[0], mesh.shape["dof"], mesh.coords["dof"]
-        self.lo, self.hi = k * n // d, (k + 1) * n // d
-        self.rows = full[self.lo:self.hi]
-        self.shape = tuple(full.shape)
-        self.dtype = full.dtype
+
+class RowShard:
+    """Rows [lo, hi) of a dense (n, n) inverse that one rank of a dof group
+    owns: ``rows`` is a copy of them in the full matrix's layout (the
+    group's other ranks hold the rest).  Bound to a mesh (``bind``),
+    ``apply_t(x)`` is ``x @ inv.T`` for (..., n) rows x: this rank's column
+    block of the product, filled in by the group's slot all_reduce, so
+    every rank of the group holds the same bits.  Unbound, as the placed
+    Problem's own operator data holds it, it raises: alone, a rank has
+    only its rows.  ``RowShard.applies`` counts the row blocks' products
+    (one GEMM each) over every instance."""
+
+    applies = 0
+    ndim = 2
+
+    def __init__(self, rows: torch.Tensor, lo: int, n: int, dof: tuple,
+                 mesh: Mesh | None = None):
+        self.rows = rows
+        self.lo, self.hi = lo, lo + rows.shape[0]
+        self.shape = (n, n)
+        self.dof = dof                  # (dof axis size, this rank's index)
         self._mesh = mesh
 
+    @classmethod
+    def own(cls, full: torch.Tensor, n_dof: int, i_dof: int) -> "RowShard":
+        """Rank ``i_dof`` of ``n_dof``'s rows of ``full``, split as evenly
+        as n allows, copied in the layout the view ``full[lo:hi]`` has: a
+        row-major inverse's rows are contiguous, a column-major one's (a
+        host splu's solve against the identity) strided, so the copy's
+        product has the view's bits."""
+        n = full.shape[0]
+        lo, hi = row_range(n, n_dof, i_dof)
+        col_major = full.stride(0) < full.stride(1)
+        rows = torch.empty_strided((hi - lo, n),
+                                   (1, hi - lo) if col_major else (n, 1),
+                                   dtype=full.dtype, device=full.device)
+        rows.copy_(full[lo:hi])
+        return cls(rows, lo, n, (n_dof, i_dof))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.rows.dtype
+
+    def bind(self, mesh: Mesh) -> "RowShard":
+        """The same rows, their product reduced over ``mesh``'s dof group
+        (the same dof layout)."""
+        return RowShard(self.rows, self.lo, self.shape[0], self.dof, mesh)
+
     def apply_t(self, x: torch.Tensor) -> torch.Tensor:
+        if self._mesh is None:
+            raise _dof_placed_error(*self.dof)
         y = x.new_zeros(x.shape[:-1] + (self.shape[0],))
         y[..., self.lo:self.hi] = torch.matmul(x, self.rows.T)
+        RowShard.applies += 1
         self._mesh.reduce(y, "dof")
         return y
 
 
 def opdata_shardings(mesh: Mesh, opdata) -> dict:
-    """Placement of each operator-data entry's product, as a partition
-    spec tuple: ``("dof", None)`` for a dense inverse whose product is
-    row-partitioned over the dof axis (``invK64``, ``mg_Kcinv``; rows split
-    as evenly as n allows: each rank multiplies by its block), ``()`` for a
-    replicated entry — everything else, ``W64``, ``mg_band0``, ``mg_Pt``
+    """Placement of each operator-data entry, as a partition spec tuple:
+    ``("dof", None)`` for a dense inverse row-partitioned over the dof
+    axis (``invK64``, ``invK32``, ``mg_Kcinv``; rows split as evenly as n
+    allows: each rank holds and multiplies by its block only), ``()`` for
+    a replicated entry — everything else, ``W64``, ``mg_band0``, ``mg_Pt``
     and ``mg_dinv`` included (the JAX package partitions those too; the
-    port does not yet).  The work is partitioned, not the memory: a rank's
-    block is a view of its Problem's full inverse."""
+    port does not yet)."""
     nd = mesh.shape["dof"]
 
     def place(key, v):
@@ -264,20 +308,33 @@ def opdata_shardings(mesh: Mesh, opdata) -> dict:
 
 
 def _placed(problem, mesh: Mesh):
-    """(core, opdata with this rank's row blocks) of ``problem``, on the
-    mesh's device; built once per (Problem, mesh)."""
-    hit = mesh._placed.get(id(problem))
-    if hit is not None:
-        return hit[1:]
+    """(core, opdata with this rank's row blocks bound to the mesh) of
+    ``problem``, on the mesh's device; built once per (Problem, mesh).
+
+    The first mesh whose dof axis partitions a dense inverse places the
+    Problem (``Problem._place_rows``): each such entry of its operator data
+    becomes this rank's ``RowShard`` and the full matrix is dropped, so the
+    rank keeps n/d rows of it, and the Problem then serves only collective
+    calls on meshes of that dof layout.  A dof-1 mesh, or a Problem without
+    a dense inverse, leaves it untouched; what such a mesh made serves
+    until the Problem is placed.
+    """
     if mesh.device is not None and not _same_device(problem.device,
                                                     mesh.device):
         raise ValueError(f"the Problem lives on {problem.device}, the mesh "
                          f"rank on {mesh.device}")
-    core, od = problem.getFRCore()
-    od = dict(od)
-    for k, spec in opdata_shardings(mesh, od).items():
-        if spec:
-            od[k] = RowShard(od[k], mesh)
+    layout = (mesh.shape["dof"], mesh.coords["dof"])
+    specs = opdata_shardings(mesh, problem.operator_data())
+    core, od = problem._place_rows(
+        layout, lambda k, v: RowShard.own(v, *layout) if specs[k] else None)
+    hit = mesh._placed.get(id(problem))
+    if hit is not None:
+        return hit[1:]
+    if any(isinstance(v, RowShard) for v in od.values()):
+        od = {k: v.bind(mesh) if isinstance(v, RowShard) else v
+              for k, v in od.items()}
+    # unplaced, the mesh uses the Problem's own dict: a later placement
+    # replaces the inverse there too, and nothing keeps the full matrix
     mesh._placed[id(problem)] = (problem, core, od)
     return core, od
 

@@ -7,10 +7,13 @@ caller if any rank raised.  ``sharded_checks`` is the rank body the CPU
 tests and ``chip_smoke.py`` run: on a plate, for each mesh asked for, the
 sharded FRF, training step and Gauss-Newton steps (twice each, for the
 bits), with each step's wall seconds, collective seconds and kernel
-launches; rank r writes ``rank{r}.pt`` into the output directory.
+launches, and what the rank's device holds before and after the mesh
+places its dense inverses; rank r writes ``rank{r}.pt`` into the output
+directory.
 """
 from __future__ import annotations
 
+import gc
 import os
 import sys
 import tempfile
@@ -22,9 +25,14 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from .freq_shard import (
-    RowShard, _placed, init, make_mesh, shard_frequencies,
-    sharded_fr_function, sharded_gn_step, sharded_train_step,
+    _ROW_PARTITIONED, RowShard, _placed, init, make_mesh, row_range,
+    shard_frequencies, sharded_fr_function, sharded_gn_step,
+    sharded_train_step,
 )
+
+# right-hand sides of the GEMM that holds a dof rank's owned rows against
+# the view of the whole matrix (``row_products``)
+VIEW_LANES = 1024
 
 
 def _rank_main(rank, world, fn, args, backend, device, store):
@@ -75,29 +83,47 @@ def plate_problem(plate: dict, device):
 
 
 def _launches():
+    """K1's and K3's launches and the dof row blocks' products (K5)."""
     from ..ops import band_kernel, csr_kernel
-    return (band_kernel.band_mv_f32_cuda.launches,
-            csr_kernel.csr_mv_cuda.launches)
+    return {"k1": band_kernel.band_mv_f32_cuda.launches,
+            "k3": csr_kernel.csr_mv_cuda.launches, "k5": RowShard.applies}
 
 
 def _timed(mesh, rec, name, fn):
     """fn() with its wall seconds (synchronised), collective seconds and
-    K1 / K3 launches under ``name``."""
+    K1 / K3 / K5 launches under ``name``."""
     cuda = mesh.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(mesh.device)
-    k1, k3 = _launches()
+    n0 = _launches()
     c0 = mesh.collective_s
     t0 = time.perf_counter()
     out = fn()
     if cuda:
         torch.cuda.synchronize(mesh.device)
-    k1e, k3e = _launches()
     rec["s"].setdefault(name, []).append(time.perf_counter() - t0)
     rec["collective_s"].setdefault(name, []).append(mesh.collective_s - c0)
-    rec["k1"][name] = rec["k1"].get(name, 0) + k1e - k1
-    rec["k3"][name] = rec["k3"].get(name, 0) + k3e - k3
+    for k, n in _launches().items():
+        rec[k][name] = rec[k].get(name, 0) + n - n0[k]
     return out
+
+
+def _memory(device) -> dict:
+    """Bytes the caching allocator has allocated and reserved on a CUDA
+    ``device`` (nothing on the CPU)."""
+    if device.type != "cuda":
+        return {}
+    return {"allocated": torch.cuda.memory_allocated(device),
+            "reserved": torch.cuda.memory_reserved(device)}
+
+
+def held_bytes(problem) -> dict:
+    """Bytes of each dense inverse the Problem's operator data holds: the
+    whole matrix, or once placed on a dof mesh this rank's rows."""
+    od = problem.operator_data()
+    return {k: (v.rows if isinstance(v, RowShard) else v)
+            .untyped_storage().nbytes()
+            for k, v in od.items() if k in _ROW_PARTITIONED}
 
 
 def _np(x):
@@ -110,6 +136,25 @@ def _host_gn(p, freqs, ref, theta, mode):
     rf = p.getResidualFunction(freqs, ref, kind="log_afc", jac_mode=mode)
     r, J = (_np(a) for a in rf.value_and_jac(theta))
     return float(r @ r), theta + np.linalg.solve(J.T @ J, -(J.T @ r))
+
+
+def row_products(problem, n_dof: int, i_dof: int,
+                 lanes: int = VIEW_LANES) -> dict:
+    """Each dense inverse's rows of dof rank ``i_dof`` times (lanes, n)
+    rows from a seed, one GEMM as the row block's product forms it: by the
+    view of the whole matrix before placement, by the owned copy after
+    (on the host)."""
+    out = {}
+    for k, v in problem.operator_data().items():
+        if k not in _ROW_PARTITIONED:
+            continue
+        n = v.shape[0]
+        rows = (v.rows if isinstance(v, RowShard)
+                else v[slice(*row_range(n, n_dof, i_dof))])
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            (lanes, n)), dtype=rows.dtype, device=rows.device)
+        out[k] = torch.matmul(x, rows.T).cpu()
+    return out
 
 
 def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
@@ -126,12 +171,25 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
     too: once, "ctrl_pad", the adjoint ``_host_gn`` with the last
     frequency counted twice (the fault a pad lane left in would make);
     ``spec["oracle"]``: rank 0 also holds the FRF's peak against the
-    refined host splu.  Writes ``rank{rank}.pt``."""
+    refined host splu; ``spec["at_theta"]``: the FRF at theta, not the
+    truth.  On a dof mesh, "view_bits" says whether the owned rows'
+    product has the bits of the view's before placement (``row_products``
+    at ``VIEW_LANES`` lanes).  ``spec["reference"]`` needs dof-1 meshes: a dof mesh places the Problem's dense inverses, and a
+    placed Problem serves only collective calls.  On the card each mesh's
+    record holds the device memory before and after placement (and after
+    ``empty_cache``), and the rank's the build's peak.  Writes
+    ``rank{rank}.pt``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     p = plate_problem(spec["plate"], device)
     t0 = time.perf_counter()
     p.getFRCore()
     out = {"n_free": p.n_free, "tier": p._tier, "build_s":
            time.perf_counter() - t0, "meshes": []}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        out["build_peak"] = torch.cuda.max_memory_allocated(dev)
     freqs = np.linspace(*spec["freqs"])
     truth = np.asarray(p.parameters, np.float64)
     theta = truth * np.asarray(spec["theta"])
@@ -143,12 +201,26 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
             raise ValueError(f"mesh {mesh.shape} in a world of "
                              f"{dist.get_world_size()}, not {shape}")
         rec = {"shape": shape, "coords": mesh.coords, "s": {},
-               "collective_s": {}, "k1": {}, "k3": {}}
+               "collective_s": {}, "k1": {}, "k3": {}, "k5": {}}
         fs = shard_frequencies(mesh, freqs)
         rec["padded"] = _np(fs.padded)
+        if shape[1] > 1:
+            view = row_products(p, shape[1], mesh.coords["dof"])
+        gc.collect()    # what earlier meshes left in reference cycles
+        rec["memory"] = {"before": _memory(dev)}
         _, od = _placed(p, mesh)
+        rec["memory"]["placed"] = _memory(dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            rec["memory"]["released"] = _memory(dev)
         rec["shards"] = {k: tuple(v.rows.shape) for k, v in od.items()
                          if isinstance(v, RowShard)}
+        rec["held"] = held_bytes(p)
+        if shape[1] > 1:
+            own = row_products(p, shape[1], mesh.coords["dof"])
+            rec["view_bits"] = {k: torch.equal(own[k], view[k])
+                                for k in view}
+            del view, own
         steps = spec["steps"]
         fn = sharded_fr_function(p, mesh)
         train = sharded_train_step(p, mesh)
@@ -168,8 +240,9 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
         def pair(res):
             return tuple(map(_np, res))
 
+        at = theta if spec.get("at_theta") else truth
         for i in range(spec.get("repeats", 2)):
-            run("frf", lambda: fn(fs, truth), _np)
+            run("frf", lambda: fn(fs, at), _np)
             if ref is None:
                 ref = rec["frf"][0][:freqs.size]
             if single:

@@ -10,7 +10,8 @@ inverse ``invK64`` exists and n is even), 13 frequencies over 40-600 Hz
 spawns of gloo ranks on the CPU run every check at once (``parallel.
 ranks.sharded_checks``, one torch thread each, twice each step) and write
 their records: world 3 as a (freq 3, dof 1) mesh with every step, world 4
-as a (freq 2, dof 2) mesh, its dense inverse row-partitioned.
+as a (freq 2, dof 2) mesh, each rank owning its rows of the dense
+inverse.
 Tolerances:
 
 * against the single-process port: the FRF and the loss 1e-9 relative,
@@ -37,7 +38,6 @@ from plate_inverse_problem_tpu_torch.parallel import (
     Mesh, make_mesh, opdata_shardings, shard_frequencies, sharded_fr_function,
     sharded_gn_step, sharded_train_step)
 from plate_inverse_problem_tpu_torch.parallel import ranks
-from plate_inverse_problem_tpu_torch.parallel.freq_shard import _placed
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PLATE = {"geometry": "symm", "ny": 1}
@@ -202,25 +202,22 @@ def test_gn_segmented_matches_unsegmented(world3):
 
 
 def test_dof_mesh_partitions_inverse(world4, single):
-    """On the (freq 2, dof 2) mesh each rank holds n/2 rows of invK64; the
-    FRF meets the single-process sweep to 1e-7, the loss, gradient and
+    """On the (freq 2, dof 2) mesh each rank owns n/2 rows of invK64 (its
+    Problem's operator data holds those rows' bytes and no more); the FRF
+    meets the single-process sweep to 1e-7, the loss, gradient and
     Gauss-Newton update to the freq mesh's bounds."""
     n = single["p"].n_free
     v, g = single["loss"]
     for m in _mesh(world4):
         assert m["shards"] == {"invK64": (n // 2, n)}
+        assert m["held"] == {"invK64": (n // 2) * n * 8}
+        assert m["view_bits"] == {"invK64": True}
         assert _rel(m["frf"][0][:FREQS.size], single["frf"]) <= 1e-7
         loss, grad, _ = m["train"][0]
         assert abs(loss - v) <= 1e-9 * v and _rel_max(grad, g) <= 1e-8
         assert _rel(m["gn_adjoint"][0][1], single["adjoint"][2]) <= 1e-9
         assert m["collectives"] > 8     # the dof group's products ran
-    # a rank's block is a view of the Problem's inverse, placed once per
-    # (Problem, mesh)
-    mesh = Mesh(2, 2, 1, None, {})
-    _, od = _placed(single["p"], mesh)
-    full = single["p"].getFRCore()[1]["invK64"]
-    assert od["invK64"].rows.data_ptr() == full[n // 2:].data_ptr()
-    assert _placed(single["p"], mesh)[1] is od
+        assert m["k5"]["frf"] > 0       # through this rank's row block
 
 
 def _bits(run):
@@ -262,8 +259,10 @@ def test_matches_jax_single_device(world3, single, jax_ref):
 def test_opdata_shardings_match_jax_specs(single):
     """The port's placement of the dense inverses against the JAX
     ``opdata_shardings`` on the conftest's 8 virtual devices as a (4, 2)
-    mesh (JAX's f32 ``invK32`` is the port's f64 ``invK64``); the band
-    panel W64, which JAX partitions too, the port keeps replicated."""
+    mesh, on one operator dict under the JAX package's names (its f32
+    ``invK32`` and the two-grid's ``mg_Kcinv``) beside the port's f64
+    ``invK64``; the band panel W64, which JAX partitions too, the port
+    keeps replicated."""
     from jax.sharding import PartitionSpec as P
 
     from plate_inverse_problem_tpu.parallel import make_mesh as jmake_mesh
@@ -271,16 +270,20 @@ def test_opdata_shardings_match_jax_specs(single):
         opdata_shardings as jshardings)
 
     od = single["p"].getFRCore()[1]
-    names = {"invK64": "invK32"}
-    jod = {names.get(k, k): np.zeros(v.shape, np.float32)
-           for k, v in od.items()}
+    n = single["p"].n_free
+    jod = {k: np.zeros(v.shape, np.float32) for k, v in od.items()}
+    jod |= {"invK32": np.zeros((n, n), np.float32),
+            "mg_Kcinv": np.zeros((138, 138), np.float32)}
     jspec = jshardings(jmake_mesh(8, dof_axis=2), jod)
-    spec = opdata_shardings(Mesh(4, 2, 0, None, {}), od)
-    assert jspec["invK32"].spec == P("dof", None)
+    spec = opdata_shardings(Mesh(4, 2, 0, None, {}), jod)
+    for k in ("invK32", "mg_Kcinv"):
+        assert jspec[k].spec == P("dof", None)
+        assert spec[k] == tuple(jspec[k].spec)
     assert spec["invK64"] == tuple(jspec["invK32"].spec)
     assert jspec["W64"].spec == P("dof", None) and spec["W64"] == ()
-    assert all(s == () for k, s in spec.items() if k != "invK64")
-    assert all(s == () for s in opdata_shardings(make_mesh(), od).values())
+    owned = ("invK64", "invK32", "mg_Kcinv")
+    assert all(s == () for k, s in spec.items() if k not in owned)
+    assert all(s == () for s in opdata_shardings(make_mesh(), jod).values())
 
 
 def test_unknown_options_raise(single):
