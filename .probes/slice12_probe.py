@@ -4,7 +4,7 @@ the card's name and power limit and the card count, runs
 ``chip_smoke.slice12`` and writes its record to
 ``build/slice12/slice12.json``.  Exits 1 if a check of the phase fails.
 
-``--parts`` picks the parts (default "abcd"; (a) always runs); with four
+``--parts`` picks the parts (default "abcdf"; (a) always runs); with four
 cards, ``--parts ad`` runs (a) at world 4 over NCCL and the workflow on a
 (freq 2, dof 2) mesh, and the default runs (e) over NCCL as (freq 1,
 dof 4) as well.
@@ -31,7 +31,7 @@ def main() -> int:
     from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", default="abcd")
+    ap.add_argument("--parts", default="abcdf")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("slice12_probe: no CUDA device.")

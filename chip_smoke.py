@@ -14,6 +14,10 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    another order); time both, the library call of the same product (one
    ``torch.matmul`` on the dense band, ``library_ms``) and the kernel with
    the L2 flushed, in turns, and state the kernel's bound (``[bound]``);
+   hold its launches on the window packs of a dof rank's block rows (d =
+   2 and 4, each pack from its block rows alone) against the plain
+   version and the whole launch's rows, which they must match bit for bit
+   (``[kernel] window``);
 4. run the 512-point sweep, count the kernel's launches (must be > 0) and
    check that the FRF is finite;
 5. hold the FRF against a host f64 sparse-LU oracle (``oracle.splu_frf``:
@@ -47,7 +51,10 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    11910, "auto": the band layout with the dense preconditioner): its
    construction with the dense f64 inverse, a first and a steady sweep
    with peak memory, and the splu check at 4 points including the peak.
-   K1's launch counter reads 0 over each of them;
+   K1's launch counter reads 0 over each of them.  At (a) and (c) the
+   dense preconditioner's apply by fixed row blocks (``ops.dense.
+   dense_apply``, a dof rank's GEMMs) is timed beside one DGEMM of the
+   whole inverse (``[k5]``);
 8. the material families and the pure-bending path (``[families]``), all
    sweeps 512 points over 40-600 Hz: (a) the multi-cut orthotropic
    identification of ``examples/joint_identification.py`` on the bench
@@ -188,21 +195,32 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    batches, ``freq_chunk`` N_FREQ / 2) and the control (a pad lane left
    in) that bracket SHARD_REGROUP_TOL; (b) the same plate on two gloo
    ranks on the card, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh
-   (each dof rank owning its rows of ``invK64``) against (a) (DOF_FRF_TOL
-   for the dof mesh's FRF, SHARD_REGROUP_TOL for the Gauss-Newton
-   updates) and the freq mesh's updates against the witness (SHARD_TOL),
-   every rank and run the same bits; (c) the 13862-DOF pure-bending plate
-   (band + two-grid) on the (freq 1, dof 2) mesh, each rank owning its
-   rows of the coarse inverse, its peak against the refined splu
-   (ORACLE_TOL) and K1 in every rank; (b) and (c) print, per rank, the
-   bytes held of each dense inverse and the device memory before and
+   (each dof rank owning its rows of ``invK64`` and ``W64``) against (a)
+   (DOF_FRF_TOL for the dof mesh's FRF, SHARD_REGROUP_TOL for the
+   Gauss-Newton updates) and the freq mesh's updates against the witness
+   (SHARD_TOL), every rank and run the same bits; (c) the 13862-DOF
+   pure-bending plate (band + two-grid) on the (freq 1, dof 2) mesh, each
+   rank holding its share of every partitioned entry, its peak against
+   the refined splu (ORACLE_TOL) and K1 on the window packs alone in
+   every rank; (b) and (c) print, per rank, the
+   bytes held of each partitioned entry and the device memory before and
    after placement; (e) the 11910-DOF dense-tier plate on the (freq 1,
    dof 2) mesh, in (b)'s spawn: each rank's allocated memory falls by at
-   least 0.95 x the half of ``invK64`` it gave up, both ranks hold the
-   FRF's bits, the FRF meets the unsharded sweep of this process
+   least 0.95 x the rows of ``invK64`` and ``W64`` it gave up, both ranks
+   hold the FRF's bits, the FRF meets the unsharded sweep of this process
    (DOF_FRF_TOL) and the refined splu at 4 points incl. the peak
    (ORACLE_TOL), K3 and the row blocks' GEMMs ran in each rank (on two
-   cards or more, the same run over NCCL is printed too); (d)
+   cards or more, the same run over NCCL is printed too); (f) the
+   20916-DOF two-grid plate on the (freq 1, dof 2) mesh at DOF_TG_FREQ
+   points, in (b)'s spawn: each rank holds its block rows of the band,
+   its K1 window pack, P and the diagonal and its rows of the coarse
+   inverse and W64, its allocated memory falls by at least 0.95 x what it
+   gave up (printed with the card), the FRF meets the refined splu at 4
+   points incl. the peak (ORACLE_TOL), one adjoint Gauss-Newton update
+   the single-process one (SHARD_TOL), K1 ran on the window packs alone.
+   Every dof-2 FRF of (b), (c), (e) and (f) must be the unsharded sweep's
+   bits on both ranks (ref_: the counterparts a rank runs before its mesh
+   places the Problem); (d)
    ``python -m plate_inverse_problem_tpu_torch.parallel``'s workflow on
    the modal engine with device "cuda", in the NCCL rank (torchrun's
    path) and in this process (the plain run's), against the JAX
@@ -437,6 +455,10 @@ SHARD_THETA = (1.02, 0.99, 1.05)
 SHARD_TOL = 1e-9
 SHARD_GRAD_TOL = 1e-8
 DOF_FRF_TOL = 1e-7
+# phase 14 (f): the points of the 21k two-grid plate's sweep on two gloo
+# ranks of one card (fewer than N_FREQ: a dof rank's cycle gathers its
+# rows through the host, PERF.md section 6)
+DOF_TG_FREQ = 128
 # phase 14 (b), and (a) on several cards: the Gauss-Newton update of lanes
 # solved in other batches (the ranks' shares, or the dense preconditioner's
 # GEMM in column blocks) against the whole batch's, relative.  The update
@@ -680,6 +702,97 @@ def compare_kernel(pack, band, x, layout, label: str, ab=()) -> dict:
         if not e <= KERNEL_TOL:
             raise AssertionError(f"{k} disagrees at {label}: rel {e:.3e} > "
                                  f"{KERNEL_TOL}")
+    return rec
+
+
+def compare_windows(pack, band, x, layout) -> dict:
+    """K1 on the window packs of a dof rank's block rows (what a rank of a
+    (freq, dof d) mesh launches, d = 2 and 4; each pack from its block
+    rows alone) against the plain version on the same window (KERNEL_TOL)
+    and against the whole pack's launch: the rank's rows must be the whole
+    apply's bits.  Times rank 0's window launch at d = 2 beside its plain
+    version."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops.band_kernel import (
+        band_mv_f32_cuda, band_mv_f32_reference, pack_band_tiles)
+    from plate_inverse_problem_tpu_torch.parallel.freq_shard import (
+        band_range)
+
+    y_whole = band_mv_f32_cuda(pack, x, layout)
+    out, failed = {"ranks": []}, []
+    for d in (2, 4):
+        for i in range(d):
+            q0, q1 = band_range(layout.nb, d, i)
+            pk = pack_band_tiles(band[q0:q1], layout, pack.tile, q0=q0)
+            (lo, hi), (xlo, xhi) = pk.rows, pk.cols
+            xw = x[:, xlo:xhi].contiguous()
+            y = band_mv_f32_cuda(pk, xw, layout)
+            y_ref = band_mv_f32_reference(pk, xw, layout)
+            scale = max(float(y_ref.abs().max()), 1e-30)
+            rel = float((y - y_ref).abs().max()) / scale
+            bits = bool(torch.equal(y, y_whole[:, lo:hi]))
+            rec = {"d": d, "rank": i, "block_rows": (q0, q1),
+                   "tiles": pk.vals.shape[0], "rel_err": rel,
+                   "whole_bits": bits}
+            if d == 2 and i == 0:
+                rec["ms"] = time_ms(lambda: band_mv_f32_cuda(pk, xw,
+                                                             layout))[0]
+                rec["plain_ms"] = time_ms(lambda: band_mv_f32_reference(
+                    pk, xw, layout))[0]
+            out["ranks"].append(rec)
+            print(f"[kernel] window d={d} rank {i}: block rows [{q0}, {q1}) "
+                  f"of {layout.nb}, rows [{lo}, {hi}), x [{xlo}, {xhi}), "
+                  f"{rec['tiles']} tiles, B={x.shape[0]}: rel {rel:.3e} vs "
+                  f"plain, the whole launch's bits {bits}"
+                  + (f"; {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms"
+                     if "ms" in rec else ""), flush=True)
+            if not rel <= KERNEL_TOL:
+                failed.append(f"window d={d} rank {i}: rel {rel:.3e}")
+            if not bits:
+                failed.append(f"window d={d} rank {i}: not the whole "
+                              "launch's bits")
+    if failed:
+        raise AssertionError("K1 window packs: " + "; ".join(failed))
+    return out
+
+
+def k5_blocked(p, label: str, lanes: int = 1024) -> dict:
+    """The dense preconditioner's apply (K5) as the port runs it, one DGEMM
+    a fixed row block of ``invK64`` (``ops.dense.dense_apply``), against
+    one DGEMM of the whole inverse on the same (lanes, n) rows, in turns
+    (CUDA events), with the bound of the work: the inverse read once and x
+    and y at 3.35 TB/s against 2 n^2 lanes FLOP at 67 TFLOP/s (f64 tensor
+    cores)."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops.dense import (
+        dense_apply, fixed_blocks)
+
+    inv = p.getFRCore()[1]["invK64"]
+    n = inv.shape[0]
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (lanes, n)), device=inv.device)
+    y_b, y_1 = dense_apply(inv, x), torch.matmul(x, inv.T)
+    rel = float((y_b - y_1).abs().max() / y_1.abs().max())
+    variants = {"blocked_ms": lambda: dense_apply(inv, x),
+                "one_gemm_ms": lambda: torch.matmul(x, inv.T)}
+    times = {k: [] for k in variants}
+    for k in list(variants) + list(variants)[::-1]:
+        times[k].append(time_ms(variants[k])[0])
+    rec = {k: float(np.mean(v)) for k, v in times.items()}
+    t_bytes = 8.0 * (n * n + 2 * lanes * n) / 3.35e12
+    t_ops = 2.0 * n * n * lanes / 67e12
+    rec |= {"n": n, "lanes": lanes, "blocks": len(fixed_blocks(n)) - 1,
+            "rel_vs_one_gemm": rel,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    rec["blocked_over_one"] = rec["blocked_ms"] / rec["one_gemm_ms"]
+    print(f"[k5] {label} n={n}: dense_apply by {rec['blocks']} fixed row "
+          f"blocks {rec['blocked_ms']:.4f} ms, one DGEMM "
+          f"{rec['one_gemm_ms']:.4f} ms ({rec['blocked_over_one']:.3f}x), "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), {lanes} "
+          f"lanes; the two differ by {rel:.1e} of max |y|", flush=True)
     return rec
 
 
@@ -1298,11 +1411,12 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
           f"tiles of {pack.n_row_tiles} row tiles, {pack_mb:.2f} MB packed, "
           f"{nnz} numeric nonzeros; built once in getFRCore in "
           f"{1e3 * p._pack_build_s:.1f} ms (part of construction)", flush=True)
-    print("[ctor] MB a dof rank of a mesh holds: whole (ROADMAP 4b-ii) "
+    print("[ctor] MB of the entries a dof mesh partitions (a rank holds its "
+          "rows or block rows, about 1/d of each): "
           + ", ".join(f"{k} {od[k].numel() * od[k].element_size() / 1e6:.2f}"
-                      for k in ("W64", "mg_band0", "mg_Pt", "mg_dinv"))
-          + f", the K1 pack {pack_mb:.2f}; by rows (n/d of it) mg_Kcinv "
-          f"{od['mg_Kcinv'].numel() * 4 / 1e6:.2f}", flush=True)
+                      for k in ("W64", "mg_band0", "mg_Pt", "mg_dinv",
+                                "mg_Kcinv"))
+          + f", the K1 pack {pack_mb:.2f}", flush=True)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
     ab = [load_ab_kernel(src) for src in ab_sources]
@@ -1321,6 +1435,8 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
           f"lane at 67 TFLOP/s); kernel at {100 * bound / slice_rec['ms']:.1f}"
           " % of it", flush=True)
     b64 = compare_kernel(*synthetic_b64(dev), "synthetic b=64", ab)
+    windows = compare_windows(pack, od["mg_band0"], x[:2 * chunk].contiguous(),
+                              lay)
 
     # ---- 4. the 512-point sweep through the main path ---------------------
     freqs = np.linspace(40.0, 600.0, N_FREQ)
@@ -1405,7 +1521,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     if failed:
         raise AssertionError(" || ".join(failed))
     t14 = time.perf_counter()
-    s12 = slice12(dev)
+    s12 = slice12(dev, p21=p)
     s12_s = time.perf_counter() - t14
     print(f"[time] phase 14 in {s12_s:.1f} s", flush=True)
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
@@ -1425,6 +1541,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                "solves_per_s_steady": N_FREQ / steady_s,
                "peak_mem_gb": peak_gb, "worst_rel_err": worst,
                "f_peak": float(freqs[ipk]), "k1_by_B": recs, "k1_b64": b64,
+               "k1_windows": windows,
                **inv, "dense": dense, "families": fam,
                "slice6": {k: v for k, v in s6.items() if k != "k3"},
                "slice8": {k: v for k, v in s8.items()
@@ -1565,8 +1682,9 @@ def timed_sweeps(p, freqs, label: str, tag: str = "[dense]") -> dict:
 
 def peak_points(fr) -> list[int]:
     """bench.py's four points of a 512-point sweep: 3, the |FRF| peak, 256
-    and 511."""
-    return [3, int(np.argmax(np.abs(fr))), N_FREQ // 2, N_FREQ - 1]
+    and 511 (of F points: 3, the peak, F / 2, F - 1)."""
+    F = np.asarray(fr).shape[0]
+    return [3, int(np.argmax(np.abs(fr))), F // 2, F - 1]
 
 
 def oracle_check(p, freqs, fr, idx, label: str, tag: str = "[dense]"
@@ -1659,6 +1777,7 @@ def dense_tier(dev, keep=None) -> dict:
     rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
                                         "(a) bench points")
     rec["checksum"] = checksum
+    rec["k5"] = k5_blocked(p, "(a) bench")
     # the same Problem data with the JAX package's f32 Krylov basis
     q = pt.Problem(p.geometry, p.material, p.accelerometer, device=dev,
                    basis_f32=True, opdata=p.getFRCore()[1])
@@ -1689,6 +1808,7 @@ def dense_tier(dev, keep=None) -> dict:
     rec["worst_rel_err"] = oracle_check(p, freqs, fr, idx,
                                         "(c) 4 points incl. the peak")
     rec["f_peak"] = float(freqs[idx[1]])
+    rec["k5"] = k5_blocked(p, "(c)")
     out["largest"] = rec
     del p
 
@@ -3931,27 +4051,35 @@ def shard_close(name, x, ref, tol, failed: list, rel_max=False) -> float:
     return err
 
 
-def slice12(dev, parts: str = "abcd") -> dict:
+def slice12(dev, parts: str = "abcdf", p21=None) -> dict:
     """Phase 14: the sharded sweep, training step and Gauss-Newton step,
     each rank a process started with torch.multiprocessing's spawn method.
     (a) the bench plate over NCCL, one rank per card, against the
     single-process port; (b) the same plate, two ranks on ``dev`` over
-    gloo, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh, against (a);
-    (c) the 13862-DOF pure-bending plate (band + two-grid) on the (freq 1,
-    dof 2) mesh, its coarse inverse row-owned; (d) the package's
-    parallel workflow, in the NCCL world and in this process without a
-    process group (the plain ``python -m`` run), against the JAX
-    package's CPU run; (e) the 11910-DOF dense-tier plate on (b)'s ranks
-    as (freq 1, dof 2), ``invK64`` row-owned (``dof_dense``).
-    ``parts``: which of them to run ((a) always: (b) is held against it).
-    A rank's exception raises here."""
+    gloo, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh, against (a)
+    (the dof mesh's FRF: the unsharded sweep's bits); (c) the 13862-DOF
+    pure-bending plate (band + two-grid) on the (freq 1, dof 2) mesh, each
+    rank holding its share of every partitioned entry, its FRF the
+    unsharded sweep's bits; (d) the package's parallel workflow, in the
+    NCCL world and in this process without a process group (the plain
+    ``python -m`` run), against the JAX package's CPU run; (e) the
+    11910-DOF dense-tier plate on (b)'s ranks as (freq 1, dof 2),
+    ``invK64`` and ``W64`` row-owned (``dof_dense``); (f) the 20916-DOF
+    plate (band + two-grid) on (b)'s ranks as (freq 1, dof 2)
+    (``dof_twogrid``; ``p21``: a Problem of that plate in this process for
+    the splu oracle, built here when None).  ``parts``: which of them to
+    run ((a) always: (b) is held against it; (f) with (b)).  A rank's
+    exception raises here."""
     import torch
 
     from plate_inverse_problem_tpu_torch.parallel import ranks
+    from plate_inverse_problem_tpu_torch.parallel.freq_shard import (
+        row_range)
 
     world = torch.cuda.device_count()
     root = os.path.join("build", "parallel")
-    dirs = {k: os.path.join(root, k) for k in ("a", "b", "c", "e", "e_nccl")}
+    dirs = {k: os.path.join(root, k)
+            for k in ("a", "b", "c", "e", "e_nccl", "f", "f_nccl")}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     bench = {"geometry": "sh_i", "refine": 1.0}
@@ -4052,11 +4180,15 @@ def slice12(dev, parts: str = "abcd") -> dict:
     if "b" not in parts:
         return done()
 
-    # ---- (b), (c) + (e): two gloo ranks on one card ----------------------
+    # ---- (b), (c), (e) + (f): two gloo ranks on one card ----------------
     spec_e = {"plate": {"geometry": "sh_i", "refine": 3.0},
               "meshes": [(1, 2)], "freqs": (40.0, 600.0, N_FREQ),
               "theta": SHARD_THETA, "repeats": 2, "steps": (),
               "at_theta": True}
+    spec_f = {"plate": {"geometry": "sh_i", "refine": 4.0},
+              "meshes": [(1, 2)], "freqs": (40.0, 600.0, DOF_TG_FREQ),
+              "theta": SHARD_THETA, "repeats": 1, "steps": ("gn_adjoint",),
+              "at_theta": True, "reference": True}
     t0 = time.perf_counter()
     ranks.spawn(shard_rank_gloo, 2, dirs["b"],
                 {"plate": bench, "meshes": [(2, 1), (1, 2)], **common},
@@ -4065,10 +4197,11 @@ def slice12(dev, parts: str = "abcd") -> dict:
                            "accel": False},
                  "meshes": [(1, 2)], "freqs": (40.0, 600.0, N_FREQ),
                  "theta": SHARD_THETA, "repeats": 1, "steps": (),
-                 "oracle": True},
+                 "oracle": True, "reference": True},
                 dirs["e"], spec_e,
+                *((dirs["f"], spec_f) if "f" in parts else ()),
                 backend="gloo", device=f"cuda:{dev.index or 0}")
-    out["bce_s"] = time.perf_counter() - t0
+    out["bcef_s"] = time.perf_counter() - t0
     b = ranks.load(dirs["b"], 2)
     n = b[0]["n_free"]
     for i, label in enumerate(("(b) freq 2", "(b) dof 2")):
@@ -4077,6 +4210,8 @@ def slice12(dev, parts: str = "abcd") -> dict:
         frf_tol = SHARD_TOL if i == 0 else DOF_FRF_TOL
         shard_close(f"{label} FRF vs (a)", mb[0]["frf"][0][:N_FREQ],
                     ma[0]["frf"][0][:N_FREQ], frf_tol, failed)
+        if i == 1:
+            dof_bits(label, mb, ref["frf"], "(a)'s unsharded sweep", failed)
         shard_close(f"{label} loss vs (a)", mb[0]["train"][0][0],
                     ma[0]["train"][0][0], SHARD_TOL, failed)
         shard_close(f"{label} grad vs (a)", mb[0]["train"][0][1],
@@ -4094,18 +4229,19 @@ def slice12(dev, parts: str = "abcd") -> dict:
                 th_w = ma[0][REGROUP_STEPS[mode == "fwd"]][0][1]
                 shard_close(f"{label} GN {mode} update vs (a)'s witness",
                             th, th_w, SHARD_TOL, failed)
-        want = {} if i == 0 else {"invK64": (n // 2, n)}
-        if any(m["shards"] != want for m in mb):
-            failed.append(f"[slice12] {label}: shards "
-                                 f"{mb[0]['shards']}, not {want}")
-        held = {"invK64": n * n * 8 // (1 if i == 0 else 2)}
-        if any(m["held"] != held for m in mb):
-            failed.append(f"[slice12] {label}: the ranks hold "
-                          f"{[m['held'] for m in mb]}, not {held}")
+        mw = mb[0]["held_whole"]["W64"] // (8 * n)
+        for r, m in enumerate(mb):
+            lo, hi = (0, n) if i == 0 else row_range(n, 2, r)
+            want = {} if i == 0 else {"invK64": (hi - lo, n),
+                                      "W64": (hi - lo, mw)}
+            held = {"invK64": (hi - lo) * n * 8, "W64": (hi - lo) * mw * 8}
+            if m["shards"] != want or m["held"] != held:
+                failed.append(f"[slice12] {label} rank {r}: shards "
+                              f"{m['shards']}, held {m['held']}, not "
+                              f"{want}, {held}")
         out[f"b{i}_memory"] = shard_memory(label, b, i)
         if i == 1:
-            owned_rows(label, mb, out[f"b{i}_memory"], "invK64", n * n * 8,
-                       failed)
+            owned_rows(label, mb, out[f"b{i}_memory"], failed)
         if min(sum(m["k3"].values()) for m in mb) <= 0:
             failed.append(f"[slice12] {label}: a rank launched no K3")
         out[f"b{i}"] = shard_report(label, mb, ("frf",) + steps)
@@ -4115,28 +4251,25 @@ def slice12(dev, parts: str = "abcd") -> dict:
     f_pk, err = mc[0]["peak"]
     print(f"[slice12] (c) two-grid plate n={c[0]['n_free']} tier "
           f"{c[0]['tier']} (build {c[0]['build_s']:.2f} s), 2 gloo ranks as "
-          f"(freq 1, dof 2), coarse inverse rows {mc[0]['shards']}: peak "
-          f"{f_pk:.2f} Hz vs the refined splu {err:.3e} (tol {ORACLE_TOL:g})"
-          f"; {out['bce_s']:.1f} s for (b), (c) and (e) with the spawn",
-          flush=True)
+          f"(freq 1, dof 2), shares {mc[0]['shards']} / {mc[1]['shards']}: "
+          f"peak {f_pk:.2f} Hz vs the refined splu {err:.3e} (tol "
+          f"{ORACLE_TOL:g}); {out['bcef_s']:.1f} s for (b), (c), (e) and "
+          "(f) with the spawn", flush=True)
     if not err <= ORACLE_TOL:
         failed.append(f"[slice12] (c) peak {err:.3e} > {ORACLE_TOL}")
-    if any("mg_Kcinv" not in m["shards"] for m in mc):
-        failed.append("[slice12] (c) the coarse inverse was not "
-                             "partitioned")
-    nc = mc[0]["shards"]["mg_Kcinv"][1]
-    if any(m["held"] != {"mg_Kcinv": m["shards"]["mg_Kcinv"][0] * nc * 4}
-           for m in mc):
-        failed.append(f"[slice12] (c) the ranks hold "
-                      f"{[m['held'] for m in mc]}, not their coarse rows")
+    dof_bits("(c)", mc, mc[0]["ref_frf"][0], "the unsharded sweep of the "
+             "same plate", failed)
     out["c_memory"] = shard_memory("(c)", c)
-    owned_rows("(c)", mc, out["c_memory"], "mg_Kcinv", nc * nc * 4, failed)
+    owned_rows("(c)", mc, out["c_memory"], failed)
+    dof_shares("(c)", mc, failed)
     out["c"] = shard_report("(c)", mc, ("frf",))
-    if min(m["k1"]["frf"] for m in mc) <= 0:
-        failed.append("[slice12] (c) a rank launched no K1")
     out["e"] = dof_dense(dev, dirs, spec_e, world, failed)
     out["k1"] = {f"slice12_twogrid_rank{r}": m["k1"]["frf"]
                  for r, m in enumerate(mc)}
+    if "f" in parts:
+        out["f"] = dof_twogrid(dev, dirs, spec_f, p21, failed)
+        out["k1"] |= {f"slice15_twogrid21k_rank{r}": k
+                      for r, k in enumerate(out["f"]["k1"])}
     out["k3"] = {**{f"slice12_nccl_rank{r}": sum(m["k3"].values())
                     for r, m in enumerate(ma)},
                  **{f"slice12_gloo_rank{r}": sum(
@@ -4150,26 +4283,151 @@ def slice12(dev, parts: str = "abcd") -> dict:
                  "slice12_workflow_plain": wfs["plain process"]["k3"]}
     return done()
 
-def owned_rows(label, ms, memory, key: str, whole: int,
-               failed: list) -> None:
-    """Each dof rank's placement gave up the rest of ``key`` (``whole``
-    bytes): its allocated memory fell by at least 0.95 x the bytes it no
-    longer holds, and its owned rows' product has the bits of the view's
-    before placement (else a line in ``failed``)."""
+def owned_rows(label, ms, memory, failed: list) -> None:
+    """Each dof rank's placement gave up the rest of every partitioned
+    entry (``held_whole`` less ``held``): its allocated memory fell by at
+    least 0.95 x the bytes it no longer holds, and its owned rows' product
+    has the bits of the views' before placement (else a line in
+    ``failed``)."""
     from plate_inverse_problem_tpu_torch.parallel import ranks
 
     for r, (m, mem) in enumerate(zip(ms, memory)):
-        want = whole - m["held"][key]
+        want = sum(m["held_whole"].values()) - sum(m["held"].values())
+        mem["gave_up"] = want
         if not mem["drop"] >= 0.95 * want:
             failed.append(f"[slice12] {label} rank {r}'s allocated memory "
                           f"fell by {mem['drop'] / 1e6:.1f} MB at placement,"
                           f" under 0.95 x {want / 1e6:.1f} MB")
-        if m["view_bits"] != {key: True}:
+        if not all(m["view_bits"].values()):
             failed.append(f"[slice12] {label} rank {r}: the owned rows' "
                           f"product against the view's {m['view_bits']}")
     print(f"[slice12] {label} owned rows' product vs the view's before "
           f"placement ({ranks.VIEW_LANES} lanes): "
           + ", ".join(str(m["view_bits"]) for m in ms), flush=True)
+
+
+def dof_bits(label, ms, fr_ref, what: str, failed: list) -> bool:
+    """Every dof rank's first FRF is ``fr_ref``'s bits (else a line in
+    ``failed``); prints how far it is where it is not."""
+    fr_ref = np.asarray(fr_ref)
+    frs = [np.asarray(m["frf"][0][:fr_ref.size]) for m in ms]
+    same = all(np.array_equal(f, fr_ref) for f in frs)
+    dev = max(float(np.max(np.abs(f - fr_ref) / np.abs(fr_ref)))
+              for f in frs)
+    print(f"[slice12] {label} FRF vs {what}: "
+          + ("the same bits on every rank" if same else
+             f"NOT the same bits, {dev:.3e} relative"), flush=True)
+    if not same:
+        failed.append(f"[slice12] {label} FRF is not {what}'s bits "
+                      f"({dev:.3e})")
+    return same
+
+
+def dof_shares(label, ms, failed: list) -> None:
+    """A dof rank of the two-grid tier holds a share of every entry the dof
+    axis partitions (``opdata_shardings``) and of the K1 pack, the ranks'
+    shares of each entry add up to the whole, and K1 ran on the window
+    packs alone (else a line in ``failed``)."""
+    keys = {"mg_band0", "mg_pack", "mg_Pt", "mg_dinv", "mg_Kcinv", "W64"}
+    for r, m in enumerate(ms):
+        whole, held = m["held_whole"], m["held"]
+        if set(held) != keys or set(whole) != keys or not all(
+                0 < held[k] < whole[k] for k in keys):
+            failed.append(f"[slice12] {label} rank {r} holds {held} of "
+                          f"{whole}, not a share of each of {sorted(keys)}")
+        # the sharded steps (the "ref_" ones ran on the whole Problem
+        # before placement)
+        steps = [k for k in m["k1"] if not k.startswith("ref_")]
+        k1 = sum(m["k1"][k] for k in steps)
+        if k1 <= 0 or sum(m["k1_window"][k] for k in steps) != k1:
+            failed.append(f"[slice12] {label} rank {r}: K1 {m['k1']}, on "
+                          f"the window packs {m['k1_window']}: the window "
+                          "launch must be the rank's only K1 path")
+    for k in keys - {"mg_pack"}:
+        if sum(m["held"][k] for m in ms) != ms[0]["held_whole"][k]:
+            failed.append(f"[slice12] {label} the ranks' shares of {k} "
+                          f"{[m['held'][k] for m in ms]} do not add up to "
+                          f"{ms[0]['held_whole'][k]}")
+    print(f"[slice12] {label} K1 per rank {[m['k1'] for m in ms]}, on the "
+          f"window packs {[m['k1_window'] for m in ms]} (ref_: the whole "
+          "Problem before placement)", flush=True)
+
+
+def dof_twogrid(dev, dirs, spec, p21, failed: list) -> dict:
+    """Phase 14 (f): the 20916-DOF plate (band + two-grid, the main path's
+    large tier) at truth x SHARD_THETA on the two gloo ranks' (freq 1, dof
+    2) mesh (``spec``, run in (b)'s spawn), each rank holding its block
+    rows of the band, its K1 window pack, P and the diagonal and its rows
+    of the coarse inverse and W64: its memory drop at placement (0.95 x
+    what it gave up, printed with the card), the FRF's bits on both ranks
+    against the unsharded sweep of the same Problem before placement, the
+    FRF against the refined splu at 4 points incl. the peak (ORACLE_TOL),
+    one adjoint Gauss-Newton update against the single-process one
+    (SHARD_TOL), K1 on the window packs alone in each rank.  On two cards
+    or more the same run over NCCL, a rank a card as (freq 1, dof world),
+    is printed beside it and gates nothing."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.oracle import splu_frf
+    from plate_inverse_problem_tpu_torch.parallel import ranks
+
+    t0 = time.perf_counter()
+    f = ranks.load(dirs["f"], 2)
+    mf = [r["meshes"][0] for r in f]
+    n = f[0]["n_free"]
+    print(f"[slice12] (f) two-grid plate n={n} tier {f[0]['tier']} (build "
+          f"{f[0]['build_s']:.2f} s), 2 gloo ranks as (freq 1, dof 2), "
+          f"{spec['freqs'][2]} points, shares {mf[0]['shards']} / "
+          f"{mf[1]['shards']}", flush=True)
+    shard_bits(mf, failed, ("frf", "gn_adjoint"))
+    out = {"memory": shard_memory("(f)", f),
+           "steps": shard_report("(f)", mf, ("frf", "gn_adjoint",
+                                             "ref_frf", "ref_gn_adjoint")),
+           "k1": [sum(m["k1"].values()) for m in mf]}
+    owned_rows("(f)", mf, out["memory"], failed)
+    card = card_info()
+    for r, mem in enumerate(out["memory"]):
+        print(f"[slice12] (f) rank {r}: memory_allocated fell by "
+              f"{mem['drop'] / 1e6:.2f} MB at placement, of the "
+              f"{mem['gave_up'] / 1e6:.2f} MB it gave up (gate 0.95 x); "
+              f"{card}", flush=True)
+    dof_shares("(f)", mf, failed)
+    out["bits"] = dof_bits("(f)", mf, mf[0]["ref_frf"][0],
+                           "the unsharded sweep of the same Problem",
+                           failed)
+    (rsq, th), (rsq_1, th_1) = mf[0]["gn_adjoint"][0], \
+        mf[0]["ref_gn_adjoint"][0]
+    out["gn_rsq"] = shard_close("(f) GN adjoint |r|^2 vs the single-process "
+                                "step", rsq, rsq_1, SHARD_TOL, failed)
+    out["gn_update"] = shard_close("(f) GN adjoint update vs the "
+                                   "single-process step", th, th_1,
+                                   SHARD_TOL, failed)
+    freqs = np.linspace(*spec["freqs"])
+    fr = mf[0]["frf"][0][:freqs.size]
+    if p21 is None:
+        p21 = sh_i_problem(dev, 4.0)
+    idx = peak_points(fr)
+    exact = splu_frf(p21, freqs[idx], f[0]["theta"])
+    out["vs_splu"] = shard_close(
+        f"(f) FRF vs the refined splu at {freqs[idx].round(3).tolist()} Hz "
+        f"(peak {freqs[idx[1]]:.3f})", fr[idx], exact, ORACLE_TOL, failed)
+    world = torch.cuda.device_count()
+    if world >= 2:
+        spec_n = {**spec, "meshes": [(1, world)]}
+        t1 = time.perf_counter()
+        ranks.spawn(ranks.sharded_checks, world, dirs["f_nccl"], spec_n,
+                    device="cuda")
+        fn = ranks.load(dirs["f_nccl"], world)
+        mn = [r["meshes"][0] for r in fn]
+        print(f"[slice12] (f) over NCCL, {world} cards as (freq 1, dof "
+              f"{world}): {time.perf_counter() - t1:.1f} s with the spawn "
+              "(printed, not gated)", flush=True)
+        shard_memory("(f) NCCL", fn)
+        shard_report("(f) NCCL", mn, ("frf", "gn_adjoint"))
+        dof_bits("(f) NCCL", mn, mf[0]["ref_frf"][0], "the unsharded sweep "
+                 "(printed, not gated)", [])
+    out["s"] = time.perf_counter() - t0
+    return out
 
 
 def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
@@ -4186,6 +4444,8 @@ def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
 
     from plate_inverse_problem_tpu_torch.oracle import splu_frf
     from plate_inverse_problem_tpu_torch.parallel import ranks
+    from plate_inverse_problem_tpu_torch.parallel.freq_shard import (
+        row_range)
 
     t0 = time.perf_counter()
     e = ranks.load(dirs["e"], 2)
@@ -4198,12 +4458,14 @@ def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
     out = {"memory": shard_memory("(e)", e),
            "frf": shard_report("(e)", me, ("frf",)),
            "k3": [m["k3"]["frf"] for m in me]}
-    owned_rows("(e)", me, out["memory"], "invK64", n * n * 8, failed)
+    owned_rows("(e)", me, out["memory"], failed)
+    mw = me[0]["held_whole"]["W64"] // (8 * n)
     for r, m in enumerate(me):
-        rows = (r + 1) * n // 2 - r * n // 2
-        if m["held"] != {"invK64": rows * n * 8}:
+        lo, hi = row_range(n, 2, r)
+        held = {"invK64": (hi - lo) * n * 8, "W64": (hi - lo) * mw * 8}
+        if m["held"] != held:
             failed.append(f"[slice12] (e) rank {r} holds {m['held']}, not "
-                          f"its {rows} rows of invK64")
+                          f"its {hi - lo} rows of invK64 and W64: {held}")
         if m["k3"]["frf"] <= 0 or m["k5"]["frf"] <= 0:
             failed.append(f"[slice12] (e) rank {r} launched K3 "
                           f"{m['k3']['frf']}, K5 {m['k5']['frf']} times")
@@ -4225,6 +4487,8 @@ def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
     out["vs_unsharded"] = shard_close(
         "(e) FRF vs the unsharded sweep of this process", fr, fr_u,
         DOF_FRF_TOL, failed)
+    out["bits"] = dof_bits("(e)", me, fr_u, "the unsharded sweep of this "
+                           "process", failed)
     idx = peak_points(fr)
     exact = splu_frf(p, freqs[idx], theta)
     out["vs_splu"] = shard_close(
@@ -4244,6 +4508,8 @@ def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
         shard_report("(e) NCCL", mn, ("frf",))
         shard_close("(e) NCCL FRF vs the unsharded sweep",
                     mn[0]["frf"][0][:freqs.size], fr_u, DOF_FRF_TOL, [])
+        dof_bits("(e) NCCL", mn, fr_u, "the unsharded sweep (printed, not "
+                 "gated)", [])
     del p
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t0

@@ -16,7 +16,14 @@
 // a nonzero, contiguous as (n_tiles, TM, TK); each tile's global first column
 // (q-1)*b + c0 (int32); a CSR pointer over row tiles (int32), the tiles of a
 // row tile in column order.  Window slots outside [0, n) and rows >= n never
-// reach the pack.  x and y are (B, n) row-major.
+// reach the pack.  x is (B, nx) and y (B, ny) row-major: nx = ny = n for the
+// whole band.  A rank of a dof group that owns block rows [q0, q1) launches
+// it on its own window (band_kernel.window_pack): the row tiles of its rows
+// [q0 b, min(n, q1 b)), ny of them, and an x window of nx columns from
+// max(0, (q0 - 1) b) to min(n, (q1 + 1) b), its neighbours' boundary block
+// rows included, every first column counted from the window's first.  A row
+// walks the same tiles in the same order as in the whole pack, so a window's
+// rows carry the whole apply's bits.
 //
 // Tile shape (a count of the 21k-DOF slice's f32 K_ref band on the host,
 // nb = 82, b = 256, n = 20916, by `.probes/torch_sweep_profile.py
@@ -50,10 +57,10 @@
 //    are written as 0.
 //  * Every tile and its x slice (TK = 8 columns: 32 contiguous bytes per
 //    lane) are streamed into a ring of shared memory with cp.async (16-byte
-//    copies where n % 4 == 0, 4-byte copies else); STAGES - 1 tiles are in
-//    flight while the FMAs run on the oldest, one barrier per tile.  The
-//    copies hold no registers.  Columns >= n are zero-filled by the copy,
-//    so the tail of x never leaks into a row.
+//    copies where nx and ny are multiples of 4, 4-byte copies else);
+//    STAGES - 1 tiles are in flight while the FMAs run on the oldest, one
+//    barrier per tile.  The copies hold no registers.  Columns >= nx are
+//    zero-filled by the copy, so the tail of x never leaks into a row.
 //  * Warp w owns rows 4w..4w+3 of the tile, lane-in-warp g owns lanes
 //    g + 32 s: a 4 x S accumulator in registers.  Tile values are read as
 //    warp-uniform float4 broadcasts.  A lane's x slice is two 16-byte chunks,
@@ -123,7 +130,7 @@ band_mv_f32_kernel(const float* __restrict__ vals,
                    const int* __restrict__ col0,
                    const int* __restrict__ row_ptr,
                    const float* __restrict__ x, float* __restrict__ y,
-                   int B, int n)
+                   int B, int nx, int ny)
 {
     constexpr int LB = 32 * S;                       // lanes of the block
     constexpr int STAGES = stages_for(S);
@@ -147,20 +154,20 @@ band_mv_f32_kernel(const float* __restrict__ vals,
             cp_async16(&Ts[st][4 * tid],
                        vals + (size_t)(beg + t) * (TM * TK) + 4 * tid, 16);
         const int c0 = first_col[t];
-        const float* xl = x + (size_t)l0 * n + c0;
-        if (VEC) {   // n % 4 == 0: a 4-column chunk is wholly in or out
+        const float* xl = x + (size_t)l0 * nx + c0;
+        if (VEC) {   // nx % 4 == 0: a 4-column chunk is wholly in or out
             for (int e = tid; e < nl * (TK / 4); e += NT) {
                 const int l = e / (TK / 4), j = e % (TK / 4);
-                const bool in = c0 + 4 * j < n;
+                const bool in = c0 + 4 * j < nx;
                 cp_async16(&Xs[st][xs_at(l, j)],
-                           in ? xl + (size_t)l * n + 4 * j : x, in ? 16 : 0);
+                           in ? xl + (size_t)l * nx + 4 * j : x, in ? 16 : 0);
             }
         } else {
             for (int e = tid; e < nl * TK; e += NT) {
                 const int l = e / TK, k = e % TK;
-                const bool in = c0 + k < n;
+                const bool in = c0 + k < nx;
                 cp_async4(&Xs[st][xs_at(l, k / 4) + k % 4],
-                          in ? xl + (size_t)l * n + k : x, in ? 4 : 0);
+                          in ? xl + (size_t)l * nx + k : x, in ? 4 : 0);
             }
         }
     };
@@ -212,31 +219,31 @@ band_mv_f32_kernel(const float* __restrict__ vals,
     for (int s = 0; s < S; ++s) {
         const int l = g + 32 * s;
         if (l >= nl) continue;
-        float* yl = y + (size_t)(l0 + l) * n + row0;
-        if (VEC && row0 + RPT <= n) {
+        float* yl = y + (size_t)(l0 + l) * ny + row0;
+        if (VEC && row0 + RPT <= ny) {
             *reinterpret_cast<float4*>(yl) =
                 make_float4(acc[0][s], acc[1][s], acc[2][s], acc[3][s]);
         } else {
 #pragma unroll
             for (int r = 0; r < RPT; ++r)
-                if (row0 + r < n) yl[r] = acc[r][s];
+                if (row0 + r < ny) yl[r] = acc[r][s];
         }
     }
 }
 
 template <int S>
 void launch(const float* vals, const int* col0, const int* row_ptr,
-            const float* x, float* y, int B, int n, int list_max, bool vec,
-            cudaStream_t stream)
+            const float* x, float* y, int B, int nx, int ny, int list_max,
+            bool vec, cudaStream_t stream)
 {
-    const dim3 grid((n + TM - 1) / TM, (B + 32 * S - 1) / (32 * S));
+    const dim3 grid((ny + TM - 1) / TM, (B + 32 * S - 1) / (32 * S));
     const size_t list_bytes = sizeof(int) * list_max;
     if (vec)
         band_mv_f32_kernel<S, true><<<grid, NT, list_bytes, stream>>>(
-            vals, col0, row_ptr, x, y, B, n);
+            vals, col0, row_ptr, x, y, B, nx, ny);
     else
         band_mv_f32_kernel<S, false><<<grid, NT, list_bytes, stream>>>(
-            vals, col0, row_ptr, x, y, B, n);
+            vals, col0, row_ptr, x, y, B, nx, ny);
 }
 
 }  // namespace
@@ -244,27 +251,28 @@ void launch(const float* vals, const int* col0, const int* row_ptr,
 // The tile shape the kernel was compiled for, as TM * 1000 + TK.
 extern "C" int band_mv_f32_tile(void) { return TM * 1000 + TK; }
 
-// vals (n_tiles, TM, TK) f32, col0 (n_tiles,) int32, row_ptr (n_row_tiles+1,)
-// int32 with n_row_tiles * TM >= n and at most list_max tiles in a row tile;
-// x (B, n) and y (B, n) f32.  All contiguous on the current device, vals
-// 16-byte aligned.  Launches on `stream` and returns cudaGetLastError().
+// vals (n_tiles, TM, TK) f32, col0 (n_tiles,) int32 counted from x's first
+// column, row_ptr (n_row_tiles+1,) int32 with n_row_tiles * TM >= ny and at
+// most list_max tiles in a row tile; x (B, nx) and y (B, ny) f32 (nx = ny = n
+// for the whole band).  All contiguous on the current device, vals 16-byte
+// aligned.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int band_mv_f32_launch(const float* vals, const int* col0,
                                   const int* row_ptr, const float* x,
-                                  float* y, int B, int n, int n_row_tiles,
-                                  int list_max, void* stream)
+                                  float* y, int B, int nx, int ny,
+                                  int n_row_tiles, int list_max, void* stream)
 {
-    if (B <= 0 || n <= 0) return 0;
-    if ((long long)n_row_tiles * TM < n || list_max < 0
+    if (B <= 0 || ny <= 0) return 0;
+    if (nx <= 0 || (long long)n_row_tiles * TM < ny || list_max < 0
         || (uintptr_t)vals % 16 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const bool vec = n % 4 == 0 && (uintptr_t)x % 16 == 0
+    const bool vec = nx % 4 == 0 && ny % 4 == 0 && (uintptr_t)x % 16 == 0
                      && (uintptr_t)y % 16 == 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (B <= 32)
-        launch<1>(vals, col0, row_ptr, x, y, B, n, list_max, vec, st);
+        launch<1>(vals, col0, row_ptr, x, y, B, nx, ny, list_max, vec, st);
     else if (B <= 64)
-        launch<2>(vals, col0, row_ptr, x, y, B, n, list_max, vec, st);
+        launch<2>(vals, col0, row_ptr, x, y, B, nx, ny, list_max, vec, st);
     else
-        launch<4>(vals, col0, row_ptr, x, y, B, n, list_max, vec, st);
+        launch<4>(vals, col0, row_ptr, x, y, B, nx, ny, list_max, vec, st);
     return static_cast<int>(cudaGetLastError());
 }

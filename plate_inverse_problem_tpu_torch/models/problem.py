@@ -121,10 +121,10 @@ def _has_adjoint_hooks(core) -> bool:
 
 
 def _dof_placed_error(n_dof: int, i_dof: int) -> ValueError:
-    """The error of an unsharded call on a Problem whose dense inverses are
-    row-partitioned over a dof mesh (``Problem._place_rows``)."""
+    """The error of an unsharded call on a Problem whose operator data is
+    partitioned over a dof mesh (``Problem._place_rows``)."""
     return ValueError(
-        f"this Problem's dense inverses are row-partitioned over a dof mesh "
+        f"this Problem's operator data is partitioned over a dof mesh "
         f"(dof={n_dof}; this rank, dof index {i_dof}, holds only its rows): "
         "it serves only collective calls on a mesh of that dof layout; "
         "build another Problem for unsharded calls")
@@ -615,7 +615,7 @@ class Problem:
         self.basis = basis
         self.basis_f32 = basis_f32
         # the Problem's own dict (the tensors stay shared): placing its
-        # dense inverses on a dof mesh changes this Problem alone
+        # operator data on a dof mesh changes this Problem alone
         self._given_opdata = None if opdata is None else dict(opdata)
 
         self.accelerometer = accel
@@ -797,7 +797,7 @@ class Problem:
     def getFRCore(self):
         """(core, opdata): ``core(freqs, params, opdata)`` plus the
         operator dict on the Problem's device (built once).  Raises once
-        the dense inverses are row-partitioned over a dof mesh."""
+        the operator data is partitioned over a dof mesh."""
         self._serves_collectives_only()
         return self._core_memo()
 
@@ -810,43 +810,48 @@ class Problem:
 
     def operator_data(self) -> dict:
         """The operator dict the Problem holds (built once), placed or not:
-        on a Problem placed on a dof mesh (``_place_rows``) this rank's row
-        blocks stand in for its dense inverses."""
+        on a Problem placed on a dof mesh (``_place_rows``) this rank's
+        shares stand in for the entries the dof axis partitions."""
         return self._core_memo()[1]
 
     def _place_rows(self, layout: tuple, own: Callable) -> tuple:
-        """Place the dense inverses as rank ``layout[1]`` of a dof axis of
-        ``layout[0]``: ``own(key, value)`` is this rank's block of an entry
-        the axis partitions, None for an entry it leaves whole.  The first
-        layout that partitions an entry replaces those entries in the
-        Problem's operator dict, the one its ``getFRCore`` memo, its
+        """Place the operator data as rank ``layout[1]`` of a dof axis of
+        ``layout[0]``: ``own(opdata, band_pack)`` is {key: this rank's
+        share} of the entries the axis partitions (the two-grid's share of
+        ``mg_band0`` carries its window of the K1 pack ``band_pack`` and
+        its rows of ``mg_Pt`` and ``mg_dinv``, whose keys map to None and
+        go).  The first layout that partitions an entry replaces those
+        entries in the Problem's operator dict, the one its ``getFRCore`` memo, its
         ``getFRFunction`` and every loss or residual function made from it
-        share, so nothing of the Problem keeps the whole matrix.  From then
-        on the Problem serves only collective calls of that layout: its
-        unsharded entry points raise, and so does another layout here.
-        Returns (core, operator dict)."""
+        share, and drops the whole K1 pack, so nothing of the Problem
+        keeps a whole entry.  From then on the Problem serves only
+        collective calls of that layout: its unsharded entry points raise,
+        and so does another layout here.  Returns (core, operator dict)."""
         layout = tuple(layout)
         memo = self._core_memo()
         placed = getattr(self, "_dof_rows", None)
         if placed is None:
-            blocks = {k: b for k, v in memo[1].items()
-                      if (b := own(k, v)) is not None}
+            blocks = own(memo[1], getattr(self, "_band_pack", None))
             if blocks:
                 memo[1].update(blocks)
+                for k in [k for k, v in blocks.items() if v is None]:
+                    del memo[1][k]
+                if "mg_band0" in blocks:
+                    self._band_pack = None
                 self._dof_rows = layout
         elif placed != layout:
             raise ValueError(
-                f"the Problem's dense inverses are placed on a dof mesh as "
+                f"the Problem's operator data is placed on a dof mesh as "
                 f"rank {placed[1]} of dof={placed[0]}; a mesh that makes "
-                f"this rank {layout[1]} of dof={layout[0]} cannot use them: "
+                f"this rank {layout[1]} of dof={layout[0]} cannot use it: "
                 "build another Problem for it")
         return memo
 
     def _serves_collectives_only(self) -> None:
-        """Raise once ``_place_rows`` has placed this Problem's dense
-        inverses on a dof mesh: this rank holds only its rows of them, so
-        only the mesh's collective calls can apply them (an unsharded call
-        would wait on a one-rank collective or multiply by a block)."""
+        """Raise once ``_place_rows`` has placed this Problem's operator
+        data on a dof mesh: this rank holds only its rows of it, so only
+        the mesh's collective calls can apply it (an unsharded call would
+        wait on a one-rank collective or multiply by a block)."""
         placed = getattr(self, "_dof_rows", None)
         if placed is not None:
             raise _dof_placed_error(*placed)
@@ -1090,7 +1095,10 @@ class Problem:
                 # the coarse Galerkin operator is too ill-conditioned for
                 # any f32 factorization: invert it with a host f64 splu
                 t0 = time.perf_counter()
-                Kc_inv = spla.splu(Kc).solve(np.eye(Kc.shape[0]))
+                # row-major: a block of its rows is contiguous, as a dof
+                # rank's owned copy of it (ops/dense.py)
+                Kc_inv = np.ascontiguousarray(
+                    spla.splu(Kc).solve(np.eye(Kc.shape[0])))
                 self._coarse_inv_s = time.perf_counter() - t0
                 opdata |= {
                     "Kref64": t64(K_ref_eq),
@@ -1197,10 +1205,16 @@ class Problem:
             if flat_mg:
                 mg = {"multilevel": self._multilevel, "Kref32": Kref32}
             elif precond == "mg":
-                mg = {"tg_pack": pack, "dinv": od["mg_dinv"],
-                      "Pt": od["mg_Pt"], "Kc_inv": od["mg_Kcinv"],
-                      "slots": od["mg_slots"], "lmax": lmax, "rl": rl,
-                      "layout": layout}
+                # the whole pack, P and diagonal, or on a dof rank its
+                # block rows of the two-grid, which carry its rows of P and
+                # the diagonal (ops/mg.py TwoGridRows, bound to the mesh)
+                band0 = od["mg_band0"]
+                mg = ({"tg_pack": self._band_pack, "dinv": od["mg_dinv"],
+                       "Pt": od["mg_Pt"]}
+                      if isinstance(band0, torch.Tensor)
+                      else {"tg_pack": band0})
+                mg |= {"Kc_inv": od["mg_Kcinv"], "slots": od["mg_slots"],
+                       "lmax": lmax, "rl": rl, "layout": layout}
             else:
                 mg = None
             with torch.no_grad():

@@ -13,6 +13,17 @@
 The host-side layout code (band layout, rectangular prolongation layout,
 permutations) is a numpy copy of the JAX package's.  The JAX side's f64 block-axis
 segmentation is a TPU memory workaround and is not ported.
+
+The rectangular prolongation's products (``rect_band_mv``,
+``rect_band_tmv``) run one batched GEMM a fixed group of block rows
+(``dense.fixed_blocks(nb, 1)``, at most 8 groups), each group's operands
+contiguous in block-row-major (q, lanes, .) layout and its product
+written in place: a dof rank that owns whole groups
+(``rect_band_mv_rows``, ``restrict_windows``) makes the same calls on its
+block rows, so its rows carry the whole product's bits.  One batched GEMM
+over all block rows would not: cuBLAS picks its kernel by the batch count
+too, and a rank's block rows then round otherwise at up to 16 lanes (the
+21k plate on the H100, ``.probes/twogrid_cost_probe.py --bits``).
 """
 from __future__ import annotations
 
@@ -20,6 +31,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .dense import blocks_within, fixed_blocks
 
 
 @dataclass(frozen=True)
@@ -191,43 +204,90 @@ def rect_band_tensor(rl: RectBandLayout, device):
         .reshape(rl.nb, rl.b, rl.nd * rl.bc)
 
 
-def _coarse_windows(rl: RectBandLayout, xs):
-    """(B, nb*bc) padded-slot vector -> (B, nb, nd*bc) block windows."""
-    B = xs.shape[0]
-    xb = xs.reshape(B, rl.nb, rl.bc)
-    xm = torch.nn.functional.pad(xb, (0, 0, rl.hw, rl.hw))
-    win = torch.stack([xm[:, d:d + rl.nb, :] for d in range(rl.nd)], dim=2)
-    return win.reshape(B, rl.nb, rl.nd * rl.bc)
+def _group_bmm(a, b, q0: int, nb: int):
+    """(q, B, j): ``torch.bmm(a, b)`` over block rows [q0, q0 + q) of a
+    band of nb, a (q, B, k) and b (q, k, j), one call a fixed group of
+    block rows (``fixed_blocks(nb, 1)``; the rows must start and end on
+    group bounds), each written in place."""
+    q = a.shape[0]
+    out = a.new_empty((q, a.shape[1], b.shape[2]))
+    for g0, g1 in blocks_within(fixed_blocks(nb, 1), q0, q0 + q):
+        torch.bmm(a[g0 - q0:g1 - q0], b[g0 - q0:g1 - q0],
+                  out=out[g0 - q0:g1 - q0])
+    return out
+
+
+def _coarse_windows(rl: RectBandLayout, xc, slots, q0: int, q1: int):
+    """(q1 - q0, B, nd*bc): the padded-slot windows of block rows [q0, q1)
+    of compact coarse (..., n_c) rows, block-row major."""
+    xcf = xc.reshape(-1, rl.n_coarse)
+    B = xcf.shape[0]
+    xs = torch.zeros(B, rl.nb * rl.bc, dtype=xc.dtype, device=xc.device)
+    xs[:, slots] = xcf
+    xm = torch.nn.functional.pad(xs.reshape(B, rl.nb, rl.bc).transpose(0, 1),
+                                 (0, 0, 0, 0, rl.hw, rl.hw))
+    win = torch.stack([xm[q0 + d:q1 + d] for d in range(rl.nd)], dim=2)
+    return win.reshape(q1 - q0, B, rl.nd * rl.bc)
 
 
 def rect_band_mv(Pt, xc, rl: RectBandLayout, slots):
-    """Prolongation y_f = P x_c as one batched GEMM; xc (..., n_c) compact.
-    ``slots`` maps compact coarse indices into the padded block-slot
-    space."""
+    """Prolongation y_f = P x_c, a batched GEMM a fixed group of block rows;
+    xc (..., n_c) compact.  ``slots`` maps compact coarse indices into the
+    padded block-slot space."""
+    return rect_band_mv_rows(Pt, xc, rl, slots, 0)
+
+
+def rect_band_mv_rows(Pt_rows, xc, rl: RectBandLayout, slots, q0: int):
+    """Rows [q0 b, min(n_fine, q1 b)) of the prolongation P x_c from block
+    rows [q0, q1) of P (``Pt_rows``, a dof rank's), the whole product's
+    bits; xc (..., n_c) compact, whole."""
     lead = xc.shape[:-1]
-    xcf = xc.reshape(-1, rl.n_coarse)
-    xs = torch.zeros(xcf.shape[0], rl.nb * rl.bc, dtype=xc.dtype,
-                     device=xc.device)
-    xs[:, slots] = xcf
-    y = torch.einsum("qic,Bqc->Bqi", Pt, _coarse_windows(rl, xs))
-    return y.reshape(lead + (rl.nb * rl.b,))[..., :rl.n_fine]
+    q1 = q0 + Pt_rows.shape[0]
+    win = _coarse_windows(rl, xc, slots, q0, q1)
+    y = _group_bmm(win, Pt_rows.transpose(1, 2), q0, rl.nb)   # (q, B, b)
+    rows = min(rl.n_fine, q1 * rl.b) - q0 * rl.b
+    return y.transpose(0, 1).reshape(lead + ((q1 - q0) * rl.b,))[..., :rows]
+
+
+def restrict_windows(Pt_rows, rf_rows, rl: RectBandLayout, q0: int):
+    """The restriction's window terms w (B, q1 - q0, nd, bc) = P_q^T r_q of
+    block rows [q0, q1) (a block-row-major view): ``rf_rows`` (..., rows
+    [q0 b, min(n_fine, q1 b))) of the fine residual, flattened to B
+    lanes."""
+    q1 = q0 + Pt_rows.shape[0]
+    rows = min(rl.n_fine, q1 * rl.b) - q0 * rl.b
+    rp = torch.nn.functional.pad(rf_rows.reshape(-1, rows),
+                                 (0, (q1 - q0) * rl.b - rows))
+    B = rp.shape[0]
+    rq = rp.reshape(B, q1 - q0, rl.b).transpose(0, 1).contiguous()
+    w = _group_bmm(rq, Pt_rows, q0, rl.nb)                 # (q, B, nd*bc)
+    return w.reshape(q1 - q0, B, rl.nd, rl.bc).transpose(0, 1)
+
+
+def fold_windows(w, w_lo: int, q0: int, q1: int, rl: RectBandLayout):
+    """The padded coarse slots (B, q1 - q0, bc) of coarse blocks [q0, q1):
+    block qc is the sum over d of the window terms w[qc + hw - d, d] that
+    exist, added to zero in d order (the whole restriction's order).  ``w``
+    (B, *, nd, bc) holds the terms of block rows [w_lo, w_lo +
+    w.shape[1])."""
+    hw, w_hi = rl.hw, w_lo + w.shape[1]
+    acc = torch.zeros(w.shape[0], q1 - q0, rl.bc, dtype=w.dtype,
+                      device=w.device)
+    for d in range(rl.nd):
+        a, b = max(q0, w_lo - hw + d), min(q1, w_hi - hw + d)
+        if a < b:
+            acc[:, a - q0:b - q0] += w[:, a + hw - d - w_lo:
+                                       b + hw - d - w_lo, d]
+    return acc
 
 
 def rect_band_tmv(Pt, rf, rl: RectBandLayout, slots):
-    """Restriction r_c = P^T r_f — the transposed GEMM plus a fold of the
-    overlapping block windows back onto the padded slots (nd shifted
-    adds), then the compact gather."""
+    """Restriction r_c = P^T r_f — the transposed GEMMs (one a fixed group
+    of block rows) plus a fold of the overlapping block windows back onto
+    the padded slots (nd shifted adds), then the compact gather."""
     lead = rf.shape[:-1]
-    rp = torch.nn.functional.pad(rf.reshape(-1, rl.n_fine),
-                                 (0, rl.nb * rl.b - rl.n_fine))
-    B = rp.shape[0]
-    rb = rp.reshape(B, rl.nb, rl.b)
-    w = torch.einsum("qic,Bqi->Bqc", Pt, rb).reshape(B, rl.nb, rl.nd, rl.bc)
-    acc = torch.zeros(B, rl.nb + 2 * rl.hw, rl.bc, dtype=w.dtype,
-                      device=w.device)
-    for d in range(rl.nd):
-        acc[:, d:d + rl.nb, :] += w[:, :, d, :]
-    acc = acc[:, rl.hw:rl.hw + rl.nb, :].reshape(B, rl.nb * rl.bc)
+    w = restrict_windows(Pt, rf, rl, 0)
+    acc = fold_windows(w, 0, 0, rl.nb, rl).reshape(w.shape[0], -1)
     return acc[:, slots].reshape(lead + (rl.n_coarse,))
 
 

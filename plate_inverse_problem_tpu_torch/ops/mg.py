@@ -14,7 +14,9 @@ Two cycles, both the JAX package's:
 * ``twogrid_apply``, the band tier's: the fine operator in the RCM
   block-tridiagonal layout, applied by the CUDA band kernel (K1,
   ops/band_kernel.py), one coarse level through the rectangular
-  block-band prolongation;
+  block-band prolongation; on a rank of a dof mesh ``twogrid_apply_rows``
+  runs the same cycle on the rank's block rows (``TwoGridRows``) with the
+  whole cycle's bits;
 * ``multilevel_apply``, the flat layout's: a recursive (V- or W-) cycle
   over any number of levels, every product on a flat pattern through the
   CSR kernel (K3, ops/csr_kernel.py) — the level operators, and the
@@ -27,11 +29,15 @@ numpy copy of the JAX package's; the device half is torch.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
+from typing import Callable
+
 import numpy as np
 import torch
 
-from .band import rect_band_mv, rect_band_tmv
-from .band_kernel import band_mv_f32
+from .band import (fold_windows, rect_band_mv, rect_band_mv_rows,
+                   rect_band_tmv, restrict_windows)
+from .band_kernel import BandTiles, band_mv_f32
 from .dense import dense_apply
 
 
@@ -258,6 +264,176 @@ def twogrid_apply(pack, dinv, lmax, Pt, Kc_inv, r32, layout, rl,
     ec = dense_apply(Kc_inv, rc)
     e = e + rect_band_mv(Pt, ec, rl, slots)
     return _chebyshev_smooth(sm, K_mv, r32, e0=e, steps=smooth_steps)
+
+
+@dataclass(frozen=True)
+class TwoGridRows:
+    """Block rows [q0, q1) of the two-grid's band that one rank of a dof
+    group owns, and what the cycle reads on them: ``band`` (q1 - q0, b,
+    3b) its rows of ``mg_band0``, ``pack`` their window pack (K1's,
+    ops/band_kernel.py), ``Pt`` (q1 - q0, b, nd*bc) its rows of ``mg_Pt``,
+    ``dinv`` its rows [q0 b, min(n, q1 b)) of ``mg_dinv``.  ``bounds``: the
+    block-row bounds of every rank of the group (whole groups of
+    ``dense.fixed_blocks(nb, 1)``), ``rank`` this one's place.  ``stack``
+    (``bind``) is the dof group's gather: (ranks, *part.shape), every
+    rank's part in its slot, the same bits on every rank; unbound, a
+    rank alone cannot run the cycle and ``unbound()`` is raised.
+
+    Every product keeps the whole cycle's bits: K1 walks a row's tiles as
+    in the whole pack, the prolongation's and restriction's GEMMs are the
+    whole ones' calls on the rank's groups, the restriction folds every
+    coarse slot's terms in the whole order (the neighbours' terms next to
+    a bound come in by one exchange), and every combine is a gather."""
+
+    band: torch.Tensor
+    pack: BandTiles
+    Pt: torch.Tensor
+    dinv: torch.Tensor
+    bounds: tuple
+    rank: int
+    unbound: Callable
+    stack: Callable | None = None
+
+    ndim = 3
+
+    @property
+    def q0(self) -> int:
+        return self.bounds[self.rank]
+
+    @property
+    def q1(self) -> int:
+        return self.bounds[self.rank + 1]
+
+    @property
+    def rows(self) -> tuple[int, int]:
+        return self.pack.rows
+
+    @property
+    def shape(self) -> tuple:
+        """The whole band's."""
+        return (self.bounds[-1],) + tuple(self.band.shape[1:])
+
+    def bind(self, stack: Callable) -> "TwoGridRows":
+        """The same rows, their combines through ``stack``."""
+        return replace(self, stack=stack)
+
+    def _gather(self, part):
+        if self.stack is None:
+            raise self.unbound()
+        return self.stack(part)
+
+    def _concat(self, v, sizes):
+        """(B, sum sizes): every rank's (B, sizes[rank]) ``v`` joined in
+        rank order (one gather, each part sent padded to max sizes)."""
+        buf = v.new_zeros((v.shape[0], max(sizes)))
+        buf[:, :v.shape[1]] = v
+        stack = self._gather(buf)
+        return torch.cat([stack[j, :, :k] for j, k in enumerate(sizes)], 1)
+
+    def own(self, x):
+        """This rank's rows of a whole (..., n) vector."""
+        lo, hi = self.rows
+        return x[..., lo:hi]
+
+    def whole(self, v):
+        """The whole (..., n) vector of every rank's rows ``v`` (...,
+        rows) (one gather)."""
+        b, n, qs = self.band.shape[1], self.pack.n, self.bounds
+        sizes = [min(n, qs[j + 1] * b) - qs[j] * b
+                 for j in range(len(qs) - 1)]
+        return self._concat(v.reshape(-1, v.shape[-1]), sizes).reshape(
+            v.shape[:-1] + (n,))
+
+    def halo(self, v):
+        """(B, nx): the x window of this rank's pack, its rows ``v`` (...,
+        rows) with the neighbours' boundary block rows on each side (one
+        exchange: every rank's first and last block row)."""
+        b = self.band.shape[1]
+        lo, hi = self.rows
+        xlo, xhi = self.pack.cols
+        vf = v.reshape(-1, hi - lo)
+        ends = vf.new_zeros((2, vf.shape[0], b))
+        head, tail = vf[:, :b], vf[:, -b:]
+        ends[0, :, :head.shape[1]] = head
+        ends[1, :, b - tail.shape[1]:] = tail
+        stack = self._gather(ends)
+        parts = [vf]
+        if xlo < lo:
+            parts.insert(0, stack[self.rank - 1, 1, :, b - (lo - xlo):])
+        if xhi > hi:
+            parts.append(stack[self.rank + 1, 0, :, :xhi - hi])
+        return torch.cat(parts, 1)
+
+    def mv(self, v, layout):
+        """This rank's rows of K v for its rows ``v`` (..., rows): one halo
+        exchange, one K1 launch on the window."""
+        return band_mv_f32(self.pack, self.halo(v), layout).reshape(v.shape)
+
+    def mv_whole(self, y, layout):
+        """This rank's rows of K y for a whole (..., n) ``y``: one K1 launch
+        on the window, no exchange."""
+        xlo, xhi = self.pack.cols
+        return band_mv_f32(self.pack, y[..., xlo:xhi].contiguous(), layout)
+
+    def restrict(self, res, rl, slots):
+        """The whole coarse residual P^T r (..., n_c) from this rank's rows
+        of r: its window terms, the terms of the block rows within hw of
+        its bounds from the ranks that own them (one exchange: every
+        rank's first and last hw block rows), the fold of its coarse
+        blocks in the whole restriction's d order, and every rank's folded
+        blocks (one gather)."""
+        hw, nb, qs = rl.hw, rl.nb, self.bounds
+        w = restrict_windows(self.Pt, res, rl, self.q0)  # (B, nq, nd, bc)
+        B, nq = w.shape[:2]
+        k = min(hw, nq)
+        ends = w.new_zeros((2, B, hw, rl.nd, rl.bc))
+        if k:
+            ends[0, :, :k] = w[:, :k]
+            ends[1, :, hw - k:] = w[:, nq - k:]
+        stack = self._gather(ends)
+
+        def term(q):
+            # block row q, within hw of its owner j's bounds: in j's last
+            # hw left of q0, in its first hw right of q1
+            j = max(i for i in range(len(qs) - 1) if qs[i] <= q)
+            return (stack[j, 1, :, hw - (qs[j + 1] - q)] if q < self.q0
+                    else stack[j, 0, :, q - qs[j]])
+
+        e0, e1 = max(0, self.q0 - hw), min(nb, self.q1 + hw)
+        w_ext = torch.cat([term(q)[:, None] for q in range(e0, self.q0)]
+                          + [w] + [term(q)[:, None]
+                                   for q in range(self.q1, e1)], 1)
+        acc = fold_windows(w_ext, e0, self.q0, self.q1, rl)
+        sizes = [(qs[j + 1] - qs[j]) * rl.bc for j in range(len(qs) - 1)]
+        full = self._concat(acc.reshape(B, -1), sizes)
+        return full[:, slots].reshape(res.shape[:-1] + (rl.n_coarse,))
+
+    def prolong(self, ec, rl, slots):
+        """This rank's rows of P ec for the whole coarse ``ec`` (...,
+        n_c): no exchange."""
+        return rect_band_mv_rows(self.Pt, ec, rl, slots, self.q0)
+
+
+def twogrid_apply_rows(part: TwoGridRows, lmax, Kc_inv, r_rows, layout, rl,
+                       slots, smooth_steps: int = 4):
+    """``twogrid_apply`` on a rank of a dof group (``part``, bound): this
+    rank's rows of the (..., n) f32 residual in, the whole cycle output
+    out, the whole cycle's bits.  The Chebyshev vectors stay on the rank's
+    rows (a halo exchange before each K1 apply); the coarse residual is
+    gathered whole, so the dof group's row blocks of the coarse inverse
+    (``Kc_inv``, a ``RowShard``) apply to it as to the whole one; one
+    gather at the end."""
+
+    def K_mv(x):
+        return part.mv(x, layout)
+
+    sm = {"dinv": part.dinv, "lmax": lmax}
+    e = _chebyshev_smooth(sm, K_mv, r_rows, steps=smooth_steps)
+    res = r_rows - K_mv(e)
+    ec = dense_apply(Kc_inv, part.restrict(res, rl, slots))
+    e = e + part.prolong(ec, rl, slots)
+    return part.whole(_chebyshev_smooth(sm, K_mv, r_rows, e0=e,
+                                        steps=smooth_steps))
 
 
 def multilevel_to_device(arrays, static, device, Kc_inv=None) -> dict:

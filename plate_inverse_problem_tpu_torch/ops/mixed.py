@@ -62,10 +62,10 @@ import numpy as np
 import torch
 
 from .band import band_mv, flat_to_band
-from .band_kernel import band_mv_f32
+from .band_kernel import BandTiles, band_mv_f32
 from .csr_kernel import build_csr, csr_apply, csr_mv
 from .dense import dense_apply as _dense_apply
-from .mg import multilevel_apply, twogrid_apply
+from .mg import multilevel_apply, twogrid_apply, twogrid_apply_rows
 
 # f32 refinement rounds around the two-grid / multilevel cycle (each round
 # costs one extra f32 fine matvec + cycle and squares the cycle's error)
@@ -540,7 +540,9 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
     K_re/K_im/M_flat (nnz,) f64 flat operator data on the pattern
     (rows, cols); B_re/B_im (F, n) f64 right-hand sides; omegas (F,) f64;
-    W64 (n, m) f64 M-orthonormal band basis.  ``freq_chunk``: lanes per
+    W64 (n, m) f64 M-orthonormal band basis (on a rank of a dof mesh its
+    rows, ``parallel.freq_shard.RowShard``, gathered whole for the sweep: a
+    transient of the basis's size).  ``freq_chunk``: lanes per
     batch; the frequencies are sorted by their band-computable resonance
     amplification first, so smooth chunks exit after few iterations.
 
@@ -550,9 +552,11 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
       targets}: the exact operator runs as f64 block-tridiagonal GEMMs;
       without it, as K3 on the flat pattern (rows, cols);
     * ``mg``, the two-grid data {"tg_pack" (the f32 K_ref band packed by
-      ops/band_kernel.pack_band_tiles), "dinv", "Pt", "Kc_inv", "slots",
-      "lmax", "rl", "layout"} (band layout only): the complement
-      preconditioner is the two-grid cycle; or the flat multilevel data
+      ops/band_kernel.pack_band_tiles, or a dof rank's block rows of the
+      cycle, ops/mg.py ``TwoGridRows``, which carry their own band, P and
+      diagonal), "dinv", "Pt", "Kc_inv", "slots", "lmax", "rl", "layout"}
+      (band layout only): the complement preconditioner is the two-grid
+      cycle; or the flat multilevel data
       {"multilevel" (ops/mg.multilevel_to_device), "Kref32" (nnz,) the
       f32 reference stiffness on the pattern}: the multilevel cycle, every
       product on K3 (the flat layout's, JAX ``ops/mixed.py:957-970``);
@@ -631,6 +635,8 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
             return out[0], out[1], None if ki_proportional else out[2]
 
     # ---- per-theta band Rayleigh-Ritz, all f64 --------------------------
+    if not isinstance(W64, torch.Tensor):
+        W64 = W64.whole()                  # a dof rank's rows: one gather
     KW, MW = KM_mv(W64.T.contiguous())                 # (m, n) rows = K w_i
     Kw = KW @ W64
     Mw = MW @ W64
@@ -679,16 +685,33 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
         n_cycles = max(n_cycles, 2)
 
     # ---- complement preconditioner: pc(x) in x's dtype ------------------
+    def own(x32):
+        return x32
+
     if mg is not None:
-        if "tg_pack" in mg:
+        tg = mg.get("tg_pack")
+        if isinstance(tg, BandTiles):
             # band tier: the two-grid cycle, its fine products on K1
             def cycle(x32):
-                return twogrid_apply(mg["tg_pack"], mg["dinv"], mg["lmax"],
-                                     mg["Pt"], mg["Kc_inv"], x32,
-                                     mg["layout"], mg["rl"], mg["slots"])
+                return twogrid_apply(tg, mg["dinv"], mg["lmax"], mg["Pt"],
+                                     mg["Kc_inv"], x32, mg["layout"],
+                                     mg["rl"], mg["slots"])
 
             def Kref32_mv(y32):
-                return band_mv_f32(mg["tg_pack"], y32, mg["layout"])
+                return band_mv_f32(tg, y32, mg["layout"])
+        elif tg is not None:
+            # a dof rank's block rows of the two-grid: the cycle takes its
+            # rows of the residual and gives the whole output, the whole
+            # cycle's bits; its rows of K y come from K1 on its window
+            own = tg.own
+
+            def cycle(r_rows):
+                return twogrid_apply_rows(tg, mg["lmax"], mg["Kc_inv"],
+                                          r_rows, mg["layout"], mg["rl"],
+                                          mg["slots"])
+
+            def Kref32_mv(y32):
+                return tg.mv_whole(y32, mg["layout"])
         else:
             # flat layout: the multilevel cycle, every product on K3
             K032 = mg["Kref32"].reshape(1, -1)
@@ -701,7 +724,7 @@ def mixed_sweep(K_re, K_im, M_flat, B_re, B_im, omegas, rows, cols, n: int,
 
         def pc(x):
             # the f32 cycle with f32 refinement rounds around it
-            x32 = x.to(f32)
+            x32 = own(x.to(f32))
             y32 = cycle(x32)
             for _ in range(_MG_REFINE):
                 r32 = x32 - Kref32_mv(y32)

@@ -14,20 +14,26 @@ reads the slots in rank order — a concatenation for the FRF, a sum for the
 loss, the gradient and the Gauss-Newton partials.  The result is the same
 bits on every rank and in every run, whatever algorithm the backend picks.
 
-The dof axis row-partitions the dense inverses (``invK64``, the dense
-tier's preconditioner, the JAX package's f32 ``invK32`` where a Problem
-runs on its operator data, and ``mg_Kcinv``, the two-grid's coarse
-inverse), their memory as well as their product: the first dof mesh a
-Problem meets replaces each inverse in its operator data by this rank's
-own copy of its n/d rows and drops the full matrix.  Each rank of a dof
-group multiplies by its block and the group's slot ``all_reduce`` fills
-in the product, so the group's ranks carry the same bits and their FGMRES
-decisions stay in lockstep.  A placed Problem serves only the collective
-calls: its unsharded entry points raise.  The other buffers the JAX
-package places over ``dof`` (``W64``, ``mg_band0``, ``mg_Pt``,
-``mg_dinv``) stay replicated here, and ``opdata_shardings`` says so.
-Every collective has the process group's timeout: a rank that diverges
-raises instead of hanging.
+The dof axis partitions what the JAX package places over ``dof``
+(``opdata_shardings``), its memory as well as its products: the first dof
+mesh a Problem meets replaces each such entry of its operator data by
+this rank's share and drops the whole one.  By rows (``RowShard``, whole
+blocks of ``ops.dense.fixed_blocks``): the dense inverses (``invK64``,
+the dense tier's preconditioner, the JAX package's f32 ``invK32`` where a
+Problem runs on its operator data, and ``mg_Kcinv``, the two-grid's
+coarse inverse), each rank multiplying by its blocks, the group's slot
+``all_reduce`` filling in the product; and the band basis ``W64``,
+gathered whole for each sweep.  By block rows (``ops.mg.TwoGridRows``,
+whole groups of ``fixed_blocks(nb, 1)``): the two-grid's band
+``mg_band0`` with its K1 pack, its prolongation ``mg_Pt`` and diagonal
+``mg_dinv``; the cycle keeps its vectors on the rank's rows, with a halo
+exchange before each K1 launch on the rank's window, and gathers the
+coarse residual and its output.  Every partitioned product makes the
+whole one's calls on the rank's blocks, so the group's ranks carry the
+unsharded sweep's bits and their FGMRES decisions stay in lockstep.  A
+placed Problem serves only the collective calls: its unsharded entry
+points raise.  Every collective has the process group's timeout: a rank
+that diverges raises instead of hanging.
 
 Pad frequencies (``shard_frequencies`` repeats the last one up to a
 multiple of the freq axis) are computed by ``sharded_fr_function``, whose
@@ -55,13 +61,19 @@ from ..models.problem import (
     _ref_abs,
     _split_ref,
 )
+from ..ops.band_kernel import pack_band_tiles
+from ..ops.dense import blocked_matmul, fixed_blocks, owned_blocks
+from ..ops.mg import TwoGridRows
 
 # seconds a collective waits for its peers before it raises
 TIMEOUT_S = 300.0
-# opdata keys the dof axis row-partitions: the dense tier's inverse (the
-# port's f64 one, or the JAX package's f32 one) and the two-grid's coarse
-# inverse
-_ROW_PARTITIONED = ("invK64", "invK32", "mg_Kcinv")
+# opdata keys the dof axis partitions (the JAX package's): by rows, the
+# dense tier's inverse (the port's f64 one, or the JAX package's f32 one),
+# the two-grid's coarse inverse and the band basis; by block rows, the
+# two-grid's band and prolongation, with the diagonal's rows
+_ROW_SHARDED_2D = ("invK64", "invK32", "mg_Kcinv", "W64")
+_BLOCK_SHARDED = ("mg_band0", "mg_Pt")
+_PARTITIONED = _ROW_SHARDED_2D + _BLOCK_SHARDED + ("mg_dinv",)
 
 
 def _device(device) -> torch.device:
@@ -227,97 +239,165 @@ def _rank_slice(mesh: Mesh, F: int) -> slice:
 
 def row_range(n: int, n_dof: int, i_dof: int) -> tuple[int, int]:
     """Rows [lo, hi) of n that rank ``i_dof`` of a dof axis of ``n_dof``
-    owns: split as evenly as n allows."""
-    return i_dof * n // n_dof, (i_dof + 1) * n // n_dof
+    owns: whole blocks of ``ops.dense.fixed_blocks(n)`` (the blocks the
+    dense apply multiplies by, one GEMM each), split as evenly as they
+    allow."""
+    return owned_blocks(fixed_blocks(n), n_dof, i_dof)
+
+
+def band_range(nb: int, n_dof: int, i_dof: int) -> tuple[int, int]:
+    """Block rows [q0, q1) of a band of nb that rank ``i_dof`` of a dof
+    axis of ``n_dof`` owns: whole groups of ``fixed_blocks(nb, 1)`` (the
+    groups the prolongation's GEMMs run on, at most 8), split as evenly
+    as they allow.  Every rank must own some: fewer groups than ranks
+    raise."""
+    groups = len(fixed_blocks(nb, 1)) - 1
+    if groups < n_dof:
+        raise ValueError(
+            f"the two-grid band has nb = {nb} block rows in {groups} groups, "
+            f"fewer than the {n_dof} ranks of the dof axis: each rank must "
+            "own whole groups of it; use a smaller dof axis")
+    return owned_blocks(fixed_blocks(nb, 1), n_dof, i_dof)
 
 
 class RowShard:
-    """Rows [lo, hi) of a dense (n, n) inverse that one rank of a dof group
-    owns: ``rows`` is a copy of them in the full matrix's layout (the
-    group's other ranks hold the rest).  Bound to a mesh (``bind``),
-    ``apply_t(x)`` is ``x @ inv.T`` for (..., n) rows x: this rank's column
-    block of the product, filled in by the group's slot all_reduce, so
-    every rank of the group holds the same bits.  Unbound, as the placed
-    Problem's own operator data holds it, it raises: alone, a rank has
-    only its rows.  ``RowShard.applies`` counts the row blocks' products
-    (one GEMM each) over every instance."""
+    """Rows [lo, hi) of a dense (n, m) entry that one rank of a dof group
+    owns (a dense inverse, or the band basis ``W64``): ``rows`` is a copy
+    of them in the full matrix's layout (the group's other ranks hold the
+    rest).  Bound to a mesh (``bind``), ``apply_t(x)`` is ``x @ inv.T``
+    for (..., n) rows x of a square inverse: this rank's blocks of the
+    product (``ops.dense.dense_apply``'s GEMMs on its blocks), filled in
+    by the group's slot all_reduce, so every rank of the group holds the
+    same bits, those of the whole apply; ``whole()`` is the whole entry (a
+    transient, every rank's rows in their slots).  Unbound, as the placed
+    Problem's own operator data holds it, both raise: alone, a rank has
+    only its rows.  ``RowShard.applies`` counts the products (one an
+    apply, a GEMM an owned block) over every instance."""
 
     applies = 0
     ndim = 2
 
-    def __init__(self, rows: torch.Tensor, lo: int, n: int, dof: tuple,
+    def __init__(self, rows: torch.Tensor, lo: int, shape: tuple, dof: tuple,
                  mesh: Mesh | None = None):
         self.rows = rows
         self.lo, self.hi = lo, lo + rows.shape[0]
-        self.shape = (n, n)
+        self.shape = tuple(shape)
         self.dof = dof                  # (dof axis size, this rank's index)
         self._mesh = mesh
 
     @classmethod
     def own(cls, full: torch.Tensor, n_dof: int, i_dof: int) -> "RowShard":
-        """Rank ``i_dof`` of ``n_dof``'s rows of ``full``, split as evenly
-        as n allows, copied in the layout the view ``full[lo:hi]`` has: a
-        row-major inverse's rows are contiguous, a column-major one's (a
-        host splu's solve against the identity) strided, so the copy's
-        product has the view's bits."""
-        n = full.shape[0]
+        """Rank ``i_dof`` of ``n_dof``'s rows of ``full`` (``row_range``),
+        copied in the layout the view ``full[lo:hi]`` has: a row-major
+        entry's rows are contiguous, a column-major one's (a host splu's
+        solve against the identity) strided, so the copy's GEMMs are the
+        view's."""
+        n, m = full.shape
         lo, hi = row_range(n, n_dof, i_dof)
         col_major = full.stride(0) < full.stride(1)
-        rows = torch.empty_strided((hi - lo, n),
-                                   (1, hi - lo) if col_major else (n, 1),
+        rows = torch.empty_strided((hi - lo, m),
+                                   (1, hi - lo) if col_major else (m, 1),
                                    dtype=full.dtype, device=full.device)
         rows.copy_(full[lo:hi])
-        return cls(rows, lo, n, (n_dof, i_dof))
+        return cls(rows, lo, full.shape, (n_dof, i_dof))
 
     @property
     def dtype(self) -> torch.dtype:
         return self.rows.dtype
 
     def bind(self, mesh: Mesh) -> "RowShard":
-        """The same rows, their product reduced over ``mesh``'s dof group
+        """The same rows, their products reduced over ``mesh``'s dof group
         (the same dof layout)."""
-        return RowShard(self.rows, self.lo, self.shape[0], self.dof, mesh)
+        return RowShard(self.rows, self.lo, self.shape, self.dof, mesh)
+
+    def _reduce(self, buf: torch.Tensor) -> torch.Tensor:
+        if self._mesh is None:
+            raise _dof_placed_error(*self.dof)
+        self._mesh.reduce(buf, "dof")
+        return buf
 
     def apply_t(self, x: torch.Tensor) -> torch.Tensor:
         if self._mesh is None:
             raise _dof_placed_error(*self.dof)
         y = x.new_zeros(x.shape[:-1] + (self.shape[0],))
-        y[..., self.lo:self.hi] = torch.matmul(x, self.rows.T)
+        y[..., self.lo:self.hi] = blocked_matmul(x, self.rows, self.lo,
+                                                 self.shape[0])
         RowShard.applies += 1
-        self._mesh.reduce(y, "dof")
-        return y
+        return self._reduce(y)
+
+    def whole(self) -> torch.Tensor:
+        full = self.rows.new_zeros(self.shape)
+        full[self.lo:self.hi] = self.rows
+        return self._reduce(full)
+
+
+def _own_twogrid(od: dict, pack, layout, n_dof: int, i_dof: int) -> dict:
+    """Rank ``i_dof`` of ``n_dof``'s block rows [q0, q1) (``band_range``)
+    of the two-grid: ``mg_band0``'s rows and their window pack (packed from
+    those rows alone), with ``mg_Pt``'s block rows and ``mg_dinv``'s rows
+    [q0 b, min(n, q1 b)), as {key: entry}: a ``TwoGridRows`` under
+    ``mg_band0``, and None under ``mg_Pt`` and ``mg_dinv``, which the
+    placed operator dict drops (the rank's rows of them live in the
+    ``TwoGridRows``)."""
+    band, Pt, dinv = od["mg_band0"], od["mg_Pt"], od["mg_dinv"]
+    nb, b = band.shape[:2]
+    bounds = tuple(band_range(nb, n_dof, j)[0] for j in range(n_dof)) + (nb,)
+    q0, q1 = bounds[i_dof], bounds[i_dof + 1]
+    lo, hi = q0 * b, min(layout.n, q1 * b)
+    band_rows, Pt_rows = band[q0:q1].clone(), Pt[q0:q1].clone()
+    dinv_rows = dinv[lo:hi].clone()
+    part = TwoGridRows(band=band_rows,
+                       pack=pack_band_tiles(band_rows, layout, pack.tile,
+                                            q0=q0),
+                       Pt=Pt_rows, dinv=dinv_rows, bounds=bounds,
+                       rank=i_dof,
+                       unbound=lambda: _dof_placed_error(n_dof, i_dof))
+    return {"mg_band0": part, "mg_Pt": None, "mg_dinv": None}
 
 
 def opdata_shardings(mesh: Mesh, opdata) -> dict:
-    """Placement of each operator-data entry, as a partition spec tuple:
-    ``("dof", None)`` for a dense inverse row-partitioned over the dof
-    axis (``invK64``, ``invK32``, ``mg_Kcinv``; rows split as evenly as n
-    allows: each rank holds and multiplies by its block only), ``()`` for
-    a replicated entry — everything else, ``W64``, ``mg_band0``, ``mg_Pt``
-    and ``mg_dinv`` included (the JAX package partitions those too; the
-    port does not yet)."""
+    """Placement of each operator-data entry, as a partition spec tuple —
+    the JAX package's (its ``opdata_shardings``): ``("dof", None)`` for
+    the rows of a dense inverse (``invK32``, the port's f64 ``invK64``,
+    ``mg_Kcinv``) and of the band basis ``W64``; the block-row axis of the
+    two-grid's ``mg_band0`` and ``mg_Pt`` (``("dof", None, None)``) and
+    its diagonal ``mg_dinv`` (``("dof",)``); ``()`` for a replicated entry
+    (everything else, and everything on a dof axis of 1).  Where the JAX
+    package needs the leading axis to be a multiple of the dof axis (its
+    arrays split into equal parts), the port splits by whole blocks
+    (``row_range``, ``band_range``), so it also places an axis that d does
+    not divide.  A band of fewer block-row groups than ranks raises."""
     nd = mesh.shape["dof"]
+    band = opdata.get("mg_band0")
+    if nd > 1 and band is not None:
+        band_range(band.shape[0], nd, 0)       # raises if it cannot split
 
     def place(key, v):
-        if (nd > 1 and key in _ROW_PARTITIONED and v.ndim == 2
-                and v.shape[0] >= nd):
+        if nd <= 1 or v.ndim == 0 or v.shape[0] <= 1:
+            return ()
+        if key in _ROW_SHARDED_2D and v.ndim == 2:
             return ("dof", None)
+        if band is not None and key in _BLOCK_SHARDED and v.ndim >= 2:
+            return ("dof",) + (None,) * (v.ndim - 1)
+        if band is not None and key == "mg_dinv" and v.ndim == 1:
+            return ("dof",)
         return ()
 
     return {k: place(k, v) for k, v in opdata.items()}
 
 
 def _placed(problem, mesh: Mesh):
-    """(core, opdata with this rank's row blocks bound to the mesh) of
+    """(core, opdata with this rank's shares bound to the mesh) of
     ``problem``, on the mesh's device; built once per (Problem, mesh).
 
-    The first mesh whose dof axis partitions a dense inverse places the
-    Problem (``Problem._place_rows``): each such entry of its operator data
-    becomes this rank's ``RowShard`` and the full matrix is dropped, so the
-    rank keeps n/d rows of it, and the Problem then serves only collective
-    calls on meshes of that dof layout.  A dof-1 mesh, or a Problem without
-    a dense inverse, leaves it untouched; what such a mesh made serves
-    until the Problem is placed.
+    The first mesh whose dof axis partitions an entry places the Problem
+    (``Problem._place_rows``): each dense inverse and ``W64`` becomes this
+    rank's ``RowShard``, the two-grid's band, its K1 pack, P and diagonal
+    this rank's block rows (``_own_twogrid``), and the whole entries are
+    dropped, so the rank keeps its share of each (``opdata_shardings``),
+    and the Problem then serves only collective calls on meshes of that
+    dof layout.  A dof-1 mesh leaves it untouched; what such a mesh made
+    serves until the Problem is placed.
     """
     if mesh.device is not None and not _same_device(problem.device,
                                                     mesh.device):
@@ -325,16 +405,27 @@ def _placed(problem, mesh: Mesh):
                          f"rank on {mesh.device}")
     layout = (mesh.shape["dof"], mesh.coords["dof"])
     specs = opdata_shardings(mesh, problem.operator_data())
-    core, od = problem._place_rows(
-        layout, lambda k, v: RowShard.own(v, *layout) if specs[k] else None)
+
+    def own(od, pack):
+        out = {k: RowShard.own(od[k], *layout) for k in _ROW_SHARDED_2D
+               if specs.get(k)}
+        if specs.get("mg_band0"):
+            out |= _own_twogrid(od, pack, problem._band_layout, *layout)
+        return out
+
+    core, od = problem._place_rows(layout, own)
     hit = mesh._placed.get(id(problem))
     if hit is not None:
         return hit[1:]
-    if any(isinstance(v, RowShard) for v in od.values()):
-        od = {k: v.bind(mesh) if isinstance(v, RowShard) else v
+    if any(isinstance(v, (RowShard, TwoGridRows)) for v in od.values()):
+        def stack(part):
+            return mesh.gather(part, "dof")
+
+        od = {k: v.bind(mesh) if isinstance(v, RowShard)
+              else v.bind(stack) if isinstance(v, TwoGridRows) else v
               for k, v in od.items()}
     # unplaced, the mesh uses the Problem's own dict: a later placement
-    # replaces the inverse there too, and nothing keeps the full matrix
+    # replaces the entries there too, and nothing keeps the whole ones
     mesh._placed[id(problem)] = (problem, core, od)
     return core, od
 

@@ -8,7 +8,7 @@ tests and ``chip_smoke.py`` run: on a plate, for each mesh asked for, the
 sharded FRF, training step and Gauss-Newton steps (twice each, for the
 bits), with each step's wall seconds, collective seconds and kernel
 launches, and what the rank's device holds before and after the mesh
-places its dense inverses; rank r writes ``rank{r}.pt`` into the output
+places its operator data; rank r writes ``rank{r}.pt`` into the output
 directory.
 """
 from __future__ import annotations
@@ -24,8 +24,10 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..ops.dense import blocked_matmul
+from ..ops.mg import TwoGridRows
 from .freq_shard import (
-    _ROW_PARTITIONED, RowShard, _placed, init, make_mesh, row_range,
+    _PARTITIONED, RowShard, _placed, init, make_mesh, row_range,
     shard_frequencies, sharded_fr_function, sharded_gn_step,
     sharded_train_step,
 )
@@ -64,9 +66,12 @@ def spawn(fn, world: int, *args, backend: str | None = None,
 def plate_problem(plate: dict, device):
     """The isotropic steel plate of a spec: ``{"geometry": "symm", "ny":
     1}`` (the JAX tests' strip) or ``{"geometry": "sh_i", "refine": 1.0}``
-    (the bench plate), ``"accel": False`` for the pure-bending path."""
+    (the bench plate), ``"accel": False`` for the pure-bending path;
+    ``"precond"`` and ``"operator_layout"`` are the Problem's (default
+    "auto"), ``"opdata"`` a JAX operator dict of numpy arrays it runs on
+    (``opdata_from_jax``)."""
     from .. import (Accelerometer, Geometry, GeometryParams, Problem,
-                    get_material)
+                    get_material, opdata_from_jax)
 
     acc = Accelerometer("AP1030")
     if plate["geometry"] == "symm":
@@ -78,14 +83,19 @@ def plate_problem(plate: dict, device):
                         GeometryParams(100e-3, 20e-3, 2e-3, None, None),
                         refine=plate.get("refine", 1.0))
     mat = get_material(7920.0, "isotropic", E=200e9, G=75e9, beta=0.003)
+    kw = {k: plate[k] for k in ("precond", "operator_layout") if k in plate}
+    if "opdata" in plate:
+        kw["opdata"] = opdata_from_jax(plate["opdata"], device)
     return Problem(geom, mat, acc if plate.get("accel", True) else None,
-                   device=device)
+                   device=device, **kw)
 
 
 def _launches():
-    """K1's and K3's launches and the dof row blocks' products (K5)."""
+    """K1's launches (on a window pack among them), K3's and the dof row
+    blocks' products (K5)."""
     from ..ops import band_kernel, csr_kernel
     return {"k1": band_kernel.band_mv_f32_cuda.launches,
+            "k1_window": band_kernel.band_mv_f32_cuda.window_launches,
             "k3": csr_kernel.csr_mv_cuda.launches, "k5": RowShard.applies}
 
 
@@ -117,13 +127,45 @@ def _memory(device) -> dict:
             "reserved": torch.cuda.memory_reserved(device)}
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.untyped_storage().nbytes()
+
+
+def _pack_bytes(pack) -> int:
+    return sum(_nbytes(t) for t in (pack.vals, pack.col0, pack.row_ptr))
+
+
 def held_bytes(problem) -> dict:
-    """Bytes of each dense inverse the Problem's operator data holds: the
-    whole matrix, or once placed on a dof mesh this rank's rows."""
+    """Bytes of each entry the dof axis partitions that the Problem's
+    operator data holds, and of the two-grid's K1 pack (``mg_pack``): the
+    whole entry, or once placed on a dof mesh this rank's share."""
     od = problem.operator_data()
-    return {k: (v.rows if isinstance(v, RowShard) else v)
-            .untyped_storage().nbytes()
-            for k, v in od.items() if k in _ROW_PARTITIONED}
+    out = {}
+    for k, v in od.items():
+        if k not in _PARTITIONED:
+            continue
+        if isinstance(v, TwoGridRows):
+            out |= {k: _nbytes(v.band), "mg_pack": _pack_bytes(v.pack),
+                    "mg_Pt": _nbytes(v.Pt), "mg_dinv": _nbytes(v.dinv)}
+        else:
+            out[k] = _nbytes(v.rows if isinstance(v, RowShard) else v)
+    if "mg_band0" in od and "mg_pack" not in out:
+        out["mg_pack"] = _pack_bytes(problem._band_pack)
+    return out
+
+
+def shares(opdata) -> dict:
+    """The shape of each share a placed operator dict holds (the K1
+    window pack's tiles under ``mg_pack``)."""
+    out = {}
+    for k, v in opdata.items():
+        if isinstance(v, TwoGridRows):
+            out |= {k: tuple(v.band.shape), "mg_pack": tuple(
+                v.pack.vals.shape), "mg_Pt": tuple(v.Pt.shape),
+                "mg_dinv": tuple(v.dinv.shape)}
+        elif isinstance(v, RowShard):
+            out[k] = tuple(v.rows.shape)
+    return out
 
 
 def _np(x):
@@ -141,19 +183,19 @@ def _host_gn(p, freqs, ref, theta, mode):
 def row_products(problem, n_dof: int, i_dof: int,
                  lanes: int = VIEW_LANES) -> dict:
     """Each dense inverse's rows of dof rank ``i_dof`` times (lanes, n)
-    rows from a seed, one GEMM as the row block's product forms it: by the
-    view of the whole matrix before placement, by the owned copy after
-    (on the host)."""
+    rows from a seed, as the dense apply forms them (one GEMM an owned
+    block, ``ops.dense.blocked_matmul``): by the views of the whole matrix before
+    placement, by the owned copy after (on the host)."""
     out = {}
     for k, v in problem.operator_data().items():
-        if k not in _ROW_PARTITIONED:
+        if k not in ("invK64", "invK32", "mg_Kcinv"):
             continue
         n = v.shape[0]
-        rows = (v.rows if isinstance(v, RowShard)
-                else v[slice(*row_range(n, n_dof, i_dof))])
+        lo, hi = row_range(n, n_dof, i_dof)
+        rows = v.rows if isinstance(v, RowShard) else v[lo:hi]
         x = torch.as_tensor(np.random.default_rng(0).standard_normal(
             (lanes, n)), dtype=rows.dtype, device=rows.device)
-        out[k] = torch.matmul(x, rows.T).cpu()
+        out[k] = blocked_matmul(x, rows, lo, n).cpu()
     return out
 
 
@@ -174,8 +216,12 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
     refined host splu; ``spec["at_theta"]``: the FRF at theta, not the
     truth.  On a dof mesh, "view_bits" says whether the owned rows'
     product has the bits of the view's before placement (``row_products``
-    at ``VIEW_LANES`` lanes).  ``spec["reference"]`` needs dof-1 meshes: a dof mesh places the Problem's dense inverses, and a
-    placed Problem serves only collective calls.  On the card each mesh's
+    at ``VIEW_LANES`` lanes).  A dof mesh places the Problem's operator
+    data, and a placed Problem serves only collective calls: there
+    ``spec["reference"]`` runs the counterparts once, before the mesh
+    places it (the FRF at the same theta, and of the training and
+    non-chunk Gauss-Newton steps; the reference FRF for the steps is then
+    the unsharded sweep at the truth).  On the card each mesh's
     record holds the device memory before and after placement (and after
     ``empty_cache``), and the rank's the build's peak.  Writes
     ``rank{rank}.pt``."""
@@ -201,27 +247,51 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
             raise ValueError(f"mesh {mesh.shape} in a world of "
                              f"{dist.get_world_size()}, not {shape}")
         rec = {"shape": shape, "coords": mesh.coords, "s": {},
-               "collective_s": {}, "k1": {}, "k3": {}, "k5": {}}
+               "collective_s": {}, "k1": {}, "k1_window": {}, "k3": {},
+               "k5": {}}
         fs = shard_frequencies(mesh, freqs)
         rec["padded"] = _np(fs.padded)
+        steps = spec["steps"]
+        single = spec.get("reference")
+        at = theta if spec.get("at_theta") else truth
+
+        def run(name, fn, keep):
+            rec.setdefault(name, []).append(keep(_timed(mesh, rec, name,
+                                                        fn)))
+
+        def pair(res):
+            return tuple(map(_np, res))
+
+        if single and shape[1] > 1 and getattr(p, "_dof_rows", None) is None:
+            # the whole Problem's counterparts, before the mesh places it
+            if ref is None:
+                ref = _np(p.solveForward(freqs, truth))
+            run("ref_frf", lambda: p.solveForward(freqs, at), _np)
+            if "train" in steps:
+                loss = p.getLossFunction(freqs, ref, "MSE_LOG_AFC")
+                run("ref_train", lambda: loss.value_and_grad(theta), pair)
+            for name in ("gn_adjoint", "gn_fwd"):
+                if name in steps:
+                    run("ref_" + name, lambda: _host_gn(
+                        p, freqs, ref, theta, name[3:]), pair)
         if shape[1] > 1:
+            single = False
             view = row_products(p, shape[1], mesh.coords["dof"])
         gc.collect()    # what earlier meshes left in reference cycles
+        rec["held_whole"] = held_bytes(p)
         rec["memory"] = {"before": _memory(dev)}
         _, od = _placed(p, mesh)
         rec["memory"]["placed"] = _memory(dev)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             rec["memory"]["released"] = _memory(dev)
-        rec["shards"] = {k: tuple(v.rows.shape) for k, v in od.items()
-                         if isinstance(v, RowShard)}
+        rec["shards"] = shares(od)
         rec["held"] = held_bytes(p)
         if shape[1] > 1:
             own = row_products(p, shape[1], mesh.coords["dof"])
             rec["view_bits"] = {k: torch.equal(own[k], view[k])
                                 for k in view}
             del view, own
-        steps = spec["steps"]
         fn = sharded_fr_function(p, mesh)
         train = sharded_train_step(p, mesh)
         chunk = spec.get("chunk", 1)
@@ -231,16 +301,6 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
                                            freq_chunk=chunk),
                "gn_fwd_chunk": sharded_gn_step(p, mesh, jac_mode="fwd",
                                                freq_chunk=chunk)}
-        single = spec.get("reference")
-
-        def run(name, fn, keep):
-            rec.setdefault(name, []).append(keep(_timed(mesh, rec, name,
-                                                        fn)))
-
-        def pair(res):
-            return tuple(map(_np, res))
-
-        at = theta if spec.get("at_theta") else truth
         for i in range(spec.get("repeats", 2)):
             run("frf", lambda: fn(fs, at), _np)
             if ref is None:

@@ -1,14 +1,17 @@
 """The dof axis's ownership of the dense inverses' rows
 (plate_inverse_problem_tpu_torch/parallel/freq_shard.py) on the CPU.
 
-A rank of a dof group keeps only its n/d rows of each dense inverse
-(``invK64``, the JAX package's ``invK32``, ``mg_Kcinv``): placement copies
-them in the full matrix's layout and drops the full matrix, whose product
-by a row block therefore keeps its bits, and the placed Problem serves
-only collective calls.  The plate is the parallel tests' ``symm`` ny = 1
-(n = 420, flat + dense), one fresh Problem a placement; the meshes are
-in-process ``Mesh`` objects without a process group, whose all_reduce is
-a no-op, so a rank's product here is its column block alone.
+A rank of a dof group keeps only its rows of each dense inverse
+(``invK64``, the JAX package's ``invK32``, ``mg_Kcinv``) and of the band
+basis ``W64``: whole blocks of ``ops.dense.fixed_blocks`` (``row_range``),
+copied in the full matrix's layout, the full matrix dropped.  The dense
+apply multiplies by those blocks one GEMM each, whole or owned, so an
+owned block's product keeps the whole apply's bits, and the placed
+Problem serves only collective calls.  The plate is the parallel tests'
+``symm`` ny = 1 (n = 420, flat + dense), one fresh Problem a placement;
+the meshes are in-process ``Mesh`` objects without a process group, whose
+all_reduce is a no-op, so a rank's product here is its column blocks
+alone.
 """
 import gc
 import weakref
@@ -19,12 +22,13 @@ import torch
 
 import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu_torch.diagnostics.oracle import polish_peaks
-from plate_inverse_problem_tpu_torch.ops.dense import dense_apply
+from plate_inverse_problem_tpu_torch.ops.dense import (
+    blocked_matmul, dense_apply)
 from plate_inverse_problem_tpu_torch.parallel import (
     Mesh, make_mesh, opdata_shardings, shard_frequencies, sharded_fr_function)
 from plate_inverse_problem_tpu_torch.parallel import ranks
 from plate_inverse_problem_tpu_torch.parallel.freq_shard import (
-    RowShard, _placed)
+    RowShard, _placed, row_range)
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PLATE = {"geometry": "symm", "ny": 1}
@@ -46,65 +50,76 @@ def _x(n, dtype=torch.float64, lanes=5):
 @pytest.mark.parametrize("rank", [0, 1])
 def test_rank_owns_only_its_rows(rank):
     """On a (freq 1, dof 2) mesh the Problem's operator data holds this
-    rank's (hi - lo) x n block of invK64 and nothing of the rest: the full
-    matrix is unreachable once placed (the getFRCore memo, the
-    getFRFunction memo and its opdata, the meshes' records, a dof-1
-    mesh's function made before, which then raises)."""
+    rank's (hi - lo) x n block of invK64 (whole blocks of fixed_blocks)
+    and its rows of W64, and nothing of the rest: the full matrices are
+    unreachable once placed (the getFRCore memo, the getFRFunction memo
+    and its opdata, the meshes' records, a dof-1 mesh's function made
+    before, which then raises)."""
     p = _problem()
     fn = p.getFRFunction()
     od = p.getFRCore()[1]
     assert fn.opdata is od
     n = p.n_free
+    m = od["W64"].shape[1]
     full = weakref.ref(od["invK64"])
+    full_w = weakref.ref(od["W64"])
     world1 = make_mesh()
     fn1 = sharded_fr_function(p, world1)
     mesh = Mesh(1, 2, rank, None, {})
     _, placed = _placed(p, mesh)
     gc.collect()
-    assert full() is None
+    assert full() is None and full_w() is None
     with pytest.raises(ValueError, match="dof mesh"):
         fn1(shard_frequencies(world1, FREQS), p.parameters)
-    lo, hi = rank * n // 2, (rank + 1) * n // 2
+    lo, hi = row_range(n, 2, rank)
+    assert (lo, hi) == ((0, 192), (192, 420))[rank]
     for shard in (od["invK64"], fn.opdata["invK64"], placed["invK64"]):
         assert isinstance(shard, RowShard)
         assert (shard.lo, shard.hi, shard.shape) == (lo, hi, (n, n))
         assert shard.rows.untyped_storage().nbytes() == (hi - lo) * n * 8
     assert placed["invK64"].rows is od["invK64"].rows
-    assert ranks.held_bytes(p) == {"invK64": (hi - lo) * n * 8}
+    assert (od["W64"].lo, od["W64"].hi, od["W64"].shape) == (lo, hi, (n, m))
+    assert ranks.held_bytes(p) == {"invK64": (hi - lo) * n * 8,
+                                   "W64": (hi - lo) * m * 8}
     assert opdata_shardings(mesh, od)["invK64"] == ("dof", None)
+    assert opdata_shardings(mesh, od)["W64"] == ("dof", None)
     assert _placed(p, mesh)[1] is placed
 
 
-@pytest.mark.parametrize("layout", ["problem", "row_major"])
+@pytest.mark.parametrize("layout", ["problem", "row_major", "col_major"])
 def test_owned_block_product_has_view_bits(layout):
-    """The owned block's product is the product by the view of the full
-    matrix's rows bit for bit: the Problem's own inverse (column-major, as
-    the LU inverse comes) and a row-major one."""
+    """The owned blocks' product is the product by the views of the full
+    matrix's blocks bit for bit, and the ranks' blocks added as the dof
+    group's all_reduce adds them are ``dense_apply``'s whole product bit
+    for bit: the Problem's own inverse (row-major, ``inv_refined``), a
+    row-major one and a column-major one (as a host splu's solve against
+    the identity comes)."""
+    rng = np.random.default_rng(3)
     if layout == "problem":
         p = _problem()
         full = p.getFRCore()[1]["invK64"]
-    else:
-        rng = np.random.default_rng(3)
+        assert full.is_contiguous()
+    elif layout == "row_major":
         full = torch.as_tensor(rng.standard_normal((301, 301)))
         assert full.is_contiguous()
+    else:
+        full = torch.as_tensor(np.asfortranarray(
+            rng.standard_normal((301, 301))))
+        assert full.stride() == (1, 301)
     n = full.shape[0]
     x = _x(n)
+    ys = []
     for rank in range(2):
-        lo, hi = rank * n // 2, (rank + 1) * n // 2
-        view = torch.matmul(x, full[lo:hi].T)
+        lo, hi = row_range(n, 2, rank)
+        view = blocked_matmul(x, full[lo:hi], lo, n)
         shard = RowShard.own(full, 2, rank)
         assert shard.rows.stride() == (
             (1, hi - lo) if full.stride(0) == 1 else (n, 1))
         y = shard.bind(Mesh(1, 2, rank, None, {})).apply_t(x)
         assert torch.equal(y[:, lo:hi], view)
         assert not y[:, :lo].any() and not y[:, hi:].any()
-    if layout == "problem":
-        # the two ranks' blocks, added as the dof group's all_reduce adds
-        # them, give the whole product
-        ys = [RowShard.own(full, 2, r).bind(Mesh(1, 2, r, None, {}))
-              .apply_t(x) for r in range(2)]
-        torch.testing.assert_close(ys[0] + ys[1], x @ full.T, rtol=1e-14,
-                                   atol=0.0)
+        ys.append(y)
+    assert torch.equal(ys[0] + ys[1], dense_apply(full, x))
 
 
 def test_unsharded_calls_raise_before_any_product():
@@ -221,13 +236,16 @@ def test_jax_invK32_and_coarse_inverse_are_placed():
     _, placed = _placed(p, mesh)
     for k, m in (("invK32", n), ("mg_Kcinv", 138)):
         shard = placed[k]
-        lo, hi = m // 2, m
+        lo, hi = row_range(m, 2, 1)
+        assert hi == m and lo == (192, 64)[k == "mg_Kcinv"]
         assert shard.dtype == torch.float32 and (shard.lo, shard.hi) == (
             lo, hi)
         assert shard.rows.untyped_storage().nbytes() == (hi - lo) * m * 4
         x = _x(m)
-        view = torch.matmul(x.to(torch.float32), full[k][lo:hi].T)
         y = dense_apply(shard, x)
-        assert y.dtype == torch.float32 and torch.equal(y[:, lo:hi], view)
-    assert ranks.held_bytes(p) == {"invK32": (n - n // 2) * n * 4,
-                                   "mg_Kcinv": 69 * 138 * 4}
+        assert y.dtype == torch.float32
+        assert torch.equal(y[:, lo:hi], dense_apply(full[k], x)[:, lo:hi])
+    m_w = od["W64"].shape[1]
+    assert ranks.held_bytes(p) == {"invK32": (n - 192) * n * 4,
+                                   "mg_Kcinv": (138 - 64) * 138 * 4,
+                                   "W64": (n - 192) * m_w * 8}

@@ -38,6 +38,7 @@ from plate_inverse_problem_tpu_torch.parallel import (
     Mesh, make_mesh, opdata_shardings, shard_frequencies, sharded_fr_function,
     sharded_gn_step, sharded_train_step)
 from plate_inverse_problem_tpu_torch.parallel import ranks
+from plate_inverse_problem_tpu_torch.parallel.freq_shard import row_range
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PLATE = {"geometry": "symm", "ny": 1}
@@ -202,15 +203,19 @@ def test_gn_segmented_matches_unsegmented(world3):
 
 
 def test_dof_mesh_partitions_inverse(world4, single):
-    """On the (freq 2, dof 2) mesh each rank owns n/2 rows of invK64 (its
-    Problem's operator data holds those rows' bytes and no more); the FRF
-    meets the single-process sweep to 1e-7, the loss, gradient and
-    Gauss-Newton update to the freq mesh's bounds."""
+    """On the (freq 2, dof 2) mesh each rank owns its rows of invK64 and
+    W64 (whole blocks of ``fixed_blocks``, ``row_range``: its Problem's
+    operator data holds those rows' bytes and no more); the FRF meets the
+    single-process sweep to 1e-7, the loss, gradient and Gauss-Newton
+    update to the freq mesh's bounds."""
     n = single["p"].n_free
+    mw = single["p"].getFRCore()[1]["W64"].shape[1]
     v, g = single["loss"]
     for m in _mesh(world4):
-        assert m["shards"] == {"invK64": (n // 2, n)}
-        assert m["held"] == {"invK64": (n // 2) * n * 8}
+        lo, hi = row_range(n, 2, m["coords"]["dof"])
+        assert m["shards"] == {"invK64": (hi - lo, n), "W64": (hi - lo, mw)}
+        assert m["held"] == {"invK64": (hi - lo) * n * 8,
+                             "W64": (hi - lo) * mw * 8}
         assert m["view_bits"] == {"invK64": True}
         assert _rel(m["frf"][0][:FREQS.size], single["frf"]) <= 1e-7
         loss, grad, _ = m["train"][0]
@@ -257,12 +262,12 @@ def test_matches_jax_single_device(world3, single, jax_ref):
 
 
 def test_opdata_shardings_match_jax_specs(single):
-    """The port's placement of the dense inverses against the JAX
-    ``opdata_shardings`` on the conftest's 8 virtual devices as a (4, 2)
-    mesh, on one operator dict under the JAX package's names (its f32
-    ``invK32`` and the two-grid's ``mg_Kcinv``) beside the port's f64
-    ``invK64``; the band panel W64, which JAX partitions too, the port
-    keeps replicated."""
+    """The port's placement against the JAX ``opdata_shardings`` on the
+    conftest's 8 virtual devices as a (4, 2) mesh, on one operator dict
+    under the JAX package's names (its f32 ``invK32``, the band panel
+    ``W64``, the two-grid's ``mg_band0``, ``mg_Pt``, ``mg_dinv`` and
+    ``mg_Kcinv``, at the n = 1466 two-grid plate's shapes) beside the
+    port's f64 ``invK64``: every entry's spec is the JAX package's."""
     from jax.sharding import PartitionSpec as P
 
     from plate_inverse_problem_tpu.parallel import make_mesh as jmake_mesh
@@ -273,16 +278,28 @@ def test_opdata_shardings_match_jax_specs(single):
     n = single["p"].n_free
     jod = {k: np.zeros(v.shape, np.float32) for k, v in od.items()}
     jod |= {"invK32": np.zeros((n, n), np.float32),
-            "mg_Kcinv": np.zeros((138, 138), np.float32)}
+            "mg_Kcinv": np.zeros((138, 138), np.float32),
+            "mg_band0": np.zeros((6, 256, 768), np.float32),
+            "mg_Pt": np.zeros((6, 256, 384), np.float32),
+            "mg_dinv": np.zeros(1466, np.float32)}
     jspec = jshardings(jmake_mesh(8, dof_axis=2), jod)
     spec = opdata_shardings(Mesh(4, 2, 0, None, {}), jod)
     for k in ("invK32", "mg_Kcinv"):
         assert jspec[k].spec == P("dof", None)
         assert spec[k] == tuple(jspec[k].spec)
     assert spec["invK64"] == tuple(jspec["invK32"].spec)
-    assert jspec["W64"].spec == P("dof", None) and spec["W64"] == ()
-    owned = ("invK64", "invK32", "mg_Kcinv")
+    assert jspec["W64"].spec == P("dof", None)
+    assert spec["W64"] == tuple(jspec["W64"].spec)
+    for k in ("mg_band0", "mg_Pt"):
+        assert jspec[k].spec == P("dof", None, None)
+        assert spec[k] == tuple(jspec[k].spec)
+    assert jspec["mg_dinv"].spec == P("dof")
+    assert spec["mg_dinv"] == tuple(jspec["mg_dinv"].spec)
+    owned = ("invK64", "invK32", "mg_Kcinv", "W64", "mg_band0", "mg_Pt",
+             "mg_dinv")
     assert all(s == () for k, s in spec.items() if k not in owned)
+    assert all(s == tuple(jspec[k].spec) for k, s in spec.items()
+               if k != "invK64")
     assert all(s == () for s in opdata_shardings(make_mesh(), jod).values())
 
 
