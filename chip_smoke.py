@@ -167,8 +167,12 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    (``[slice11]``): (a) K3 on a synthetic pattern whose rows reach
    300-3000 distinct columns (LONG_N rows, every LONG_EVERY-th a long row:
    the long-row kernel beside each tile kernel) against its plain version
-   (LONG_TOL in f64), two launches bit for bit, timed beside its bound and
-   ``torch.sparse.mm``; (b) ``diagnostics.polish_peaks`` at the bench
+   (LONG_TOL in f64, CSR_TOL in f32), two launches bit for bit, timed
+   beside its bound and ``torch.sparse.mm``, its tiles' and long rows'
+   launches also alone, and with ``--ab-csr`` an earlier kernel's (its
+   bits on every row but the long ones); then the sparse API's ``matvec``
+   on the same pattern through the long-row kernel (LONG_TOL, two calls
+   bit for bit); (b) ``diagnostics.polish_peaks`` at the bench
    plate and on phase 2's 21k Problem at theta = truth x POLISH_SCALE: the
    peak against the refined splu before and after (ORACLE_TOL after), K3
    launches in both and K1 at 21k, and JAX tests/test_diagnostics.py's
@@ -220,7 +224,12 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    the single-process one (SHARD_TOL), K1 ran on the window packs alone.
    Every dof-2 FRF of (b), (c), (e) and (f) must be the unsharded sweep's
    bits on both ranks (ref_: the counterparts a rank runs before its mesh
-   places the Problem); (d)
+   places the Problem); (g) the bench plate's two-grid (``precond="mg"``,
+   the band layout: 6 block-row groups) on DOF_WIDE gloo ranks of the
+   card as (freq 1, dof DOF_WIDE), a dof axis wider than the band's
+   groups: every rank keeps the band, P, the diagonal and the K1 pack
+   whole (the JAX package's placement), its FRF at DOF_WIDE_FREQ points
+   the unsharded sweep's bits, K1 on the whole pack in every rank; (d)
    ``python -m plate_inverse_problem_tpu_torch.parallel``'s workflow on
    the modal engine with device "cuda", in the NCCL rank (torchrun's
    path) and in this process (the plain run's), against the JAX
@@ -235,12 +244,14 @@ Run from the repository root:  python3 chip_smoke.py
 (``--ab SOURCE``, repeatable, also builds another version of K1, with the
 earlier dense-band or the packed C interface, and times it beside the
 kernel in the tree, in turns; ``--ab-csr SOURCE`` does the same for K3
-with the first cut's C interface or the tiled one before the long rows
-(commit 499a5fc), at every phase 9 (a) case, and requires its bits to be
-the kernel's.)
+with the first cut's C interface, the tiled one before the long rows
+(commit 499a5fc) or the one with the first long-row kernel (commit
+6a96d88), at every phase 9 (a) and 13 (a) case, and requires its bits to
+be the kernel's on every row but the long ones.)
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -431,13 +442,18 @@ SPARSE_MV_TOL = 1e-14
 # phase 12 (d): the lane counts of K3 on the 21k chain's P and P^T
 RECT_LANES = (1, 16, 1024)
 # phase 13 (a): the synthetic long-row pattern (rows, every how many rows a
-# long one, its distinct columns) and K3's bound against its plain version
-# there, of max |y| (a long row's 300-3000 terms in a tree against the
-# scatter's order)
+# long one, its distinct columns), K3's bound against its plain version
+# there, of max |y| (a long row's 300-3000 terms k ascending, or in
+# segments of 128 below 32 lanes, against the scatter's order), and its
+# cases (S, L, dtype, label)
 LONG_N = 16384
 LONG_EVERY = 64
 LONG_COLS = (300, 3000)
 LONG_TOL = 1e-14
+LONG_CASES = ((2, 1024, "f64", "long rows S=2 L=1024 (wide + long)"),
+              (2, 16, "f64", "long rows S=2 L=16 (narrow + long)"),
+              (32, 1, "f64", "long rows S=32 L=1 (one lane + long)"),
+              (1, 1024, "f32", "long rows f32 S=1 L=1024"))
 # phase 13 (b): theta / truth of the polish (JAX tests/test_diagnostics.py)
 POLISH_SCALE = (1.1, 0.9, 1.2)
 # phase 13 (d): the expansion against the sweep (the JAX test's bound, 48
@@ -459,6 +475,11 @@ DOF_FRF_TOL = 1e-7
 # ranks of one card (fewer than N_FREQ: a dof rank's cycle gathers its
 # rows through the host, PERF.md section 6)
 DOF_TG_FREQ = 128
+# phase 14 (g): a dof axis wider than the bench band's block-row groups (6
+# at nb = 6: the two-grid stays whole on every rank), its ranks (gloo, one
+# card) and points
+DOF_WIDE = 8
+DOF_WIDE_FREQ = 64
 # phase 14 (b), and (a) on several cards: the Gauss-Newton update of lanes
 # solved in other batches (the ranks' shares, or the dense preconditioner's
 # GEMM in column blocks) against the whole batch's, relative.  The update
@@ -515,10 +536,11 @@ def ptxas_summary(report: str) -> list[str]:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"ILi(\d+)ELb(\d)E", line)
-            k = re.search(r"(csr_mv_\w+?_kernel)I(\w)(?:Li(\d+)E)?", line)
+            k = re.search(r"(csr_mv_\w+?_kernel)I(\w)(?:Li(\d+)E)?"
+                          r"(?:Li(\d+)E)?", line)
             name = (f"<S={m[1]}, vec={m[2]}>" if m else
-                    f"{k[1]}<{k[2]}{', ' + k[3] if k[3] else ''}>" if k
-                    else "kernel")
+                    f"{k[1]}<" + ", ".join(a for a in k.groups()[1:] if a)
+                    + ">" if k else "kernel")
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -711,7 +733,8 @@ def compare_windows(pack, band, x, layout) -> dict:
     rows alone) against the plain version on the same window (KERNEL_TOL)
     and against the whole pack's launch: the rank's rows must be the whole
     apply's bits.  Times rank 0's window launch at d = 2 beside its plain
-    version."""
+    version and the library call on the window (one ``torch.matmul``), in
+    turns, with its byte bound."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops.band_kernel import (
@@ -736,16 +759,50 @@ def compare_windows(pack, band, x, layout) -> dict:
                    "tiles": pk.vals.shape[0], "rel_err": rel,
                    "whole_bits": bits}
             if d == 2 and i == 0:
-                rec["ms"] = time_ms(lambda: band_mv_f32_cuda(pk, xw,
-                                                             layout))[0]
-                rec["plain_ms"] = time_ms(lambda: band_mv_f32_reference(
-                    pk, xw, layout))[0]
+                # the library call on the window: one torch.matmul of the
+                # rank's band rows on x's zero-padded window (the port
+                # never calls it), held to the plain version, in turns
+                nq, b, B = q1 - q0, layout.b, x.shape[0]
+                xp = torch.zeros(B, (nq + 2) * b, device=x.device)
+                xp[:, xlo - (q0 - 1) * b:xhi - (q0 - 1) * b] = xw
+                band_t = band[q0:q1].transpose(-1, -2)
+
+                def lib():
+                    return torch.matmul(xp.as_strided(
+                        (nq, B, 3 * b), (b, (nq + 2) * b, 1)), band_t)
+                y_lib = lib().permute(1, 0, 2).reshape(B, -1)[:, :hi - lo]
+                rec["library_rel_err"] = float(
+                    (y_lib - y_ref).abs().max()) / scale
+                if not rec["library_rel_err"] <= KERNEL_TOL:
+                    failed.append(f"window d={d} rank {i}: the library "
+                                  f"call's rel {rec['library_rel_err']:.3e}")
+                fns = {"ms": lambda: band_mv_f32_cuda(pk, xw, layout),
+                       "plain_ms": lambda: band_mv_f32_reference(
+                           pk, xw, layout),
+                       "library_ms": lib}
+                times = {k: [] for k in fns}
+                for k in list(fns) + list(fns)[::-1]:
+                    times[k].append(time_ms(fns[k])[0])
+                rec |= {k: float(np.mean(v)) for k, v in times.items()}
+                # least time: the window's nonzeros with a 4-byte index
+                # each, its x window read and its rows of y written once
+                nz = int((pk.vals != 0).sum())
+                t_bytes = (8.0 * nz + 4.0 * B * ((xhi - xlo) + (hi - lo))
+                           ) / HBM_BPS
+                t_ops = 2.0 * nz * B / F32_FLOPS
+                rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+                rec["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                   else "operations")
             out["ranks"].append(rec)
             print(f"[kernel] window d={d} rank {i}: block rows [{q0}, {q1}) "
                   f"of {layout.nb}, rows [{lo}, {hi}), x [{xlo}, {xhi}), "
                   f"{rec['tiles']} tiles, B={x.shape[0]}: rel {rel:.3e} vs "
                   f"plain, the whole launch's bits {bits}"
-                  + (f"; {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms"
+                  + (f"; {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms,"
+                     f" library (torch.matmul) {rec['library_ms']:.4f} ms "
+                     f"(rel {rec['library_rel_err']:.1e}), bound "
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel "
+                     f"at {100 * rec['bound_ms'] / rec['ms']:.1f} % of it"
                      if "ms" in rec else ""), flush=True)
             if not rel <= KERNEL_TOL:
                 failed.append(f"window d={d} rank {i}: rel {rel:.3e}")
@@ -1344,10 +1401,11 @@ def main() -> int:
                          "repeated")
     ap.add_argument("--ab-csr", metavar="SOURCE", action="append",
                     default=[],
-                    help="also build this version of K3 (the first cut's C "
+                    help="also build this version of K3 (an earlier C "
                          "interface) and time it beside the kernel in the "
-                         "tree at every phase 9 (a) case, in turns, "
-                         "requiring the same bits; may be repeated")
+                         "tree at every phase 9 (a) and 13 (a) case, in "
+                         "turns, requiring the same bits but on long rows; "
+                         "may be repeated")
     args = ap.parse_args()
 
     # ---- 1. the card ------------------------------------------------------
@@ -1513,7 +1571,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     print(f"[time] phase 12 in {s10_s:.1f} s", flush=True)
     t13 = time.perf_counter()
     try:
-        s11 = slice11(dev, p, freqs, fr)
+        s11 = slice11(dev, p, freqs, fr, ab_csr)
     except AssertionError as err:
         failed.append(str(err))
     s11_s = time.perf_counter() - t13
@@ -1619,7 +1677,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
             "label", "n", "nnz", "n_long", "S", "L", "dtype", "max_abs_err",
             "rel_err", "ms", "flushed_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "long_launches")}
-            for r in s11["long_rows"]],
+            for r in s11["long_rows"]["cases"]],
         **{k: s6["k3"]["headline"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -2242,8 +2300,9 @@ def pure_bending(dev) -> dict:
 
 def csr_bound_ms(csr, S: int, L: int, itemsize: int) -> tuple[float, str]:
     """Least time of S operators on the pattern applied to L lanes on an
-    H100 SXM: the S x nnz values, the plan's index bytes (a one-byte slot a
-    nonzero, the tiles' row and column lists, ``rowptr``), x read once and
+    H100 SXM: the S x nnz values, the plan's index bytes (``plan_bytes``: a
+    one-byte slot a nonzero, the tiles' row and column lists, ``rowptr``,
+    ``perm``, a 4-byte column a long row's entry), x read once and
     y written once, at HBM_BPS, against 2 FLOP a nonzero, operator and lane
     at the CUDA cores' f64 (F64_FLOPS) or f32 (F32_FLOPS) rate.  x has
     ``csr.n_cols`` columns and y ``csr.n`` rows (a rectangular P or P^T
@@ -2259,13 +2318,19 @@ def csr_bound_ms(csr, S: int, L: int, itemsize: int) -> tuple[float, str]:
 def load_ab_csr(source: str):
     """Build another version of K3 from ``source``, for an A/B beside the
     kernel in the tree (it is not part of the port), and return (name,
-    run), ``run(data, x, csr) -> y``.  Two C interfaces are taken: the
+    run), ``run(data, x, csr) -> y``.  Three C interfaces are taken: the
     first cut's ``csr_mv_f64_launch`` / ``csr_mv_f32_launch(data, rowptr,
     col, xt, y, S, L, n, nnz, stream)``, x transposed to (n, L) by a copy
-    (commit 1a1f122), and the tiled kernels' ``csr_mv_{l1,narrow,wide}_
+    (commit 1a1f122); the tiled kernels' ``csr_mv_{l1,narrow,wide}_
     {f64,f32}`` on the plan as ``build_csr`` makes it, before the long
-    rows' argument was added (commit 499a5fc); the latter on a pattern
-    without long rows only."""
+    rows' argument was added (commit 499a5fc; on a pattern without long
+    rows only); and the same with that argument and the first long-row
+    kernel, ``csr_mv_long_{f64,f32}(data, rowptr, col, perm, long_rows,
+    n_long, x, sxl, sxc, y, S, L, n, nnz, stream)`` (commit 6a96d88), its
+    one-lane kernel given the plan's staging bound of then (a block with a
+    long row unstaged).  With long rows, ``run.parts(data, x, csr, y)``
+    is [(part, launch)] of its tile and long-row launches, for timing
+    each alone."""
     import ctypes
 
     import torch
@@ -2273,6 +2338,9 @@ def load_ab_csr(source: str):
     from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
 
     name = os.path.splitext(os.path.basename(source))[0]
+    with open(source) as f:
+        if "LongPlan" in f.read():
+            raise ValueError(f"{source} has the tree's own interface")
     lib_path = os.path.join(band_kernel.BUILD_DIR, f"libab_csr_{name}.so")
     os.makedirs(band_kernel.BUILD_DIR, exist_ok=True)
     res = subprocess.run([band_kernel._nvcc(), *band_kernel.NVCC_FLAGS,
@@ -2282,6 +2350,7 @@ def load_ab_csr(source: str):
         raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
     lib = ctypes.CDLL(lib_path)
     tiled = hasattr(lib, "csr_mv_wide_f64")
+    with_long = hasattr(lib, "csr_mv_long_f64")
     fns = {}
     for dt, tdt in (("f64", torch.float64), ("f32", torch.float32)):
         if tiled:
@@ -2290,9 +2359,18 @@ def load_ab_csr(source: str):
                 fn.argtypes = [ctypes.c_void_p] * 11 \
                     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
                     + [ctypes.c_int] * 3 + [ctypes.c_longlong] \
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    + [ctypes.c_int] * (6 if with_long else 5) \
+                    + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
                 fns[tdt, regime] = fn
+            if with_long:
+                fn = getattr(lib, f"csr_mv_long_{dt}")
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] \
+                    + [ctypes.c_void_p] + [ctypes.c_longlong] * 2 \
+                    + [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+                    + [ctypes.c_longlong, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                fns[tdt, "long"] = fn
         else:
             fn = getattr(lib, f"csr_mv_{dt}_launch")
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
@@ -2300,25 +2378,63 @@ def load_ab_csr(source: str):
             fn.restype = ctypes.c_int
             fns[tdt] = fn
 
-    def run_tiled(data, x, csr):
+    bounds = {}
+
+    def old_block_nnz(csr):
+        # the staging bound of the plan of then: blocks with a long row
+        # left out (they read their entries from global memory); once a
+        # plan, on its first call (outside the timed runs)
+        if id(csr) not in bounds:
+            rowptr = csr.rowptr.cpu().numpy().astype(np.int64)
+            starts = np.arange(0, csr.n, ck.L1_ROWS)
+            runs = (rowptr[np.minimum(starts + ck.L1_ROWS, csr.n)]
+                    - rowptr[starts])
+            runs[csr.long_rows.cpu().numpy() // ck.L1_ROWS] = 0
+            bounds[id(csr)] = (csr, min(int(runs.max()) if csr.n else 0,
+                                        232448 // 12))
+        return bounds[id(csr)][1]
+
+    def parts(data, x, csr, y):
+        S, n = data.shape[0], csr.n
+        L = x.numel() // csr.n_cols
+        d = data.contiguous()
+        x2 = x.reshape(L, csr.n_cols)
+        perm = 0 if csr.perm is None else csr.perm.data_ptr()
+        out = []
+        if csr.n_tiles:
+            fn = fns[x.dtype, ck.regime(L)]
+            args = (d.data_ptr(), csr.tile_ptr.data_ptr(),
+                    csr.tile_rows.data_ptr(), csr.col_ptr.data_ptr(),
+                    csr.tile_cols.data_ptr(), csr.slot.data_ptr(),
+                    csr.row_off.data_ptr(), csr.rowptr.data_ptr(),
+                    csr.col.data_ptr(), perm, x2.data_ptr(), *x2.stride(),
+                    y.data_ptr(), S, L, n, csr.nnz, csr.n_tiles,
+                    csr.max_rows, csr.max_cols, csr.max_nnz,
+                    old_block_nnz(csr) if with_long else csr.max_block_nnz,
+                    *((csr.n_long,) if with_long else ()))
+            out.append(("tile", fn, args))
         if csr.n_long:
-            raise ValueError(f"{source} predates K3's long rows")
+            if not with_long:
+                raise ValueError(f"{source} predates K3's long rows")
+            args = (d.data_ptr(), csr.rowptr.data_ptr(), csr.col.data_ptr(),
+                    perm, csr.long_rows.data_ptr(), csr.n_long,
+                    x2.data_ptr(), *x2.stride(), y.data_ptr(), S, L, n,
+                    csr.nnz)
+            out.append(("long", fns[x.dtype, "long"], args))
+
+        def call(fn, args, keep=(d, x2)):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if rc < 0:
+                raise RuntimeError(f"{source}: cudaError {-rc}")
+        return [(part, functools.partial(call, fn, args))
+                for part, fn, args in out]
+
+    def run_tiled(data, x, csr):
         S, n = data.shape[0], csr.n
         L = x.numel() // csr.n_cols
         y = torch.empty((S, L, n), dtype=x.dtype, device=x.device)
-        x2 = x.reshape(L, csr.n_cols)
-        rc = fns[x.dtype, ck.regime(L)](
-            data.contiguous().data_ptr(), csr.tile_ptr.data_ptr(),
-            csr.tile_rows.data_ptr(), csr.col_ptr.data_ptr(),
-            csr.tile_cols.data_ptr(), csr.slot.data_ptr(),
-            csr.row_off.data_ptr(), csr.rowptr.data_ptr(),
-            csr.col.data_ptr(),
-            0 if csr.perm is None else csr.perm.data_ptr(), x2.data_ptr(),
-            *x2.stride(), y.data_ptr(), S, L, n, csr.nnz, csr.n_tiles,
-            csr.max_rows, csr.max_cols, csr.max_nnz, csr.max_block_nnz,
-            torch.cuda.current_stream().cuda_stream)
-        if rc < 0:
-            raise RuntimeError(f"{source}: cudaError {-rc}")
+        for _, launch in parts(data, x, csr, y):
+            launch()
         return y
 
     def run(data, x, csr):
@@ -2335,7 +2451,10 @@ def load_ab_csr(source: str):
             raise RuntimeError(f"{source}: cudaError {-rc}")
         return y
 
-    return name, run_tiled if tiled else run
+    if tiled:
+        run_tiled.parts = parts
+        return name, run_tiled
+    return name, run
 
 
 def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
@@ -2344,14 +2463,19 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
     """K3 vs its plain version on random data (S, nnz) and x (L, n) from a
     numpy seed (x = 1 with ``ones``, the panels' row sums) on the pattern
     ``csr``; two launches must agree bit for bit, and so must the A/B
-    kernels ``ab`` ((name, run) pairs, the first cut's).  Device times of
+    kernels ``ab`` ((name, run) pairs, the first cut's) on every row but
+    the long ones (an A/B kernel may sum those in another order: their
+    largest difference is printed).  Device times of
     the kernel (the wrapper's whole call; for the wide kernel also on x
     transposed by a copy, ``nl_ms``, the copy included), the plain
     version, the library call (one
     ``torch.sparse.mm`` of the S operators stacked as one (S n, n) CSR
     matrix on x^T, given x^T) and the A/B kernels, in turns; the kernel
-    also with the L2 flushed.  ``tol``: the bound against the plain
-    version, of max |y| (None: CSR_TOL)."""
+    also with the L2 flushed.  Where the plan has long rows, the tiles'
+    launch and the long rows' launch are also timed alone (``tile_ms``,
+    ``long_ms``; called directly, not counted), and so are an A/B
+    kernel's where it has the parts.  ``tol``: the bound against the
+    plain version, of max |y| (None: CSR_TOL)."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
@@ -2395,10 +2519,29 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
         variants["nl_ms"] = lambda: ck.csr_mv_cuda(
             data, x.t().contiguous().t(), csr)
         same = same and bool(torch.equal(y, variants["nl_ms"]()))
-    ab_same = {}
+    ab_same, ab_long = {}, {}
+    short = torch.ones(n, dtype=torch.bool, device=dev)
+    short[csr.long_rows.long()] = False
     for name, fn in ab:
-        ab_same[name] = bool(torch.equal(y, fn(data, x, csr)))
+        y_ab = fn(data, x, csr)
+        ab_same[name] = bool(torch.equal(y[..., short], y_ab[..., short]))
+        if csr.n_long:
+            ab_long[name] = float((y_ab - y).abs().max()) / scale
         variants[f"{name}_ms"] = (lambda fn=fn: fn(data, x, csr))
+    if csr.n_long:
+        # each launch alone, on the wrapper's arguments, into one y
+        y_p = torch.empty_like(y)
+        d_c = data.contiguous()
+        x2 = x.reshape(L, n_cols)
+        stream = torch.cuda.current_stream().cuda_stream
+        for part, fn, args, keep in ck.launch_args(d_c, x2, y_p, csr):
+            key = "long" if part == "long" else "tile"
+            variants[f"{key}_ms"] = (lambda fn=fn, args=args, keep=keep:
+                                     fn(*args, stream))
+        for name, fn in ab:
+            if hasattr(fn, "parts"):
+                for part, launch in fn.parts(data, x, csr, y_p):
+                    variants[f"{name}_{part}_ms"] = launch
     order = list(variants) + list(variants)[::-1]
     times = {k: [] for k in variants}
     for k in order:
@@ -2410,7 +2553,7 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
                regime=kind,
                max_abs_err=max_abs, rel_err=max_abs / scale,
                library_rel_err=lib_rel, deterministic=same,
-               ab_identical=ab_same,
+               ab_identical=ab_same, ab_long_rel=ab_long,
                flushed_ms=time_flushed_ms(variants["ms"], reps=10),
                bound_ms=bound, bound_by=bound_by)
     others = "".join(f"  {k[:-3]} {v:.4f} ms" for k, v in rec.items()
@@ -2422,6 +2565,7 @@ def compare_csr(csr, S: int, L: int, dtype: str, label: str, seed: int,
           f"({kind})  max|dy|={max_abs:.3e} rel={rec['rel_err']:.3e} (tol "
           f"{tol}), two launches identical: {same}"
           + (f", A/B identical: {ab_same}" if ab else "")
+          + (f" (long rows: rel {ab_long})" if ab_long else "")
           + f"  kernel {rec['ms']:.4f} ms (L2 flushed "
           f"{rec['flushed_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  library"
           f" (torch.sparse.mm) {rec['library_ms']:.4f} ms (rel "
@@ -3613,35 +3757,75 @@ def long_row_pattern(dev, n: int = LONG_N, seed: int = 0):
                         torch.as_tensor(c[perm], device=dev), n)
 
 
-def long_rows(dev) -> list:
+def long_rows(dev, ab=()) -> dict:
     """Phase 13 (a): K3 with long rows beside each tile kernel, against
     its plain version (LONG_TOL of max |y| in f64, CSR_TOL in f32), two
-    launches bit for bit, timed beside its bound and torch.sparse.mm."""
+    launches bit for bit, timed beside its bound and torch.sparse.mm, the
+    tiles' and the long rows' launches alone, and the A/B kernels ``ab``
+    (``--ab-csr``: the parent's, its bits on the other rows); then the
+    sparse API's ``matvec`` on the same pattern (its plan built by
+    ``create_symbolic``) against the plain version, through the long-row
+    kernel."""
+    import torch
+
     from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
+    from plate_inverse_problem_tpu_torch.ops import sparse_api
 
     csr = long_row_pattern(dev)
     lens = np.diff(csr.rowptr.cpu().numpy())[csr.long_rows.cpu().numpy()]
     print(f"[slice11] (a) K3 long rows: n={csr.n} nnz={csr.nnz}, "
           f"{csr.n_long} long rows of {lens.min()}-{lens.max()} entries "
-          f"({lens.sum()} of the nonzeros), {csr.n_tiles} tiles for the "
-          f"rest; build_csr {1e3 * csr.plan_s:.1f} ms on the host",
-          flush=True)
+          f"({lens.sum()} of the nonzeros) in {csr.n_groups} groups over "
+          f"{csr.long_win.numel()} column windows (a group's most entries "
+          f"in a stage of {ck.LONG_BATCHES} windows: {csr.long_stage_max}), "
+          f"{csr.n_tiles} tiles for the rest; build_csr "
+          f"{1e3 * csr.plan_s:.1f} ms on the host", flush=True)
     recs = []
-    for seed, (S, L, dt, label) in enumerate((
-            (2, 1024, "f64", "long rows S=2 L=1024 (wide + long)"),
-            (2, 16, "f64", "long rows S=2 L=16 (narrow + long)"),
-            (32, 1, "f64", "long rows S=32 L=1 (one lane + long)"),
-            (1, 1024, "f32", "long rows f32 S=1 L=1024"))):
+    for seed, (S, L, dt, label) in enumerate(LONG_CASES):
         before = dict(ck.csr_mv_cuda.launches_by_regime)
-        rec = compare_csr(csr, S, L, dt, label, seed, ones=L == 1,
+        rec = compare_csr(csr, S, L, dt, label, seed, ab, ones=L == 1,
                           tag="[slice11] (a)",
                           tol=LONG_TOL if dt == "f64" else None)
         after = ck.csr_mv_cuda.launches_by_regime
         rec["long_launches"] = after["long"] - before["long"]
         if rec["long_launches"] <= 0:
             raise AssertionError(f"{label}: the long-row kernel never ran")
+        print(f"[slice11] (a) {label}: tiles {rec['tile_ms']:.4f} ms + long "
+              f"rows {rec['long_ms']:.4f} ms alone"
+              + "".join(f"; {name}: tiles {rec[name + '_tile_ms']:.4f} + "
+                        f"long rows {rec[name + '_long_ms']:.4f} ms, the "
+                        f"whole call {rec[name + '_ms']:.4f}"
+                        for name, _ in ab if name + "_long_ms" in rec)
+              + f"; torch.sparse.mm {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({card_info()})", flush=True)
         recs.append(rec)
-    return recs
+    # the sparse API's matvec on the pattern: 8 lanes, CSC data from a seed
+    rows, cols = csr.rows.cpu().numpy(), csr.cols.cpu().numpy()
+    (r, c), pat = sparse_api.create_symbolic(
+        csr.n, np.stack([rows, cols], axis=1), np.float64)
+    rng = np.random.default_rng(len(recs))
+    data = torch.as_tensor(rng.standard_normal(r.size), device=dev)
+    x = torch.as_tensor(rng.standard_normal((8, csr.n)), device=dev)
+    before = dict(ck.csr_mv_cuda.launches_by_regime)
+    y = sparse_api.matvec(pat, data, x)
+    y2 = sparse_api.matvec(pat, data, x)
+    torch.cuda.synchronize()
+    launched = ck.csr_mv_cuda.launches_by_regime["long"] - before["long"]
+    plan = pat.plans(data.device)[0]
+    y_ref = ck.csr_mv_reference(data[None], x, plan)[0]
+    rel = float((y - y_ref).abs().max()) / float(y_ref.abs().max())
+    same = bool(torch.equal(y, y2))
+    want = 2 * ck.long_kernels(8)
+    print(f"[slice11] (a) sparse API matvec on the pattern ({plan.n_long} "
+          f"long rows, 8 lanes): rel {rel:.3e} (tol {LONG_TOL}), two calls "
+          f"identical: {same}, long-row kernels {launched} (want {want})",
+          flush=True)
+    if not (rel <= LONG_TOL and same and launched == want):
+        raise AssertionError(f"the sparse API's matvec on the long-row "
+                             f"pattern: rel {rel:.3e}, identical {same}, "
+                             f"long-row kernels {launched}")
+    return {"cases": recs, "matvec": {"rel_err": rel, "identical": same,
+                                      "long_launches": launched}}
 
 
 def polish_plate(p, freqs, label: str) -> dict:
@@ -3820,6 +4004,7 @@ def traced_sweep(p, freqs) -> dict:
     return rec
 
 
+
 def device_lib() -> dict:
     """Phase 13 (f): examples/test_device_lib.py's flow on the port:
     ``device_report`` and ``test_function`` on 5e7 f32 against numpy."""
@@ -3832,7 +4017,7 @@ def device_lib() -> dict:
     x = np.random.default_rng(0).standard_normal(5 * 10**7).astype(
         np.float32)
     t0 = time.perf_counter()
-    y = test_function(x)
+    y = test_function(x, device=torch.device("cuda"))
     dt = time.perf_counter() - t0
     err = float(np.abs(y - (2.0 * x + np.sin(x))).max())
     rec = {"report": rep, "s": dt, "max_abs_err": err}
@@ -3875,9 +4060,9 @@ def compat_script() -> dict:
     return {"fr": fr.cpu().numpy().tolist()}
 
 
-def slice11(dev, p21, freqs, fr21) -> dict:
+def slice11(dev, p21, freqs, fr21, ab_csr=()) -> dict:
     """Phase 13 on ``dev``; ``p21`` / ``fr21``: phase 2's 21k Problem and
-    its FRF at the truth.  Every part runs before a failed check raises.
+    its FRF at the truth; ``ab_csr``: the A/B kernels of ``--ab-csr``.  Every part runs before a failed check raises.
     Returns the numbers for [summary], with K1's and K3's launches by
     path under "k1" / "k3"."""
     import torch
@@ -3891,7 +4076,7 @@ def slice11(dev, p21, freqs, fr21) -> dict:
             failed.append(str(err))
 
     t0 = time.perf_counter()
-    run("long_rows", long_rows, dev)
+    run("long_rows", long_rows, dev, ab_csr)
     torch.cuda.empty_cache()
     out["a_s"] = time.perf_counter() - t0
     bench = sh_i_problem(dev, 1.0)
@@ -4051,7 +4236,7 @@ def shard_close(name, x, ref, tol, failed: list, rel_max=False) -> float:
     return err
 
 
-def slice12(dev, parts: str = "abcdf", p21=None) -> dict:
+def slice12(dev, parts: str = "abcdfg", p21=None) -> dict:
     """Phase 14: the sharded sweep, training step and Gauss-Newton step,
     each rank a process started with torch.multiprocessing's spawn method.
     (a) the bench plate over NCCL, one rank per card, against the
@@ -4067,9 +4252,12 @@ def slice12(dev, parts: str = "abcdf", p21=None) -> dict:
     ``invK64`` and ``W64`` row-owned (``dof_dense``); (f) the 20916-DOF
     plate (band + two-grid) on (b)'s ranks as (freq 1, dof 2)
     (``dof_twogrid``; ``p21``: a Problem of that plate in this process for
-    the splu oracle, built here when None).  ``parts``: which of them to
-    run ((a) always: (b) is held against it; (f) with (b)).  A rank's
-    exception raises here."""
+    the splu oracle, built here when None); (g) the bench plate's
+    two-grid (``precond="mg"``, the band layout) on DOF_WIDE gloo ranks of
+    the card as (freq 1, dof DOF_WIDE), wider than its band's groups
+    (``dof_wide``).  ``parts``: which of them to run ((a) always: (b) is
+    held against it; (f) and (g) with (b)).  A rank's exception raises
+    here."""
     import torch
 
     from plate_inverse_problem_tpu_torch.parallel import ranks
@@ -4079,7 +4267,7 @@ def slice12(dev, parts: str = "abcdf", p21=None) -> dict:
     world = torch.cuda.device_count()
     root = os.path.join("build", "parallel")
     dirs = {k: os.path.join(root, k)
-            for k in ("a", "b", "c", "e", "e_nccl", "f", "f_nccl")}
+            for k in ("a", "b", "c", "e", "e_nccl", "f", "f_nccl", "g")}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     bench = {"geometry": "sh_i", "refine": 1.0}
@@ -4270,6 +4458,10 @@ def slice12(dev, parts: str = "abcdf", p21=None) -> dict:
         out["f"] = dof_twogrid(dev, dirs, spec_f, p21, failed)
         out["k1"] |= {f"slice15_twogrid21k_rank{r}": k
                       for r, k in enumerate(out["f"]["k1"])}
+    if "g" in parts:
+        out["g"] = dof_wide(dev, dirs["g"], failed)
+        out["k1"] |= {f"slice16_wide_rank{r}": k
+                      for r, k in enumerate(out["g"]["k1"])}
     out["k3"] = {**{f"slice12_nccl_rank{r}": sum(m["k3"].values())
                     for r, m in enumerate(ma)},
                  **{f"slice12_gloo_rank{r}": sum(
@@ -4281,6 +4473,9 @@ def slice12(dev, parts: str = "abcdf", p21=None) -> dict:
                     for r, k in enumerate(out["e"]["k3"])},
                  "slice12_workflow": wfs["NCCL rank 0"]["k3"],
                  "slice12_workflow_plain": wfs["plain process"]["k3"]}
+    if "g" in parts:
+        out["k3"] |= {f"slice16_wide_rank{r}": k
+                      for r, k in enumerate(out["g"]["k3"])}
     return done()
 
 def owned_rows(label, ms, memory, failed: list) -> None:
@@ -4427,6 +4622,80 @@ def dof_twogrid(dev, dirs, spec, p21, failed: list) -> dict:
         dof_bits("(f) NCCL", mn, mf[0]["ref_frf"][0], "the unsharded sweep "
                  "(printed, not gated)", [])
     out["s"] = time.perf_counter() - t0
+    return out
+
+
+def dof_wide(dev, out_dir: str, failed: list) -> dict:
+    """Phase 14 (g): the bench plate (n = 1466) with the two-grid
+    preconditioner on the band layout (nb = 6 block rows in 6 groups) on
+    DOF_WIDE gloo ranks of ``dev`` as (freq 1, dof DOF_WIDE), at
+    DOF_WIDE_FREQ points and truth x SHARD_THETA: every rank keeps the
+    two-grid's band, P, diagonal and K1 pack whole (the JAX package's
+    placement of an axis d does not divide) and owns its rows of
+    ``mg_Kcinv`` and ``W64``; its FRF is the unsharded sweep's bits (each
+    rank's own, before the mesh places its Problem), its adjoint
+    Gauss-Newton update the single-process step's (``_host_gn`` on a
+    Problem of the plate in this process, from the ranks' reference FRF;
+    SHARD_TOL; every rank the same bits), and K1 ran on the whole pack (no
+    window launch) in every rank."""
+    from plate_inverse_problem_tpu_torch.parallel import ranks
+
+    spec = {"plate": {"geometry": "sh_i", "refine": 1.0, "precond": "mg",
+                      "operator_layout": "band"},
+            "meshes": [(1, DOF_WIDE)], "freqs": (40.0, 600.0, DOF_WIDE_FREQ),
+            "theta": SHARD_THETA, "repeats": 1, "steps": ("gn_adjoint",),
+            "at_theta": True, "reference": "frf"}
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks.spawn(ranks.sharded_checks, DOF_WIDE, out_dir, spec,
+                backend="gloo", device=f"cuda:{dev.index or 0}")
+    out = {"spawn_s": time.perf_counter() - t0}
+    g = ranks.load(out_dir, DOF_WIDE)
+    mg = [r["meshes"][0] for r in g]
+    print(f"[slice12] (g) bench plate n={g[0]['n_free']} tier "
+          f"{g[0]['tier']} (build {g[0]['build_s']:.2f} s), {DOF_WIDE} gloo "
+          f"ranks as (freq 1, dof {DOF_WIDE}), {DOF_WIDE_FREQ} points: "
+          f"{out['spawn_s']:.1f} s with the spawn; shares "
+          + " / ".join(str(m["shards"]) for m in mg), flush=True)
+    shard_bits(mg, failed, ("frf", "gn_adjoint"))
+    out["bits"] = dof_bits("(g)", mg, mg[0]["ref_frf"][0],
+                           "the unsharded sweep of the same Problem", failed)
+    t1 = time.perf_counter()
+    p = ranks.plate_problem(spec["plate"], dev)
+    rsq_1, th_1 = ranks._host_gn(p, np.linspace(*spec["freqs"]), g[0]["ref"],
+                                 g[0]["theta"], "adjoint")
+    del p
+    print(f"[slice12] (g) the single-process step in this process: "
+          f"{time.perf_counter() - t1:.2f} s with the Problem's build",
+          flush=True)
+    rsq, th = mg[0]["gn_adjoint"][0]
+    out["gn_rsq"] = shard_close("(g) GN adjoint |r|^2 vs the single-process "
+                                "step", rsq, rsq_1, SHARD_TOL, failed)
+    out["gn_update"] = shard_close("(g) GN adjoint update vs the "
+                                   "single-process step", th, th_1,
+                                   SHARD_TOL, failed)
+    out["steps"] = shard_report("(g)", mg, ("frf", "gn_adjoint", "ref_frf"))
+    out["k1"] = [m["k1"]["frf"] for m in mg]
+    out["k3"] = [m["k3"]["frf"] for m in mg]
+    for r, m in enumerate(mg):
+        whole = {k: m["held"][k] == m["held_whole"][k]
+                 for k in ("mg_band0", "mg_pack", "mg_Pt", "mg_dinv")}
+        owned = set(m["shards"]) == {"mg_Kcinv", "W64"}
+        if not (all(whole.values()) and owned):
+            failed.append(f"[slice12] (g) rank {r} holds {m['held']} of "
+                          f"{m['held_whole']}, shares {m['shards']}: the "
+                          "two-grid must stay whole, mg_Kcinv and W64 owned")
+        for step in ("frf", "gn_adjoint"):
+            if m["k1"][step] <= 0 or m["k1_window"][step] != 0:
+                failed.append(f"[slice12] (g) rank {r} {step}: K1 "
+                              f"{m['k1'][step]}, on window packs "
+                              f"{m['k1_window'][step]}: K1 must run on the "
+                              "whole pack")
+    print(f"[slice12] (g) K1 on the whole pack per rank, sweep "
+          f"{out['k1']}, GN step {[m['k1']['gn_adjoint'] for m in mg]} "
+          f"(window launches "
+          f"{[m['k1_window']['frf'] + m['k1_window']['gn_adjoint'] for m in mg]}"
+          "), the two-grid whole on every rank", flush=True)
     return out
 
 

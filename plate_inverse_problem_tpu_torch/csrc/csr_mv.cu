@@ -68,26 +68,40 @@
 //    and gathers x (small at these widths) through L1, 8 gathers in flight.
 //  * One lane (L = 1, the panels' row sums on x = ones): one thread per
 //    (operator, row), neighbouring threads on neighbouring rows, a block's
-//    128 rows' entries and columns staged first; one launch for every
-//    operator.
+//    128 rows' entries and columns staged first (beside a long row only
+//    the other rows' entries, packed); one launch for every operator.
 //  * Long rows (more than 256 distinct columns, or more entries than a
 //    tile's staging holds: a dense row of a synthetic pencil, a coarse
-//    level's restriction at a large coarsening factor; no plate pattern
-//    has one): the plan keeps them out of every tile and lists them, and a
-//    kernel of their own follows the tiles' one on the stream.  One block
-//    of 8 warps takes a long row for 8 (lane, operator) items, a warp an
-//    item; thread g of a warp sums the entries g, g + 32, ... in ascending
-//    order, one FMA each, reading the data (through perm) and x straight
-//    from global memory, and the warp's 32 partial sums are reduced by a
-//    fixed shuffle tree: the same bits in every run.  (A first cut with
-//    a block of 256 threads a (row, lane), reduced through shared memory,
-//    took 11.1 ms at S = 2, L = 1024 on chip_smoke.py's long-row pattern,
-//    a warp a lane 5.0 ms, a warp an item 4.3 ms, on an NVIDIA H100 80GB
-//    HBM3 at 700 W.)  The one-lane kernel skips
-//    the long rows, and a block of it whose entries outgrow its staging
-//    reads them from global memory.  The regime is simple, not fast: it
-//    reads x at the row's columns once a lane and operator, from L2, and
-//    the row's values once a lane, from L1.
+//    level's restriction at a large coarsening factor, the sparse API's
+//    matrices; no plate pattern has one): the plan keeps them out of every
+//    tile and lists them, and a kernel of their own follows the tiles' one
+//    on the stream.  What bounds it is x: a long row reads x at hundreds
+//    to thousands of scattered columns for every lane, so x read straight
+//    from global memory costs a 32-byte sector an 8-byte term, re-read for
+//    every operator (the first cut, a warp a (lane, operator) item reduced
+//    by a shuffle tree, took 4.3 ms at S = 2, L = 1024 on chip_smoke.py's
+//    pattern, 2.9 % of its bound, on an NVIDIA H100 80GB HBM3 at 700 W).
+//    The first cut also gathered each term's value through the data's
+//    permutation once a (lane, operator), and a random 8-byte gather costs
+//    a sector.  Now a first kernel gathers the long entries' values once,
+//    operator by operator (so the values in flight stay in L2), into
+//    entry order; the sums then read them in runs.  From 32 lanes on, the
+//    plan groups the long rows 32 at a time and lists each group's
+//    64-column windows of x that its rows touch; a block takes a group, a
+//    32-lane tile and two operators, and walks the group's windows in
+//    ascending order, a few a stage, through cp.async rings: x over the
+//    stage's windows for its lanes as dense boxes (whole 32-byte sectors,
+//    once for all 32 rows and both operators), the rows' entries in them
+//    packed (their place in the staged x and their values), the rows'
+//    entry bounds a stage ahead; each (row, lane, operator) summed from
+//    shared memory, k ascending, one FMA a term, the sum carried in
+//    registers: the tiles' order and bits.  Below 32 lanes there are too
+//    few such chains (a row's lanes and operators) to keep enough loads in
+//    flight one warp a row, so each long row is cut into segments of 128
+//    entries, a warp a segment, its loads straight into registers (x
+//    transposed by the wrapper, a column's lanes in one line), and a last
+//    kernel adds each row's segment sums in order: a fixed two-level
+//    order, the same in every run.
 //  * Each call is one launch, of the kernel the wrapper picks from L, and
 //    a second for the long rows where the plan has any.
 #include <cuda_runtime.h>
@@ -106,8 +120,6 @@ constexpr int UNROLL = 4;        // entries of a row per unrolled step
 constexpr int BATCH = 8;         // x gathers in flight per narrow thread
 constexpr int L1_ROWS = 128;     // rows (threads) of a one-lane block
 constexpr int L1_BATCH = 8;      // loads in flight per one-lane thread
-constexpr int LONG_NT = 256;     // threads of a long-row block
-constexpr int LONG_LANES = LONG_NT / 32;   // its (lane, operator) items
 
 struct Plan {
     const int* tile_ptr;    // (T+1): tile t holds tile_rows[tile_ptr[t] ..]
@@ -415,11 +427,14 @@ csr_mv_narrow_kernel(const T* __restrict__ data, Plan p,
 
 // ---- one lane ------------------------------------------------------------
 
-// One block per (L1_ROWS consecutive rows, operator blockIdx.y): their
-// entries (one contiguous run) and columns staged, then one thread per row.
-// A block whose run holds more than max_block_nnz entries (it has a long
-// row) reads them from global memory; a long row (row_off -1, where the
-// plan has any: n_long > 0) is the long-row kernel's.
+// One block per (L1_ROWS consecutive rows, operator blockIdx.y): the entries
+// of its rows (one contiguous run) and their columns staged, then one thread
+// per row.  Where the plan has long rows (n_long > 0) a block stages only
+// its other rows' entries, packed: each row's shift is the long rows'
+// entries before it in the block (a block scan), a warp copies a row.  A
+// block whose staged entries outgrow max_block_nnz reads them from global
+// memory; a long row (row_off -1) is the long-row kernel's.  Every row sums
+// its entries in one order, k ascending, staged or not.
 template <typename T>
 __global__ void __launch_bounds__(L1_ROWS)
 csr_mv_l1_kernel(const T* __restrict__ data, Plan p,
@@ -427,41 +442,85 @@ csr_mv_l1_kernel(const T* __restrict__ data, Plan p,
                  int n, long long nnz, int max_block_nnz, int n_long)
 {
     extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int shift[L1_ROWS + 1];   // long entries before each row
     const int i0 = blockIdx.x * L1_ROWS;
     const int s = blockIdx.y;
     const int k0 = __ldg(p.rowptr + i0);
     const int kn = __ldg(p.rowptr + min(n, i0 + L1_ROWS)) - k0;
-    const bool staged = kn <= max_block_nnz;             // the whole block
-    T* ds = reinterpret_cast<T*>(smem);                  // [kn]
-    int* cs = reinterpret_cast<int*>(ds + kn);           // [kn]
-    // L1_BATCH entries a thread at once: their data slots are all loaded
-    // before the first copy is issued
-    for (int j0 = threadIdx.x; staged && j0 < kn;
-         j0 += L1_ROWS * L1_BATCH) {
-        int kd[L1_BATCH];
+    const int i = i0 + threadIdx.x;
+    const int g = threadIdx.x & 31;
+    const int w = threadIdx.x >> 5;
+    const bool is_long = n_long > 0 && i < n && __ldg(p.row_off + i) < 0;
+    int sh = 0;
+    if (n_long > 0) {    // the block's exclusive scan of its long entries
+        const int mine = is_long ? __ldg(p.rowptr + i + 1) - __ldg(p.rowptr + i)
+                                 : 0;
+        int inc = mine;
 #pragma unroll
-        for (int u = 0; u < L1_BATCH; ++u) {
-            const int j = j0 + u * L1_ROWS;
-            kd[u] = j < kn ? data_slot(p, k0 + j) : 0;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, inc, o);
+            if (g >= o) inc += v;
         }
+        if (g == 31) shift[w + 1] = inc;       // the warps' totals
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            shift[0] = 0;
+            for (int v = 1; v <= L1_ROWS / 32; ++v) shift[v] += shift[v - 1];
+        }
+        __syncthreads();
+        sh = shift[w] + inc - mine;
+        __syncthreads();
+        shift[threadIdx.x] = sh;
+        if (threadIdx.x == L1_ROWS - 1) shift[L1_ROWS] = sh + mine;
+        __syncthreads();
+    }
+    const int k_long = n_long > 0 ? shift[L1_ROWS] : 0;
+    const bool staged = kn - k_long <= max_block_nnz;    // the whole block
+    T* ds = reinterpret_cast<T*>(smem);                  // [kn - k_long]
+    int* cs = reinterpret_cast<int*>(ds + (kn - k_long));
+    if (staged && k_long > 0) {
+        // the short rows' entries, packed past the long ones: a warp a row
+        for (int r = w; r < L1_ROWS && i0 + r < n; r += L1_ROWS / 32) {
+            const int ir = i0 + r;
+            if (__ldg(p.row_off + ir) < 0) continue;
+            const int a = __ldg(p.rowptr + ir);
+            const int len = __ldg(p.rowptr + ir + 1) - a;
+            const int dst = a - k0 - shift[r];
+            for (int j = g; j < len; j += 32) {
+                cp_async<sizeof(T)>(ds + dst + j,
+                                    data + s * nnz + data_slot(p, a + j));
+                cp_async<4>(cs + dst + j, p.col + a + j);
+            }
+        }
+    } else {
+        // L1_BATCH entries a thread at once: their data slots are all
+        // loaded before the first copy is issued
+        for (int j0 = threadIdx.x; staged && j0 < kn;
+             j0 += L1_ROWS * L1_BATCH) {
+            int kd[L1_BATCH];
 #pragma unroll
-        for (int u = 0; u < L1_BATCH; ++u) {
-            const int j = j0 + u * L1_ROWS;
-            if (j < kn) {
-                cp_async<sizeof(T)>(ds + j, data + s * nnz + kd[u]);
-                cp_async<4>(cs + j, p.col + k0 + j);
+            for (int u = 0; u < L1_BATCH; ++u) {
+                const int j = j0 + u * L1_ROWS;
+                kd[u] = j < kn ? data_slot(p, k0 + j) : 0;
+            }
+#pragma unroll
+            for (int u = 0; u < L1_BATCH; ++u) {
+                const int j = j0 + u * L1_ROWS;
+                if (j < kn) {
+                    cp_async<sizeof(T)>(ds + j, data + s * nnz + kd[u]);
+                    cp_async<4>(cs + j, p.col + k0 + j);
+                }
             }
         }
     }
     cp_async_wait_all();
     __syncthreads();
-    const int i = i0 + threadIdx.x;
-    if (i >= n) return;
-    if (n_long > 0 && __ldg(p.row_off + i) < 0) return;
+    if (i >= n || is_long) return;
     T acc = T(0);
     if (staged) {
-        const int k1 = __ldg(p.rowptr + i + 1) - k0;
-        for (int k = __ldg(p.rowptr + i) - k0; k < k1; k += L1_BATCH) {
+        const int b = k0 + sh;     // entry k of this row is staged at k - b
+        const int k1 = __ldg(p.rowptr + i + 1) - b;
+        for (int k = __ldg(p.rowptr + i) - b; k < k1; k += L1_BATCH) {
             T xv[L1_BATCH];
 #pragma unroll
             for (int j = 0; j < L1_BATCH; ++j)
@@ -481,42 +540,296 @@ csr_mv_l1_kernel(const T* __restrict__ data, Plan p,
 
 // ---- long rows -----------------------------------------------------------
 
-// One block per long row long_rows[blockIdx.x] and LONG_LANES (lane,
-// operator) items q = blockIdx.y * LONG_LANES + w (and every gridDim.y *
-// LONG_LANES-th item after them; lane q / S, operator q % S, so the warps
-// of a block share a lane's x in L1 and the row's values and columns);
-// warp w takes one item: its thread g sums the row's entries g, g + 32,
-// ... in ascending order, one FMA each, data (through perm) and x read
-// from global memory, and the 32 partial sums are added by a fixed
-// shuffle tree: the same bits in every run.
+// The long rows' plan (ops/csr_kernel.py _long_plan): the long rows in
+// groups of LG (long_rows order), each group's column windows of LW columns
+// that its rows touch, ascending, and every long entry's place in its
+// group's staged x.  Entry indices e count the long rows' entries (rows in
+// long_rows order, each row's in CSR order); CSR entry k = e + koff[row].
+struct LongPlan {
+    const int* rows;     // (n_long): the long rows, ascending
+    const int* wptr;     // (groups+1): group g's windows win[wptr[g] ..]
+    const int* win;      // each group's windows (first column / LW)
+    const int* kptr;     // ((windows + groups) * LG): (wptr[g] + g + j) * LG
+                         // + r: row r of group g's first entry in window j
+                         // (j = the group's window count: its end)
+    const int* xi;       // (long entries): window place * LW + column % LW
+    const int* koff;     // (n_long): k - e
+    const int* src;      // (long entries): the data slot of each (perm[k])
+    const int* segptr;   // (n_long+1): row q's segments segptr[q] ..
+    const int* segrow;   // (segments): each segment's long row
+    int n_long;
+    int n_entries;
+};
+
+// The long entries' values of S operators in entry order, dl[s, e] =
+// data[s, src[e]]: one thread an (operator, entry), the operators slowest,
+// so the blocks in flight gather from one operator's values at a time
+// (they stay in L2) and the sum kernels read them in runs.
 template <typename T>
-__global__ void __launch_bounds__(LONG_NT)
-csr_mv_long_kernel(const T* __restrict__ data, const int* __restrict__ rowptr,
-                   const int* __restrict__ col, const int* __restrict__ perm,
-                   const int* __restrict__ long_rows,
-                   const T* __restrict__ x, long long sxl, long long sxc,
-                   T* __restrict__ y, int S, int L, int n, long long nnz)
+__global__ void __launch_bounds__(256)
+csr_mv_long_gather_kernel(const T* __restrict__ data,
+                          const int* __restrict__ src, T* __restrict__ dl,
+                          int S, int E, long long nnz)
 {
-    const int i = __ldg(long_rows + blockIdx.x);
-    const int k0 = __ldg(rowptr + i);
-    const int k1 = __ldg(rowptr + i + 1);
-    const int g = threadIdx.x & 31;
-    const long long items = (long long)S * L;
-    for (long long q = (long long)blockIdx.y * LONG_LANES + (threadIdx.x >> 5);
-         q < items; q += (long long)gridDim.y * LONG_LANES) {
-        const int l = static_cast<int>(q / S);
-        const int s = static_cast<int>(q % S);
-        const T* xl = x + l * sxl;
-        const T* ds = data + s * nnz;
-        T acc = T(0);
-        for (int k = k0 + g; k < k1; k += 32)
-            acc = fma(__ldg(ds + (perm ? __ldg(perm + k) : k)),
-                      __ldg(xl + __ldg(col + k) * sxc), acc);
+    const long long q = (long long)blockIdx.x * 256 + threadIdx.x;
+    if (q >= (long long)S * E) return;
+    const long long s = q / E;
+    dl[q] = __ldg(data + s * nnz + __ldg(src + (q - s * E)));
+}
+
+// Wide lanes (L >= 32).  One block per (group blockIdx.x of LG long rows,
+// 32-lane tile blockIdx.y, operator group blockIdx.z of G operators).
+// Thread t takes lane t % 32 of rows t / 32 + 8 u (u < 4), G operators
+// each, in registers.  The block walks its group's windows cpb at a time
+// (a stage), ascending, through a two-deep ring of cp.async copies in
+// shared memory, so the copies of stage j + 1 are in flight while stage j
+// is summed: x over the stage's windows for the block's lanes
+// (xs[column][lane], a warp's copies on whichever x axis is contiguous),
+// the rows' entries in those windows packed row after row, their x places
+// and values, and the rows' entry bounds three stages ahead.  Each (row,
+// lane, operator) sums its row's entries with k ascending, one FMA a term,
+// the sum carried in registers from stage to stage: the order, and the
+// bits, of every other kernel here.  x is staged once a stage for every
+// row of the group and both operators; the rows' values once for all 32
+// lanes.  (A third stage in flight, or x's windows as TMA bulk copies on
+// an mbarrier, measured no faster on an NVIDIA H100 80GB HBM3: PERF.md.)
+constexpr int LG = 32;     // long rows of a group (the plan's LONG_GROUP)
+constexpr int LW = 64;     // columns of a window (the plan's LONG_WIN)
+constexpr int LONG_NT = 256;             // threads of a wide long block
+constexpr int LONG_XLD = 33;             // a staged column's stride (lanes)
+constexpr int LONG_KD = 4;               // the entry bounds' ring
+
+// Bytes of one stage's buffer: x over cpb windows, es entries' values for
+// G operators and x places, each row's offset and count; rounded up to 16
+// bytes.
+template <typename T, int G>
+__host__ __device__ constexpr size_t long_v_bytes(int cpb, int es)
+{
+    return (sizeof(T) * ((size_t)cpb * LW * LONG_XLD + (size_t)G * es)
+            + sizeof(int) * ((size_t)es + 2 * LG) + 15) / 16 * 16;
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(LONG_NT)
+csr_mv_long_kernel(const T* __restrict__ dl, LongPlan lp,
+                   const T* __restrict__ x, long long sxl, long long sxc,
+                   T* __restrict__ y, int S, int L, int n, int n_cols,
+                   int cpb, int es)
+{
+    constexpr int RT = LG / (LONG_NT / 32);   // rows a thread
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int row[LG];
+    const int g = blockIdx.x;
+    const int l0 = blockIdx.y * 32;
+    const int s0 = blockIdx.z * G;
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    const int nr = min(LG, lp.n_long - g * LG);
+    const int wbase = __ldg(lp.wptr + g);
+    const int nw = __ldg(lp.wptr + g + 1) - wbase;
+    const int kbase = (wbase + g) * LG;
+    const int nst = (nw + cpb - 1) / cpb;
+    const long long E = lp.n_entries;
+    const int lanes = min(32, L - l0);
+    if (t < nr) row[t] = __ldg(lp.rows + g * LG + t);
+    const size_t vbytes = long_v_bytes<T, G>(cpb, es);
+    // buffer b: xs [cpb LW][LONG_XLD], ds [G][es], cs [es], and each row's
+    // offset and count [LG] each; then the K ring [LONG_KD][LG]
+    auto xs_of = [&](int b) { return reinterpret_cast<T*>(smem + b * vbytes); };
+    auto ds_of = [&](int b) { return xs_of(b) + cpb * LW * LONG_XLD; };
+    auto cs_of = [&](int b) {
+        return reinterpret_cast<int*>(ds_of(b) + G * es);
+    };
+    int* kb = reinterpret_cast<int*>(smem + 2 * vbytes);
+
+    // K: the rows' first entries at stage j's first window (the group's
+    // end past its last stage)
+    auto issue_k = [&](int j) {
+        if (warp == 0)
+            cp_async<4>(kb + (j % LONG_KD) * LG + lane,
+                        lp.kptr + kbase + min(j * cpb, nw) * LG + lane);
+    };
+    // V: x over the stage's windows, then each row's entries (every warp
+    // scans the 32 rows' counts for their offsets in the packed stage)
+    auto issue_values = [&](int j) {
+        const int j0 = j * cpb;
+        const int nbw = min(cpb, nw - j0);
+        T* xs = xs_of(j & 1);
+        T* ds = ds_of(j & 1);
+        int* cs = cs_of(j & 1);
+        const bool cols_fast = sxc == 1 && sxl != 1;
+        for (int w = 0; w < nbw; ++w) {
+            const long long cb = (long long)__ldg(lp.win + wbase + j0 + w) * LW;
+            T* xw = xs + w * LW * LONG_XLD;
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            acc += __shfl_down_sync(0xffffffffu, acc, o);
-        if (g == 0) y[((size_t)s * L + l) * n + i] = acc;
+            for (int q = t; q < LW * 32; q += LONG_NT) {
+                const int c = cols_fast ? q % LW : q / 32;
+                const int l = cols_fast ? q / LW : q % 32;
+                if (cb + c < n_cols && l < lanes)
+                    cp_async<sizeof(T)>(xw + c * LONG_XLD + l,
+                                        x + (l0 + l) * sxl + (cb + c) * sxc);
+            }
+        }
+        const int a = kb[(j % LONG_KD) * LG + lane];
+        const int cnt = lane < nr ? kb[((j + 1) % LONG_KD) * LG + lane] - a
+                                  : 0;
+        int inc = cnt;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, inc, o);
+            if (lane >= o) inc += v;
+        }
+        const int off = inc - cnt;
+        if (warp == 0) {
+            cs[es + lane] = off;
+            cs[es + LG + lane] = cnt;
+        }
+        for (int r = warp; r < nr; r += LONG_NT / 32) {
+            const int e0 = __shfl_sync(0xffffffffu, a, r);
+            const int o0 = __shfl_sync(0xffffffffu, off, r);
+            const int cr = __shfl_sync(0xffffffffu, cnt, r);
+            for (int e = lane; e < cr; e += 32) {
+                cp_async<4>(cs + o0 + e, lp.xi + e0 + e);
+#pragma unroll
+                for (int s = 0; s < G; ++s)
+                    if (s0 + s < S)
+                        cp_async<sizeof(T)>(ds + s * es + o0 + e,
+                                            dl + (s0 + s) * E + e0 + e);
+            }
+        }
+    };
+
+    T acc[RT][G];
+#pragma unroll
+    for (int u = 0; u < RT; ++u)
+#pragma unroll
+        for (int s = 0; s < G; ++s) acc[u][s] = T(0);
+    __syncthreads();
+    if (nst > 0) {
+        issue_k(0);
+        issue_k(1);
+        issue_k(2);
+        cp_async_wait_all();
+        __syncthreads();
+        issue_values(0);
     }
+    for (int j = 0; j < nst; ++j) {
+        cp_async_wait_all();   // V of stage j, K of stage j + 2
+        __syncthreads();
+        if (j + 1 < nst) issue_values(j + 1);
+        if (j + 3 <= nst) issue_k(j + 3);
+        const T* xs = xs_of(j & 1) + lane;
+        const int xoff = j * cpb * LW;    // the stage's first x place
+        const T* ds = ds_of(j & 1);
+        const int* cs = cs_of(j & 1);
+#pragma unroll
+        for (int u = 0; u < RT; ++u) {
+            const int r = warp + (LONG_NT / 32) * u;
+            if (r >= nr) break;
+            const int o0 = cs[es + r];
+            const int len = cs[es + LG + r];
+#pragma unroll 4
+            for (int e = o0; e < o0 + len; ++e) {
+                const T xv = xs[(cs[e] - xoff) * LONG_XLD];
+#pragma unroll
+                for (int s = 0; s < G; ++s)
+                    acc[u][s] = fma(ds[s * es + e], xv, acc[u][s]);
+            }
+        }
+    }
+    if (lane >= lanes) return;
+#pragma unroll
+    for (int u = 0; u < RT; ++u) {
+        const int r = warp + (LONG_NT / 32) * u;
+        if (r >= nr) break;
+#pragma unroll
+        for (int s = 0; s < G; ++s)
+            if (s0 + s < S)
+                y[((size_t)(s0 + s) * L + l0 + lane) * n + row[r]] =
+                    acc[u][s];
+    }
+}
+
+// Narrow lanes (L < 32).  Few (row, lane, operator) chains there (256 x
+// 32 on chip_smoke.py's pattern): one warp a long row leaves the card
+// short of loads in flight (a warp a row, its chunks staged through its
+// own ring, took 0.14 ms at S = 2, L = 16, the parent's kernel 0.07).  So
+// each long row is cut into segments of LONG_SEG entries (the plan's, by
+// the row's length alone), a warp takes a (segment, operator tile), LP
+// lanes (L's next power of two) times 32 / LP operators a thread, and
+// sums its segment's entries with k ascending, one FMA a term, loading
+// the columns, the values (gathered in entry order) and x (transposed by
+// the wrapper, a column's lanes side by side) straight into registers,
+// LONG_BATCH entries in flight; a second kernel adds each row's segment
+// sums in order, the first plus the second, plus the third...  A fixed
+// two-level order that depends on the plan and the shape alone.
+constexpr int LONG_SEG = 128;      // entries a segment (the plan's)
+constexpr int LONG_BATCH = 16;     // entries a warp loads at once
+
+template <typename T, int LP>
+__global__ void __launch_bounds__(128)
+csr_mv_long_narrow_kernel(const T* __restrict__ dl,
+                          const int* __restrict__ rowptr,
+                          const int* __restrict__ col, LongPlan lp,
+                          int n_seg, int op_tiles, const T* __restrict__ x,
+                          long long sxl, long long sxc, T* __restrict__ part,
+                          int S, int L)
+{
+    constexpr int OT = 32 / LP;              // operators of the warp
+    const int lane = threadIdx.x & 31;
+    const long long unit = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
+    if (unit >= (long long)n_seg * op_tiles) return;
+    const int seg = static_cast<int>(unit % n_seg);  // operator tiles slowest
+    const int s0 = static_cast<int>(unit / n_seg) * OT;
+    const int q = __ldg(lp.segrow + seg);
+    const int p = seg - __ldg(lp.segptr + q);
+    const int i = __ldg(lp.rows + q);
+    const int kb = __ldg(rowptr + i) + p * LONG_SEG;
+    const int m = min(LONG_SEG, __ldg(rowptr + i + 1) - kb);
+    const long long eb = kb - __ldg(lp.koff + q);
+    const int l = lane % LP;
+    const int o = lane / LP;
+    const bool live = l < L && s0 + o < S;
+    const T* xl = x + (live ? l : 0) * sxl;
+    const T* dr = dl + (long long)(live ? s0 + o : 0) * lp.n_entries + eb;
+    T acc = T(0);
+    for (int j0 = 0; j0 < m; j0 += LONG_BATCH) {
+        int c[LONG_BATCH];
+#pragma unroll
+        for (int u = 0; u < LONG_BATCH; ++u)
+            c[u] = j0 + u < m ? __ldg(col + kb + j0 + u) : 0;
+        T xv[LONG_BATCH], dv[LONG_BATCH];
+#pragma unroll
+        for (int u = 0; u < LONG_BATCH; ++u) {
+            xv[u] = j0 + u < m ? __ldg(xl + c[u] * sxc) : T(0);
+            dv[u] = j0 + u < m ? __ldg(dr + j0 + u) : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < LONG_BATCH; ++u)
+            if (j0 + u < m) acc = fma(dv[u], xv[u], acc);
+    }
+    if (live) part[((long long)(s0 + o) * L + l) * n_seg + seg] = acc;
+}
+
+// y at each long row: its segment sums added in order, one thread an
+// (operator, lane, long row)
+template <typename T>
+__global__ void __launch_bounds__(256)
+csr_mv_long_combine_kernel(const T* __restrict__ part, LongPlan lp,
+                           int n_seg, T* __restrict__ y, int S, int L,
+                           int n)
+{
+    const long long t = (long long)blockIdx.x * 256 + threadIdx.x;
+    if (t >= (long long)S * L * lp.n_long) return;
+    const int q = static_cast<int>(t % lp.n_long);
+    const long long sl = t / lp.n_long;
+    const int a = __ldg(lp.segptr + q);
+    const int b = __ldg(lp.segptr + q + 1);
+    const T* pr = part + sl * n_seg;
+    T v = pr[a];
+    for (int k = a + 1; k < b; ++k) v += pr[k];
+    y[sl * n + __ldg(lp.rows + q)] = v;
 }
 
 // ---- launchers -----------------------------------------------------------
@@ -607,21 +920,107 @@ int launch_l1(const T* data, const Plan& p, const T* x, long long sxc, T* y,
     return done(cudaSuccess);
 }
 
-template <typename T>
-int launch_long(const T* data, const int* rowptr, const int* col,
-                const int* perm, const int* long_rows, int n_long,
-                const T* x, long long sxl, long long sxc, T* y, int S, int L,
-                int n, long long nnz, void* stream)
+// a wide long-row block's shared memory at most: two blocks an H100 SM
+constexpr size_t LONG_SMEM = 110 * 1024;
+// stage widths (windows a stage) the plan counts a group's entries for
+constexpr int LONG_BATCHES = 5;     // 1, 2, 4, 8, 16 windows
+
+template <typename T, int G>
+int launch_long_wide(const T* dl, const LongPlan& lp, int n_groups,
+                     const int* stage_max, const T* x, long long sxl,
+                     long long sxc, T* y, int S, int L, int n, int n_cols,
+                     cudaStream_t st)
 {
-    if (S <= 0 || L <= 0 || n_long <= 0) return 0;
-    if (n_long > n) return -static_cast<int>(cudaErrorInvalidValue);
-    const long long item_blocks =
-        ((long long)S * L + LONG_LANES - 1) / LONG_LANES;
-    const dim3 grid(n_long, item_blocks < 65535 ? item_blocks : 65535);
-    csr_mv_long_kernel<T><<<grid, LONG_NT, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        data, rowptr, col, perm, long_rows, x, sxl, sxc, y, S, L, n, nnz);
+    const long long lane_tiles = ((long long)L + 31) / 32;
+    const long long op_groups = ((long long)S + G - 1) / G;
+    if (lane_tiles > 65535 || op_groups > 65535)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    // the widest stage whose ring fits LONG_SMEM (one window always)
+    auto bytes = [](int cpb, int es) {
+        return 2 * long_v_bytes<T, G>(cpb, es) + sizeof(int) * LONG_KD * LG;
+    };
+    int cpb = 1, es = stage_max[0];
+    for (int c = LONG_BATCHES - 1; c > 0; --c)
+        if (bytes(1 << c, stage_max[c]) <= LONG_SMEM) {
+            cpb = 1 << c;
+            es = stage_max[c];
+            break;
+        }
+    es = es > 0 ? es : 1;
+    const size_t smem = bytes(cpb, es);
+    const cudaError_t err = allow_smem(csr_mv_long_kernel<T, G>, smem);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    const dim3 grid(n_groups, lane_tiles, op_groups);
+    csr_mv_long_kernel<T, G><<<grid, LONG_NT, smem, st>>>(
+        dl, lp, x, sxl, sxc, y, S, L, n, n_cols, cpb, es);
     return done(cudaSuccess);
+}
+
+// the segment sums and their combine: returns 2, or minus a cudaError
+template <typename T, int LP>
+int launch_long_narrow(const T* dl, T* part, const int* rowptr,
+                       const int* col, const LongPlan& lp, int n_seg,
+                       const T* x, long long sxl, long long sxc, T* y, int S,
+                       int L, int n, cudaStream_t st)
+{
+    const int op_tiles = (S + 32 / LP - 1) / (32 / LP);
+    const long long blocks = ((long long)n_seg * op_tiles + 3) / 4;
+    const long long cblocks = ((long long)S * L * lp.n_long + 255) / 256;
+    if (blocks > 2147483647LL || cblocks > 2147483647LL)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    csr_mv_long_narrow_kernel<T, LP><<<(unsigned)blocks, 128, 0, st>>>(
+        dl, rowptr, col, lp, n_seg, op_tiles, x, sxl, sxc, part, S, L);
+    const int rc = done(cudaSuccess);
+    if (rc < 0) return rc;
+    csr_mv_long_combine_kernel<T><<<(unsigned)cblocks, 256, 0, st>>>(
+        part, lp, n_seg, y, S, L, n);
+    const int rc2 = done(cudaSuccess);
+    return rc2 < 0 ? rc2 : 2;
+}
+
+// The long entries' values gathered into dl (S, n_entries), then the wide
+// kernel from 32 lanes on, two operators a thread (one where S = 1), or
+// below the narrow one (its lane tile L's next power of two) into the
+// segment sums part (S, L, n_seg) and their sums: two or three kernels, one
+// long-row product; returns how many were launched
+template <typename T>
+int launch_long(const T* data, T* dl, T* part, const int* rowptr,
+                const int* col, const LongPlan& lp, int n_groups, int n_seg,
+                const int* stage_max, const T* x, long long sxl,
+                long long sxc, T* y, int S, int L, int n, int n_cols,
+                long long nnz, void* stream)
+{
+    if (S <= 0 || L <= 0 || lp.n_long <= 0) return 0;
+    if (lp.n_long > n || n_groups != (lp.n_long + LG - 1) / LG
+            || lp.n_entries <= 0)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const long long items = (long long)S * lp.n_entries;
+    if ((items + 255) / 256 > 2147483647LL)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    csr_mv_long_gather_kernel<T><<<(unsigned)((items + 255) / 256), 256, 0,
+                                   st>>>(data, lp.src, dl, S, lp.n_entries,
+                                         nnz);
+    const int rc = done(cudaSuccess);
+    if (rc < 0) return rc;
+    int sums;    // the kernels after the gather
+#define LONG_NARROW(LP_)                                                      \
+    sums = launch_long_narrow<T, LP_>(dl, part, rowptr, col, lp, n_seg, x,    \
+                                      sxl, sxc, y, S, L, n, st)
+    if (L == 1) LONG_NARROW(1);
+    else if (L == 2) LONG_NARROW(2);
+    else if (L <= 4) LONG_NARROW(4);
+    else if (L <= 8) LONG_NARROW(8);
+    else if (L <= 16) LONG_NARROW(16);
+    else if (L < 32) LONG_NARROW(32);
+#undef LONG_NARROW
+    else if (S == 1)
+        sums = launch_long_wide<T, 1>(dl, lp, n_groups, stage_max, x, sxl,
+                                      sxc, y, S, L, n, n_cols, st);
+    else
+        sums = launch_long_wide<T, 2>(dl, lp, n_groups, stage_max, x, sxl,
+                                      sxc, y, S, L, n, n_cols, st);
+    return sums < 0 ? sums : 1 + sums;
 }
 
 enum Regime { ONE_LANE, NARROW, WIDE };
@@ -684,18 +1083,35 @@ CSR_MV_ENTRY(csr_mv_l1_f32, float, ONE_LANE)
 CSR_MV_ENTRY(csr_mv_narrow_f32, float, NARROW)
 CSR_MV_ENTRY(csr_mv_wide_f32, float, WIDE)
 
-// The long rows long_rows (n_long,) int32 of the pattern (rowptr, col,
-// perm as above), for all S operators and L lanes, into the same y: one
-// launch on `stream`, after the tiles' kernel.  Returns 1, 0 for an empty
-// product, or minus the cudaError of a launch that failed.
+// The long rows of the pattern (rowptr, col as above; the long-row plan
+// of ops/csr_kernel.py _long_plan: long_rows (n_long,), wptr
+// (n_groups+1,), win, kptr, xi, koff (n_long,), src (n_entries,), segptr
+// (n_long+1,), segrow (n_seg,), int32, and stage_max (LONG_BATCHES,): a
+// group's most entries in a stage of 1, 2, 4, 8, 16 windows), for all S
+// operators and L lanes, into the same y, with the scratch dl (S,
+// n_entries) of the entries' values and, below 32 lanes, part (S, L,
+// n_seg) of the segment sums: on `stream`, after the tiles' kernel, the
+// gather and the sums (two or three kernels, one long-row product).
+// Below 32 lanes x is read by its strides as the caller hands it
+// (transposed, a column's lanes side by side).  Returns the number of
+// kernels launched (2 from 32 lanes, 3 below), 0 for an empty product, or
+// minus the cudaError of a launch that failed.
 #define CSR_MV_LONG_ENTRY(NAME, T)                                            \
-    extern "C" int NAME(const T* data, const int* rowptr, const int* col,     \
-                        const int* perm, const int* long_rows, int n_long,    \
+    extern "C" int NAME(const T* data, T* dl, T* part, const int* rowptr,     \
+                        const int* col, const int* long_rows, int n_long,     \
+                        const int* wptr, const int* win, const int* kptr,     \
+                        const int* xi, const int* koff, const int* src,       \
+                        const int* segptr, const int* segrow, int n_entries,  \
+                        int n_groups, int n_seg, const int* stage_max,        \
                         const T* x, long long sxl, long long sxc, T* y,       \
-                        int S, int L, int n, long long nnz, void* stream)     \
+                        int S, int L, int n, int n_cols, long long nnz,       \
+                        void* stream)                                         \
     {                                                                         \
-        return launch_long<T>(data, rowptr, col, perm, long_rows, n_long, x,  \
-                              sxl, sxc, y, S, L, n, nnz, stream);             \
+        const LongPlan lp{long_rows, wptr, win, kptr, xi, koff, src, segptr,  \
+                          segrow, n_long, n_entries};                         \
+        return launch_long<T>(data, dl, part, rowptr, col, lp, n_groups,      \
+                              n_seg, stage_max, x, sxl, sxc, y, S, L, n,      \
+                              n_cols, nnz, stream);                           \
     }
 
 CSR_MV_LONG_ENTRY(csr_mv_long_f64, double)

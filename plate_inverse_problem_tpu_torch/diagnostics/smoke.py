@@ -9,12 +9,17 @@ import numpy as np
 import torch
 
 
-def test_function(x: np.ndarray, verbose: bool = False) -> np.ndarray:
-    """Compute ``2x + sin(x)`` on the device (the card, or the CPU where
-    there is none) as two torch ops, ``sin`` and an ``add`` with
+def test_function(x: np.ndarray, verbose: bool = False,
+                  device="cuda") -> np.ndarray:
+    """Compute ``2x + sin(x)`` on ``device`` (the card unless the caller
+    asks for the CPU) as two torch ops, ``sin`` and an ``add`` with
     ``alpha=2``, in x's dtype; the analog of the reference's OpenMP smoke
-    kernel (test_function.h:18-46).  Returns a numpy array."""
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    kernel (test_function.h:18-46).  Returns a numpy array.  A CUDA device
+    without CUDA raises: no fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} asked for, but CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
     t0 = time.perf_counter()
     xt = torch.as_tensor(np.asarray(x), device=dev)
     y = torch.add(torch.sin(xt), xt, alpha=2.0)

@@ -21,9 +21,11 @@ counterpart here.
 
 A custom material subclasses ``Material`` and gives ``abd_split`` (and
 ``d_split`` for the pure-bending path).  Both take the angular frequency
-as a last argument, as the JAX package's transforms do; the mixed engine
-builds its operator once per sweep, so ``Problem`` refuses a transform
-that depends on it (the engines that would take it are not ported).
+as a last argument, as the JAX package's transforms do.  The mixed and
+modal engines build their operator once per sweep, so for a transform
+that depends on it ``Problem`` warns (``RuntimeWarning``) and runs the
+direct engine, which evaluates it at every frequency, as the JAX package
+does.
 """
 from __future__ import annotations
 

@@ -32,13 +32,15 @@ tolerance.  The pieces:
   where they lie (the data through the CSR permutation, x by its strides),
   allocates the output with ``torch.empty``, launches one kernel on the
   current stream for the tiles' rows and, where the plan has long rows,
-  the long-row kernel after it (a block a long row and 8 (lane,
-  operator) items, a warp an item, its threads striding over the row's
-  entries, their partial sums reduced by a fixed shuffle tree: the same
-  bits in every run, though in another order than a tile's rows), and
-  raises if a launch fails;
+  the long-row kernel after it (the long entries' values gathered into
+  entry order first; from 32 lanes a block a group of 32 long rows, a
+  32-lane tile and two operators, x and the rows' entries staged window
+  by window, each row summed in the tiles' order, k ascending; below, a
+  warp a segment of 128 entries of a long row, the segments' sums added
+  in order by a last kernel), and raises if a launch fails;
   ``csr_mv_cuda.launches`` counts the kernels launched, as the C launcher
-  reports them, and ``csr_mv_cuda.launches_by_regime`` the same by regime
+  reports them (one for the tiles, ``long_kernels(L)`` for the long
+  rows), and ``csr_mv_cuda.launches_by_regime`` the same by regime
   (``"long"`` for the long rows');
 * ``csr_mv`` — the dispatch: the kernel for a CUDA tensor, the plain
   version for a CPU tensor, nothing else;
@@ -85,8 +87,17 @@ OP_GROUP = 2
 L1_ROWS = 128
 SMEM_BUDGET = 115712
 # the entries a one-lane block stages at most: an H100 block's shared
-# memory (232,448 bytes) over an f64 value and an int32 column each
-L1_STAGE_MAX = 232448 // 12
+# memory (232,448 bytes, less its row shifts' L1_ROWS + 1 int32) over an
+# f64 value and an int32 column each
+L1_STAGE_MAX = (232448 - 4 * (L1_ROWS + 1)) // 12
+# the long-row kernel's plan (csrc/csr_mv.cu): long rows a group (a block),
+# columns a window of x, and the stage widths (windows) whose largest
+# entry count the kernel sizes its buffers by
+LONG_GROUP = 32
+LONG_WIN = 64
+LONG_BATCHES = (1, 2, 4, 8, 16)
+# entries of a long row's segment below WIDE_LANES lanes (a warp's)
+LONG_SEG = 128
 
 _lib = None
 
@@ -117,9 +128,29 @@ class CSRPattern:
     or MAX_TILE_NNZ entries), summed by the long-row kernel; they are in
     no tile, their ``row_off`` is -1 and their slots 0.  ``max_rows`` /
     ``max_cols`` / ``max_nnz``: the largest tile's; ``max_block_nnz``: the
-    most entries L1_ROWS consecutive rows without a long row hold, at most
-    L1_STAGE_MAX (the one-lane kernel's staging); ``plan_s``:
-    ``build_csr``'s host seconds."""
+    most entries the rows other than long ones of L1_ROWS consecutive rows
+    hold, at most L1_STAGE_MAX (the one-lane kernel's staging);
+    ``plan_s``: ``build_csr``'s host seconds.
+
+    The long rows' plan (``_long_plan``; empty without long rows), int32:
+    the long rows in groups of LONG_GROUP in ``long_rows`` order, group
+    g's column windows (LONG_WIN columns each, window w = columns [w
+    LONG_WIN, (w + 1) LONG_WIN)) that its rows touch
+    ``long_win[long_wptr[g]:long_wptr[g + 1]]``, ascending; ``long_kptr``
+    at ``(long_wptr[g] + g + j) * LONG_GROUP + r`` the first entry of row
+    r of group g in its window j (j = its window count: the row's end),
+    counted in the long rows' entries (their rows in ``long_rows`` order,
+    each row's entries in CSR order: entry e is CSR entry e +
+    ``long_koff[q]`` of long row q); ``long_xi`` (per long entry): its
+    window's place in its group's list times LONG_WIN plus its column
+    modulo LONG_WIN, its place in the group's staged x; ``long_src`` (per
+    long entry): its slot in the operator data (``perm`` of its CSR
+    entry); ``long_segptr`` (n_long + 1) / ``long_segrow`` (per segment):
+    each long row's segments of LONG_SEG entries (the last one shorter),
+    numbered row after row, and each segment's long row;
+    ``long_stage_max``: for a stage of each of LONG_BATCHES windows (a
+    group's windows in runs of that many from its first), the most
+    entries a group's rows have in one."""
     rows: torch.Tensor
     cols: torch.Tensor
     rowptr: torch.Tensor
@@ -134,6 +165,15 @@ class CSRPattern:
     slot: torch.Tensor
     row_off: torch.Tensor
     long_rows: torch.Tensor
+    long_wptr: torch.Tensor
+    long_win: torch.Tensor
+    long_kptr: torch.Tensor
+    long_xi: torch.Tensor
+    long_koff: torch.Tensor
+    long_src: torch.Tensor
+    long_segptr: torch.Tensor
+    long_segrow: torch.Tensor
+    long_stage_max: tuple
     max_rows: int
     max_cols: int
     max_nnz: int
@@ -153,14 +193,22 @@ class CSRPattern:
         return self.long_rows.numel()
 
     @property
+    def n_groups(self) -> int:
+        return -(-self.n_long // LONG_GROUP)
+
+    @property
     def plan_bytes(self) -> int:
-        """Bytes of the index data the tiled kernels read: the slots, the
-        row and column lists with their pointers and offsets, ``rowptr``
-        and ``perm`` where there is one."""
+        """Bytes of the index data a product needs: the slots, the tiles'
+        row and column lists with their pointers and offsets, ``rowptr``,
+        ``perm`` where there is one, and a column index (4 bytes) for each
+        entry of a long row.  The long rows' layout tables (windows,
+        offsets, segments) and ``long_src`` (``perm`` again) belong to this
+        implementation, not to the product, and are not counted."""
         return sum(t.numel() * t.element_size() for t in (
             self.slot, self.tile_rows, self.tile_cols, self.tile_ptr,
             self.col_ptr, self.row_off, self.rowptr, self.long_rows) + (
-                () if self.perm is None else (self.perm,)))
+                () if self.perm is None else (self.perm,))) \
+            + 4 * self.long_xi.numel()
 
 
 def smem_bytes(rows: int, cols: int, nnz: int, itemsize: int = 8) -> int:
@@ -268,6 +316,47 @@ def _plan(rowptr: np.ndarray, col: np.ndarray, n: int, width: int):
             int(tile_nnz.max()) if tile_nnz.size else 0)
 
 
+def _long_plan(rowptr: np.ndarray, col: np.ndarray, long_rows: np.ndarray,
+               width: int):
+    """The long-row kernel's plan (see ``CSRPattern``) for the long rows
+    ``long_rows`` (ascending) of a CSR pattern on ``width`` columns:
+    (wptr, win, kptr, xi, koff, k, stage_max), int64 arrays (k: each long
+    entry's CSR entry) and a tuple."""
+    G, W = LONG_GROUP, LONG_WIN
+    nl = long_rows.size
+    if nl == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z, z, z, (0,) * len(LONG_BATCHES)
+    lens = rowptr[long_rows + 1] - rowptr[long_rows]
+    eptr = np.r_[0, np.cumsum(lens)]
+    koff = rowptr[long_rows] - eptr[:-1]
+    q_of = np.repeat(np.arange(nl), lens)          # each long entry's row
+    lk = np.arange(eptr[-1]) + koff[q_of]
+    lcol = col[lk]
+    nwin = -(-width // W)
+    ng = -(-nl // G)
+    keys = np.unique((q_of // G) * nwin + lcol // W)   # (group, window)
+    wptr = np.searchsorted(keys, np.arange(ng + 1) * nwin)
+    wpos = (np.searchsorted(keys, (q_of // G) * nwin + lcol // W)
+            - wptr[q_of // G])
+    xi = wpos * W + lcol % W
+    kptr = np.zeros((wptr[-1] + ng) * G, np.int64)
+    stage_max = [0] * len(LONG_BATCHES)
+    for g in range(ng):
+        nw = wptr[g + 1] - wptr[g]
+        k = np.zeros((nw + 1, G), np.int64)        # rows past nl stay empty
+        for r in range(min(G, nl - g * G)):
+            q = g * G + r
+            k[:, r] = eptr[q] + np.searchsorted(wpos[eptr[q]:eptr[q + 1]],
+                                                np.arange(nw + 1))
+        kptr[(wptr[g] + g) * G:(wptr[g + 1] + g + 1) * G] = k.ravel()
+        for b, c in enumerate(LONG_BATCHES):
+            j0 = np.arange(0, nw, c)
+            stage_max[b] = max(stage_max[b], int(
+                (k[np.minimum(j0 + c, nw)] - k[j0]).sum(axis=1).max()))
+    return wptr, keys % nwin, kptr, xi, koff, lk, tuple(stage_max)
+
+
 def build_csr(rows, cols, n: int, n_cols: int | None = None) -> CSRPattern:
     """The CSR copy of the flat pattern (rows, cols) (tensors on the
     operator data's device) of n x n_cols operators (None: square) and the
@@ -287,13 +376,20 @@ def build_csr(rows, cols, n: int, n_cols: int | None = None) -> CSRPattern:
     col = c[order]
     (tile_ptr, tile_rows, col_ptr, tile_cols, slot, row_off, long_rows,
      max_rows, max_cols, max_nnz) = _plan(rowptr, col, int(n), n_cols)
-    # the one-lane kernel stages the entries of L1_ROWS consecutive rows,
-    # up to L1_STAGE_MAX; a block with a long row, or more entries, reads
+    # the one-lane kernel stages the entries of L1_ROWS consecutive rows
+    # other than long ones, up to L1_STAGE_MAX; a block with more reads
     # them from global memory instead
     starts = np.arange(0, n, L1_ROWS)
     runs = rowptr[np.minimum(starts + L1_ROWS, n)] - rowptr[starts]
-    runs[long_rows // L1_ROWS] = 0
+    np.subtract.at(runs, long_rows // L1_ROWS,
+                   rowptr[long_rows + 1] - rowptr[long_rows])
     max_block_nnz = min(int(runs.max()) if n else 0, L1_STAGE_MAX)
+    (long_wptr, long_win, long_kptr, long_xi, long_koff, long_k,
+     long_stage_max) = _long_plan(rowptr, col, long_rows, n_cols)
+    nseg = -(-(rowptr[long_rows + 1] - rowptr[long_rows]) // LONG_SEG)
+    long_segptr = np.r_[0, np.cumsum(nseg)] if long_rows.size else \
+        np.zeros(0, np.int64)
+    long_segrow = np.repeat(np.arange(long_rows.size), nseg)
 
     def i32(a):
         return torch.as_tensor(a, dtype=torch.int32, device=dev)
@@ -305,7 +401,13 @@ def build_csr(rows, cols, n: int, n_cols: int | None = None) -> CSRPattern:
         tile_ptr=i32(tile_ptr), tile_rows=i32(tile_rows), col_ptr=i32(col_ptr),
         tile_cols=i32(tile_cols),
         slot=torch.as_tensor(slot, dtype=torch.uint8, device=dev),
-        row_off=i32(row_off), long_rows=i32(long_rows), max_rows=max_rows,
+        row_off=i32(row_off), long_rows=i32(long_rows),
+        long_wptr=i32(long_wptr), long_win=i32(long_win),
+        long_kptr=i32(long_kptr), long_xi=i32(long_xi),
+        long_koff=i32(long_koff), long_src=i32(order[long_k]),
+        long_segptr=i32(long_segptr), long_segrow=i32(long_segrow),
+        long_stage_max=long_stage_max,
+        max_rows=max_rows,
         max_cols=max_cols, max_nnz=max_nnz,
         max_block_nnz=max_block_nnz, plan_s=time.perf_counter() - t0)
 
@@ -326,10 +428,11 @@ def build() -> str:
                     + [ctypes.c_int] * 6 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             fn = getattr(lib, f"csr_mv_long_{dt}")
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] \
-                + [ctypes.c_void_p] + [ctypes.c_longlong] * 2 \
-                + [ctypes.c_void_p] + [ctypes.c_int] * 3 \
-                + [ctypes.c_longlong, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] \
+                + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p] \
+                + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
+                + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
     return report
@@ -400,10 +503,29 @@ def csr_mv_cuda(data, x, csr: CSRPattern):
     if y.numel() == 0:   # nothing to launch
         return y.reshape((S,) + lead + (n,))
     d = data if data.is_contiguous() else data.contiguous()
-    kind = regime(L)
     x2 = x.reshape(L, csr.n_cols)
+    launches = launch_args(d, x2, y, csr)
+    if x.device.index == torch.cuda.current_device():
+        _launch(launches)
+    else:
+        with torch.cuda.device(x.device):
+            _launch(launches)
+    return y.reshape((S,) + lead + (n,))
+
+
+def launch_args(d, x2, y, csr: CSRPattern) -> list:
+    """The (regime, C function, arguments but the stream, tensors the
+    launch reads that nothing else holds) of the launches of one
+    ``csr_mv_cuda`` call: d (S, nnz) contiguous, x2 (L, n_cols) by its
+    strides, y (S, L, n); the tiles' kernel where the plan has tiles, the
+    long rows' after it where it has long rows (their values gathered
+    into a scratch (S, long entries) first; below WIDE_LANES lanes x
+    handed over transposed, a column's lanes side by side, and a scratch
+    (S, L, segments) for the segment sums)."""
+    S, n, L = d.shape[0], csr.n, x2.shape[0]
+    kind = regime(L)
     sxl, sxc = x2.stride()
-    dt = "f64" if x.dtype == torch.float64 else "f32"
+    dt = "f64" if x2.dtype == torch.float64 else "f32"
     perm = 0 if csr.perm is None else csr.perm.data_ptr()
     launches = []
     if csr.n_tiles:     # the rows of the tiles
@@ -414,25 +536,43 @@ def csr_mv_cuda(data, x, csr: CSRPattern):
             csr.rowptr.data_ptr(), csr.col.data_ptr(), perm, x2.data_ptr(),
             sxl, sxc, y.data_ptr(), S, L, n, csr.nnz, csr.n_tiles,
             csr.max_rows, csr.max_cols, csr.max_nnz, csr.max_block_nnz,
-            csr.n_long)))
+            csr.n_long), ()))
     if csr.n_long:      # the long rows, after them on the same stream
+        dl = torch.empty((S, csr.long_src.numel()), dtype=d.dtype,
+                         device=d.device)
+        n_seg = csr.long_segrow.numel()
+        part = None if L >= WIDE_LANES else torch.empty(
+            (S, L, n_seg), dtype=d.dtype, device=d.device)
+        # below WIDE_LANES a column's lanes side by side (one line a warp
+        # load)
+        xl = x2 if L == 1 or L >= WIDE_LANES or sxl == 1 else \
+            x2.t().contiguous().t()
         launches.append(("long", getattr(_lib, f"csr_mv_long_{dt}"), (
-            d.data_ptr(), csr.rowptr.data_ptr(), csr.col.data_ptr(), perm,
-            csr.long_rows.data_ptr(), csr.n_long, x2.data_ptr(), sxl, sxc,
-            y.data_ptr(), S, L, n, csr.nnz)))
-    if x.device.index == torch.cuda.current_device():
-        _launch(launches)
-    else:
-        with torch.cuda.device(x.device):
-            _launch(launches)
-    return y.reshape((S,) + lead + (n,))
+            d.data_ptr(), dl.data_ptr(), 0 if part is None else
+            part.data_ptr(), csr.rowptr.data_ptr(), csr.col.data_ptr(),
+            csr.long_rows.data_ptr(), csr.n_long, csr.long_wptr.data_ptr(),
+            csr.long_win.data_ptr(), csr.long_kptr.data_ptr(),
+            csr.long_xi.data_ptr(), csr.long_koff.data_ptr(),
+            csr.long_src.data_ptr(), csr.long_segptr.data_ptr(),
+            csr.long_segrow.data_ptr(), csr.long_src.numel(), csr.n_groups,
+            n_seg, (ctypes.c_int * len(LONG_BATCHES))(*csr.long_stage_max),
+            xl.data_ptr(), *xl.stride(), y.data_ptr(), S, L, n, csr.n_cols,
+            csr.nnz), (dl, part, xl)))
+    return launches
+
+
+def long_kernels(L: int) -> int:
+    """Kernels one long-row product launches at L lanes: the gather and
+    the group kernel from WIDE_LANES lanes, the gather, the segment sums
+    and their combine below."""
+    return 2 if L >= WIDE_LANES else 3
 
 
 def _launch(launches) -> None:
-    """Run the (regime, C function, arguments) launches in order on the
-    current stream, counting each; raise on a failed one."""
+    """Run the (regime, C function, arguments, tensors) launches in order
+    on the current stream, counting each; raise on a failed one."""
     stream = torch.cuda.current_stream().cuda_stream
-    for name, fn, args in launches:
+    for name, fn, args, _ in launches:
         rc = fn(*args, stream)
         if rc < 0:
             raise RuntimeError(f"csr_mv {name} kernel launch failed: "

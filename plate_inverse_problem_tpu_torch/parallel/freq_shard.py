@@ -18,17 +18,20 @@ The dof axis partitions what the JAX package places over ``dof``
 (``opdata_shardings``), its memory as well as its products: the first dof
 mesh a Problem meets replaces each such entry of its operator data by
 this rank's share and drops the whole one.  By rows (``RowShard``, whole
-blocks of ``ops.dense.fixed_blocks``): the dense inverses (``invK64``,
-the dense tier's preconditioner, the JAX package's f32 ``invK32`` where a
-Problem runs on its operator data, and ``mg_Kcinv``, the two-grid's
-coarse inverse), each rank multiplying by its blocks, the group's slot
-``all_reduce`` filling in the product; and the band basis ``W64``,
-gathered whole for each sweep.  By block rows (``ops.mg.TwoGridRows``,
-whole groups of ``fixed_blocks(nb, 1)``): the two-grid's band
-``mg_band0`` with its K1 pack, its prolongation ``mg_Pt`` and diagonal
-``mg_dinv``; the cycle keeps its vectors on the rank's rows, with a halo
-exchange before each K1 launch on the rank's window, and gathers the
-coarse residual and its output.  Every partitioned product makes the
+blocks of ``ops.dense.fixed_blocks``; a rank may own none): the dense
+inverses (``invK64``, the dense tier's preconditioner, the JAX package's
+f32 ``invK32`` where a Problem runs on its operator data, and
+``mg_Kcinv``, the two-grid's coarse inverse), each rank multiplying by
+its blocks, the group's slot ``all_reduce`` filling in the product; and
+the band basis ``W64``, gathered whole for each sweep.  By block rows
+(``ops.mg.TwoGridRows``, whole groups of ``fixed_blocks(nb, 1)``): the
+two-grid's band ``mg_band0`` with its K1 pack, its prolongation
+``mg_Pt`` and diagonal ``mg_dinv``; the cycle keeps its vectors on the
+rank's rows, with a halo exchange before each K1 launch on the rank's
+window, and gathers the coarse residual and its output.  A dof axis
+wider than the band's groups keeps those three whole, as the JAX package
+keeps an axis its dof axis does not divide: each rank runs the whole
+cycle.  Every partitioned product makes the
 whole one's calls on the rank's blocks, so the group's ranks carry the
 unsharded sweep's bits and their FGMRES decisions stay in lockstep.  A
 placed Problem serves only the collective calls: its unsharded entry
@@ -245,14 +248,21 @@ def row_range(n: int, n_dof: int, i_dof: int) -> tuple[int, int]:
     return owned_blocks(fixed_blocks(n), n_dof, i_dof)
 
 
+def band_splits(nb: int, n_dof: int) -> bool:
+    """Whether a dof axis of ``n_dof`` can split a band of nb block rows:
+    every rank must own whole groups of ``fixed_blocks(nb, 1)``, and there
+    are at most 8."""
+    return len(fixed_blocks(nb, 1)) - 1 >= n_dof
+
+
 def band_range(nb: int, n_dof: int, i_dof: int) -> tuple[int, int]:
     """Block rows [q0, q1) of a band of nb that rank ``i_dof`` of a dof
     axis of ``n_dof`` owns: whole groups of ``fixed_blocks(nb, 1)`` (the
     groups the prolongation's GEMMs run on, at most 8), split as evenly
     as they allow.  Every rank must own some: fewer groups than ranks
-    raise."""
+    raise (``opdata_shardings`` then keeps the two-grid whole)."""
     groups = len(fixed_blocks(nb, 1)) - 1
-    if groups < n_dof:
+    if not band_splits(nb, n_dof):
         raise ValueError(
             f"the two-grid band has nb = {nb} block rows in {groups} groups, "
             f"fewer than the {n_dof} ranks of the dof axis: each rank must "
@@ -366,11 +376,15 @@ def opdata_shardings(mesh: Mesh, opdata) -> dict:
     package needs the leading axis to be a multiple of the dof axis (its
     arrays split into equal parts), the port splits by whole blocks
     (``row_range``, ``band_range``), so it also places an axis that d does
-    not divide.  A band of fewer block-row groups than ranks raises."""
+    not divide.  A band of fewer block-row groups than ranks
+    (``band_splits``) stays whole with its P and diagonal, as the JAX
+    package keeps an axis d does not divide: every rank then runs the
+    whole cycle on the whole K1 pack (its coarse solve still by the
+    coarse inverse's owned rows)."""
     nd = mesh.shape["dof"]
     band = opdata.get("mg_band0")
-    if nd > 1 and band is not None:
-        band_range(band.shape[0], nd, 0)       # raises if it cannot split
+    if band is not None and not band_splits(band.shape[0], nd):
+        band = None
 
     def place(key, v):
         if nd <= 1 or v.ndim == 0 or v.shape[0] <= 1:

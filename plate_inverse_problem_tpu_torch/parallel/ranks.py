@@ -209,7 +209,8 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
     fwd at ``freq_chunk=spec["chunk"]`` (default 1).
     ``spec["reference"]``: after each step its single-process counterpart
     on the same inputs, under "ref_<step>" (the sweep,
-    ``LossFunction.value_and_grad``, ``_host_gn``); ``spec["control"]``
+    ``LossFunction.value_and_grad``, ``_host_gn``; "frf": the sweep's
+    alone); ``spec["control"]``
     too: once, "ctrl_pad", the adjoint ``_host_gn`` with the last
     frequency counted twice (the fault a pad lane left in would make);
     ``spec["oracle"]``: rank 0 also holds the FRF's peak against the
@@ -253,6 +254,7 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
         rec["padded"] = _np(fs.padded)
         steps = spec["steps"]
         single = spec.get("reference")
+        ref_steps = single and single != "frf"   # the steps' too
         at = theta if spec.get("at_theta") else truth
 
         def run(name, fn, keep):
@@ -267,11 +269,11 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
             if ref is None:
                 ref = _np(p.solveForward(freqs, truth))
             run("ref_frf", lambda: p.solveForward(freqs, at), _np)
-            if "train" in steps:
+            if "train" in steps and ref_steps:
                 loss = p.getLossFunction(freqs, ref, "MSE_LOG_AFC")
                 run("ref_train", lambda: loss.value_and_grad(theta), pair)
             for name in ("gn_adjoint", "gn_fwd"):
-                if name in steps:
+                if name in steps and ref_steps:
                     run("ref_" + name, lambda: _host_gn(
                         p, freqs, ref, theta, name[3:]), pair)
         if shape[1] > 1:
@@ -309,13 +311,13 @@ def sharded_checks(rank: int, device, out_dir: str, spec: dict) -> None:
                 run("ref_frf", lambda: p.solveForward(freqs, truth), _np)
             if "train" in steps:
                 run("train", lambda: train(freqs, ref, theta), pair)
-                if single:
+                if single and ref_steps:
                     loss = p.getLossFunction(freqs, ref, "MSE_LOG_AFC")
                     run("ref_train", lambda: loss.value_and_grad(theta), pair)
             for name, gn in gns.items():
                 if name in steps:
                     run(name, lambda: gn(freqs, ref, theta), pair)
-                    if single and not name.endswith("_chunk"):
+                    if single and ref_steps and not name.endswith("_chunk"):
                         run("ref_" + name, lambda: _host_gn(
                             p, freqs, ref, theta, name[3:]), pair)
             if spec.get("control") and i == 0:

@@ -77,11 +77,25 @@ def _check_plan(csr):
         r = tile_rows[tile_ptr[t]:tile_ptr[t + 1]]
         assert np.array_equal(row_off[r], np.r_[0, np.cumsum(lens[r])[:-1]])
         assert lens[r].sum() <= csr.max_nnz
-    # the one-lane kernel stages the blocks without a long row
+    # the one-lane kernel stages each block's rows but the long ones
     ends = rowptr[np.minimum(np.arange(0, n, ck.L1_ROWS) + ck.L1_ROWS, n)]
     runs = ends - rowptr[0:n:ck.L1_ROWS]
-    runs[long_rows // ck.L1_ROWS] = 0
+    for i in long_rows:
+        runs[i // ck.L1_ROWS] -= rowptr[i + 1] - rowptr[i]
     assert n == 0 or csr.max_block_nnz == min(runs.max(), ck.L1_STAGE_MAX)
+    # the long rows' plan, field for field against a row-by-row reference
+    ref = _long_plan_reference(rowptr, col, long_rows, csr.n_cols)
+    perm = (np.arange(nnz) if csr.perm is None
+            else csr.perm.numpy().astype(np.int64))
+    ref["long_src"] = [int(perm[k]) for i in long_rows
+                       for k in range(rowptr[i], rowptr[i + 1])]
+    segs = [-(-(rowptr[i + 1] - rowptr[i]) // ck.LONG_SEG) for i in long_rows]
+    ref["long_segptr"] = np.cumsum([0] + segs).tolist() if segs else []
+    ref["long_segrow"] = [q for q, m in enumerate(segs) for _ in range(m)]
+    for k, v in ref.items():
+        got = getattr(csr, k)
+        got = got if isinstance(got, tuple) else got.numpy().tolist()
+        assert got == v, k
     # every slot points at its own column, in its own tile's list
     base = col_ptr[tile_of[row_of[in_tile]]]
     assert np.all(slot[in_tile] < counts[tile_of[row_of[in_tile]]])
@@ -94,30 +108,76 @@ def _check_plan(csr):
                 or k.size > ck.MAX_TILE_NNZ)
 
 
+def _long_plan_reference(rowptr, col, long_rows, width):
+    """The long rows' plan built row by row, group by group (lists)."""
+    G, W = ck.LONG_GROUP, ck.LONG_WIN
+    out = {k: [] for k in ("long_wptr", "long_win", "long_kptr",
+                           "long_xi", "long_koff")}
+    stage_max = [0] * len(ck.LONG_BATCHES)
+    if len(long_rows) == 0:
+        return out | {"long_stage_max": tuple(stage_max)}
+    e = 0
+    out["long_wptr"].append(0)
+    for g0 in range(0, len(long_rows), G):
+        group = long_rows[g0:g0 + G]
+        cols = [col[rowptr[i]:rowptr[i + 1]] for i in group]
+        wins = sorted({int(c) // W for cs in cols for c in cs})
+        out["long_win"] += wins
+        out["long_wptr"].append(len(out["long_win"]))
+        place = {w: j for j, w in enumerate(wins)}
+        kptr = np.zeros((len(wins) + 1, G), np.int64)
+        for r, (i, cs) in enumerate(zip(group, cols)):
+            out["long_koff"].append(int(rowptr[i]) - e)
+            for j, w in enumerate(wins):
+                # the row's first entry in window w
+                kptr[j, r] = e + int(np.count_nonzero(cs // W < w))
+            kptr[len(wins), r] = e + len(cs)
+            out["long_xi"] += [place[int(c) // W] * W + int(c) % W
+                               for c in cs]
+            e += len(cs)
+        out["long_kptr"] += kptr.ravel().tolist()
+        for b, c in enumerate(ck.LONG_BATCHES):
+            for j0 in range(0, len(wins), c):
+                j1 = min(j0 + c, len(wins))
+                stage_max[b] = max(stage_max[b],
+                                   int((kptr[j1] - kptr[j0]).sum()))
+    return out | {"long_stage_max": tuple(stage_max)}
+
+
 def _planned(data, x, csr):
-    """Plain torch emulation of the tiled kernels' order: x staged at every
+    """Plain torch emulation of the kernels' order: x staged at every
     tile's columns, read through the slots, each row's entries summed in
-    ascending CSR order; a long row's entries in that order from x
-    itself."""
-    n = csr.n
+    ascending CSR order; a long row's entries in that order too, x staged
+    over its group's windows and read at the entries' ``long_xi``."""
+    n, n_cols = csr.n, csr.n_cols
     d = data if csr.perm is None else data[:, csr.perm]
-    x2 = x.reshape(-1, n)
+    x2 = x.reshape(-1, n_cols)
     tile_ptr, tile_rows, col_ptr, tile_cols, slot, rowptr = (
         t.long() for t in (csr.tile_ptr, csr.tile_rows, csr.col_ptr,
                            csr.tile_cols, csr.slot, csr.rowptr))
     staged = x2[:, tile_cols]                     # (L, every tile's columns)
+    # each long entry's x: its group's windows staged, read at its place
+    wptr, win, xi, koff = (t.long() for t in (
+        csr.long_wptr, csr.long_win, csr.long_xi, csr.long_koff))
+    x_long = torch.zeros(x2.shape[0], csr.nnz, dtype=x2.dtype)
+    for q, i in enumerate(csr.long_rows.long().tolist()):
+        g = q // ck.LONG_GROUP
+        wins = win[wptr[g]:wptr[g + 1]]
+        cols = (wins[:, None] * ck.LONG_WIN
+                + torch.arange(ck.LONG_WIN)).ravel().clamp(max=n_cols - 1)
+        e = torch.arange(rowptr[i] - koff[q], rowptr[i + 1] - koff[q])
+        x_long[:, e + koff[q]] = x2[:, cols][:, xi[e]]
     tile_of = torch.full((n,), -1, dtype=torch.long)
     tile_of[tile_rows] = torch.repeat_interleave(
         torch.arange(csr.n_tiles), tile_ptr.diff())
     lens = rowptr.diff()
-    col = csr.col.long()
     acc = torch.zeros(d.shape[0], x2.shape[0], n, dtype=d.dtype)
     for j in range(int(lens.max()) if n else 0):
         live = torch.nonzero(lens > j).flatten()
         k = rowptr[live] + j
         t = tile_of[live]
         xv = torch.where(t >= 0, staged[:, col_ptr[t.clamp(min=0)] + slot[k]],
-                         x2[:, col[k]])
+                         x_long[:, k])
         acc[:, :, live] += d[:, k][:, None, :] * xv[None]
     return acc.reshape((d.shape[0],) + x.shape[:-1] + (n,))
 
@@ -189,6 +249,89 @@ def test_plan_raises_on_a_row_too_wide():
                           torch.as_tensor(cols), n)
     tol = 1e-13 * float(y_ref.abs().max())
     assert float((_planned(data, x, csr) - y_ref).abs().max()) <= tol
+
+
+def _long_pattern(case, rng):
+    """(rows, cols, n_rows, n_cols) of a pattern with long rows, shuffled:
+    "mixed" a band of 5 columns a row on 700 rows, every 9th row with
+    257-600 more distinct random columns (78 long rows, three groups);
+    "exact" one row of exactly 257 distinct columns and one over all 700;
+    "rect" a 150 x 1500 restriction-like pattern, every 4th row with
+    300-1200 columns of its own stretch of the 1500 and the rest 9
+    (P^T-like: its rows' columns run together)."""
+    rows, cols = [], []
+    n_rows, n_cols = (150, 1500) if case == "rect" else (700, 700)
+    for i in range(n_rows):
+        j = i * n_cols // n_rows
+        c = np.arange(max(0, j - 4), min(n_cols, j + 5))
+        if case == "mixed" and i % 9 == 4:
+            c = np.union1d(c[2:7], rng.choice(n_cols, int(rng.integers(
+                257, 601)), replace=False))
+        elif case == "exact" and i in (3, 500):
+            c = (np.sort(rng.choice(n_cols, 257, replace=False)) if i == 3
+                 else np.arange(n_cols))
+        elif case == "rect" and i % 4 == 1:
+            w = int(rng.integers(300, 1201))
+            c = np.arange(max(0, min(j, n_cols - w)),
+                          max(0, min(j, n_cols - w)) + w)
+        rows.append(np.full(c.size, i))
+        cols.append(c)
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    perm = rng.permutation(r.size)
+    return r[perm], c[perm], n_rows, n_cols
+
+
+@pytest.mark.parametrize("case", ["mixed", "exact", "rect"])
+def test_long_plan_and_its_order(case):
+    """Patterns with long rows (mixed, a row of exactly 257 distinct
+    columns and one over every column, a rectangular one): the long rows'
+    plan is the row-by-row reference's field for field (``_check_plan``),
+    every long row's windows cover its columns, and the kernels' order
+    (x staged over a group's windows) gives the scatter's product to 1e-13
+    of max |y|."""
+    rng = np.random.default_rng(["mixed", "exact", "rect"].index(case))
+    r, c, n_rows, n_cols = _long_pattern(case, rng)
+    csr = ck.build_csr(torch.as_tensor(r), torch.as_tensor(c), n_rows, n_cols)
+    want = {"mixed": 78, "exact": 2, "rect": 38}[case]
+    assert csr.n_long == want and csr.n_groups == -(-want // ck.LONG_GROUP)
+    _check_plan(csr)
+    data = torch.as_tensor(rng.standard_normal((3, r.size)))
+    x = torch.as_tensor(rng.standard_normal((2, n_cols)))
+    y_ref = ck.scatter_mv(data, x, torch.as_tensor(r), torch.as_tensor(c),
+                          n_rows)
+    tol = 1e-13 * float(y_ref.abs().max())
+    assert float((_planned(data, x, csr) - y_ref).abs().max()) <= tol
+
+
+# the bench pattern's plan as PR 15's build_csr made it: sha256 of each
+# array's bytes (first 16 hex digits) and its sizes
+BENCH_PLAN = {
+    "rowptr": "99ef75b8abdc698b", "col": "87cee4ce1d82d704",
+    "tile_ptr": "24ea29d5b96c7d1b", "tile_rows": "11624349554ed652",
+    "col_ptr": "c85f706adb4c5899", "tile_cols": "507309bb4c5affb9",
+    "slot": "e5d1873c7a8e63a5", "row_off": "b8a47654172d890a",
+    "long_rows": "e3b0c44298fc1c14", "max_rows": 32, "max_cols": 256,
+    "max_nnz": 998, "max_block_nnz": 4262, "n_tiles": 47,
+    "plan_bytes": 88020}
+
+
+def test_bench_plan_is_unchanged():
+    """The bench plate's plan (n = 1466, no long row) is the one the tile
+    kernels always had, field for field; its long-row plan is empty."""
+    import hashlib
+
+    rows, cols, n = _plate_pattern(1.0)
+    csr = ck.build_csr(torch.as_tensor(rows), torch.as_tensor(cols), n)
+    got = {k: (getattr(csr, k) if not isinstance(getattr(csr, k),
+                                                 torch.Tensor)
+               else hashlib.sha256(getattr(csr, k).numpy().tobytes())
+               .hexdigest()[:16]) for k in BENCH_PLAN}
+    assert got == BENCH_PLAN and csr.perm is None
+    assert csr.n_long == csr.n_groups == 0
+    assert csr.long_stage_max == (0,) * len(ck.LONG_BATCHES)
+    assert all(getattr(csr, k).numel() == 0 for k in (
+        "long_wptr", "long_win", "long_kptr", "long_xi", "long_koff",
+        "long_src", "long_segptr", "long_segrow"))
 
 
 def test_planned_order_matches_scatter_and_jax():

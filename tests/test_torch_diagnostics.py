@@ -295,7 +295,8 @@ def test_profile_call_and_device_report(tmp_path):
     """``profile_call`` writes a Chrome trace of the call (its torch ops
     named in it) into a run directory under ``logdir``; on the CPU
     ``device_report`` names the CPU with no power limit and
-    ``test_function`` gives numpy's 2x + sin(x) in the input's dtype."""
+    ``test_function`` on the CPU gives numpy's 2x + sin(x) in the input's
+    dtype, and on the card (its default) raises where there is none."""
     x = torch.ones(64, 64, dtype=torch.float64)
     out, run, dt = profile.profile_call(lambda a: (a @ a).sum(), x,
                                         label="unit", logdir=str(tmp_path))
@@ -308,7 +309,12 @@ def test_profile_call_and_device_report(tmp_path):
     assert rep == {"backend": "cpu", "n_devices": 0, "x64": True,
                    "devices": [{"name": "cpu", "power_limit": None}]}
     xs = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
-    y = smoke.test_function(xs)
+    y = smoke.test_function(xs, device="cpu")
     assert y.dtype == np.float32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            smoke.test_function(xs)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            smoke.test_function(xs, device="cuda")
     np.testing.assert_allclose(y, 2.0 * xs + np.sin(xs), rtol=1e-6,
                                atol=1e-6)

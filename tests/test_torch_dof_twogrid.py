@@ -5,7 +5,8 @@
 A rank of a dof group holds block rows [q0, q1) of the two-grid's band
 ``mg_band0`` with their K1 window pack, of its prolongation ``mg_Pt`` and
 of its diagonal ``mg_dinv``, and rows of ``W64``; every partitioned
-product has the whole one's bits.  The plate is tests/test_torch_mg.py's
+product has the whole one's bits.  A dof axis wider than the band's
+block-row groups keeps the two-grid whole on every rank.  The plate is tests/test_torch_mg.py's
 (sh_i refine 1, n = 1466, b = 256, nb = 6, n_c = 470, ``precond="mg"``,
 ``operator_layout="band"``) on the JAX package's operator data through
 ``opdata_from_jax``.  In-process ranks run in threads, their combines
@@ -19,6 +20,7 @@ the cycle against the JAX package's ``twogrid_apply`` 1e-5 relative
 bit for bit, against the JAX package's FRF 3e-6 relative
 (tests/test_torch_mixed.py's).
 """
+import copy
 import gc
 import threading
 import weakref
@@ -36,7 +38,8 @@ from plate_inverse_problem_tpu_torch.ops.band_kernel import (
     band_mv_f32_reference, pack_band_tiles)
 from plate_inverse_problem_tpu_torch.ops.dense import (
     dense_apply, fixed_blocks)
-from plate_inverse_problem_tpu_torch.parallel import Mesh, opdata_shardings
+from plate_inverse_problem_tpu_torch.parallel import (
+    Mesh, opdata_shardings, sharded_fr_function)
 from plate_inverse_problem_tpu_torch.parallel import ranks
 from plate_inverse_problem_tpu_torch.parallel.freq_shard import (
     RowShard, _own_twogrid, _placed, band_range, row_range)
@@ -224,8 +227,10 @@ def test_placement_keeps_no_whole_buffer(pair):
     or ``W64``; its operator data holds its block rows (whole groups of
     ``fixed_blocks(nb, 1)``), P's and the diagonal's in its
     ``TwoGridRows``, and the port's specs are the JAX package's on
-    a (4, 2) mesh; a dof axis with more ranks than the band has groups
-    raises."""
+    a (4, 2) mesh; on a dof axis with more ranks than the band has groups
+    (d = 8, which divides none of the two-grid's axes) the two-grid's
+    specs are the JAX package's, whole, and ``band_range`` raises for
+    rows it cannot give."""
     p = _port(pair[1])
     od = p.getFRCore()[1]
     nb, b = od["mg_band0"].shape[:2]
@@ -271,9 +276,63 @@ def test_placement_keeps_no_whole_buffer(pair):
     assert spec == {k: tuple(s.spec) for k, s in jspec.items()}
     for k in ("mg_band0", "mg_Pt", "mg_dinv", "mg_Kcinv", "W64"):
         assert spec[k] != (), k
+    jspec8 = jshardings(jmake_mesh(8, dof_axis=8), jod)
+    spec8 = opdata_shardings(Mesh(1, 8, 0, None, {}), jod)
+    for k in ("mg_band0", "mg_Pt", "mg_dinv"):
+        assert spec8[k] == tuple(jspec8[k].spec) == (), k
     with pytest.raises(ValueError, match="groups"):
-        opdata_shardings(Mesh(1, 8, 0, None, {}), {"mg_band0": jod[
-            "mg_band0"]})
+        band_range(nb, 8, 0)
+
+
+class _ThreadMesh(Mesh):
+    """Rank i of an in-process (freq 1, dof d) mesh of threads: the dof
+    axis's all_reduce is the ``_Group``'s slot sum, the freq axis has one
+    rank."""
+
+    def __init__(self, group, i):
+        super().__init__(1, group.d, i, None, {})
+        self._dof = group.mesh(i)
+
+    def reduce(self, buf, axis):
+        if axis == "dof":
+            self._dof.reduce(buf, axis)
+        self.collectives += 1
+
+
+def test_dof_axis_wider_than_the_band_sweeps_whole_twogrid(pair):
+    """A dof axis of 7 in-process ranks on the 6-block-row band (6 groups;
+    8 fixed blocks of ``mg_Kcinv`` and ``W64``, one rank owning two): each
+    rank's copy of the unplaced Problem keeps the two-grid's band, P,
+    diagonal and K1 pack whole and owns its rows of ``mg_Kcinv`` and
+    ``W64``; every rank's sharded FRF at the resonance's neighbour is the
+    unsharded port's bits.  (The Gauss-Newton step is not run here: its
+    tangents use forward-mode AD, whose levels are global to the process,
+    so threads cannot run it side by side.)"""
+    pp = pair[2]
+    freqs = FREQS[2:3]
+    theta = np.asarray(pp.parameters, np.float64) * np.asarray(THETA)
+    want = pp.solveForward(freqs, theta).numpy()
+    d = 7
+    g = _Group(d)
+    ps = [copy.deepcopy(pp) for _ in range(d)]
+
+    def rank(i):
+        p = ps[i]
+        fr = sharded_fr_function(p, _ThreadMesh(g, i))(freqs, theta)
+        od = p.operator_data()
+        return (fr.numpy(), isinstance(od["mg_band0"], torch.Tensor)
+                and isinstance(od["mg_Pt"], torch.Tensor)
+                and isinstance(od["mg_dinv"], torch.Tensor)
+                and p._band_pack is not None,
+                {k: (od[k].lo, od[k].hi) for k in ("mg_Kcinv", "W64")})
+
+    out = g.run(rank)
+    for i, (fr, whole, rows) in enumerate(out):
+        assert np.array_equal(fr, want), i
+        assert whole, i
+        for k, (lo, hi) in rows.items():
+            n = pp.getFRCore()[1][k].shape[0]
+            assert (lo, hi) == row_range(n, d, i), k
 
 
 @pytest.fixture(scope="module")

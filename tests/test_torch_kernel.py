@@ -17,7 +17,11 @@ two sweeps bit for bit (it sums in one fixed order), and the same bits
 from a non-contiguous x;
 K3's long rows (more than 256 distinct columns) through the long-row
 kernel beside each tile kernel, on mixed, rectangular and all-long
-patterns, to the same bounds and bit for bit twice;
+patterns, to the same bounds and bit for bit twice, and at the long-row
+kernel's shapes (a row of 257 columns, a row over all of them, P^T-like,
+S up to 32, with and without the permutation) to 1e-14 / 1e-5, and the
+Chrome trace of long-row products naming K3's kernels as often as the
+launch counter counts them;
 K3's autograd Function on the card against the CPU's to 1e-12; the FRF
 against the host f64 splu oracle to 1e-6 relative (the repo's gate); the
 adjoint Gauss-Newton residual and Jacobian on the card against the same
@@ -418,9 +422,10 @@ def test_csr_kernel_long_rows(cuda_device, dtype, L):
     """The long-row regime beside each tile kernel (one lane, narrow,
     wide) on a mixed pattern, a rectangular one and an all-long one, at S
     in {1, 2, 3}: against the plain version (1e-12 / 1e-5 of max |y|),
-    one launch of the tile kernel where there are tiles and one of the
-    long-row kernel, each counted under its regime, two calls bit for bit,
-    and a non-contiguous x giving the same bits."""
+    one launch of the tile kernel where there are tiles and the long-row
+    product's kernels (``long_kernels``: 2 from 32 lanes, 3 below), each
+    counted under its regime, two calls bit for bit, and a non-contiguous
+    x giving the same bits."""
     kind = csr_kernel.regime(L)
     for csr in _long_cases(cuda_device):
         for S in (1, 2, 3):
@@ -434,9 +439,10 @@ def test_csr_kernel_long_rows(cuda_device, dtype, L):
             y = csr_kernel.csr_mv_cuda(data, x, csr)
             torch.cuda.synchronize()
             tiles = 1 if csr.n_tiles else 0
-            assert csr_kernel.csr_mv_cuda.launches == n0 + tiles + 1
+            long = csr_kernel.long_kernels(L)
+            assert csr_kernel.csr_mv_cuda.launches == n0 + tiles + long
             now = csr_kernel.csr_mv_cuda.launches_by_regime
-            assert now["long"] == by["long"] + 1
+            assert now["long"] == by["long"] + long
             assert now[kind] == by[kind] + tiles
             y_ref = csr_kernel.csr_mv_reference(data, x, csr)
             tol = 1e-12 if dtype == torch.float64 else 1e-5
@@ -445,6 +451,114 @@ def test_csr_kernel_long_rows(cuda_device, dtype, L):
             assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x, csr))
             x_t = x.t().contiguous().t()
             assert torch.equal(y, csr_kernel.csr_mv_cuda(data, x_t, csr))
+
+
+def _long_shapes(device):
+    """The long-row kernel's shapes, each pattern in CSR order (no
+    permutation) and shuffled (the data read through it): a square 2000
+    one with a band of 9, a row of exactly 257 distinct columns, a row
+    over all 2000 and every 50th row with 300-1500 random ones; and a
+    150 x 3000 restriction-like one (P^T: every 4th row over 300-2500
+    columns of its own stretch)."""
+    rng = np.random.default_rng(23)
+    out = []
+    for n_rows, n_cols in ((2000, 2000), (150, 3000)):
+        r, c = [], []
+        for i in range(n_rows):
+            j = i * n_cols // n_rows
+            cols = np.arange(max(0, j - 4), min(n_cols, j + 5))
+            if n_rows == n_cols and i == 7:
+                cols = np.sort(rng.choice(n_cols, 257, replace=False))
+            elif n_rows == n_cols and i == 1200:
+                cols = np.arange(n_cols)
+            elif n_rows == n_cols and i % 50 == 21:
+                cols = np.union1d(cols, rng.choice(
+                    n_cols, int(rng.integers(300, 1501)), replace=False))
+            elif n_rows != n_cols and i % 4 == 1:
+                w = int(rng.integers(300, 2501))
+                a = max(0, min(j, n_cols - w))
+                cols = np.arange(a, a + w)
+            r.append(np.full(cols.size, i))
+            c.append(cols)
+        r, c = np.concatenate(r), np.concatenate(c)
+        perm = rng.permutation(r.size)
+        for rr, cc in ((r, c), (r[perm], c[perm])):
+            out.append(csr_kernel.build_csr(
+                torch.as_tensor(rr, device=device),
+                torch.as_tensor(cc, device=device), n_rows, n_cols))
+    assert [csr.perm is None for csr in out] == [True, False] * 2
+    assert all(csr.n_long > 0 for csr in out)
+    return out
+
+
+@pytest.mark.cuda
+def test_csr_long_rows_trace_matches_counter(cuda_device, tmp_path):
+    """K3 products on a pattern with long rows at L = 8 and 64, in one
+    ``diagnostics.profile_call`` capture (the process's only one: a later
+    capture in a process can lose kernel records): the Chrome trace names
+    K3's kernels (``csr_mv_*``) as often as ``csr_mv_cuda.launches``
+    counts them, a tile kernel and ``long_kernels(L)`` long-row kernels a
+    product."""
+    import json
+    import os
+
+    from plate_inverse_problem_tpu_torch.diagnostics import profile
+
+    csr = _long_shapes(cuda_device)[1]
+    rng = np.random.default_rng(5)
+    data = torch.as_tensor(rng.standard_normal((2, csr.nnz)),
+                           device=cuda_device)
+    xs = [torch.as_tensor(rng.standard_normal((L, csr.n_cols)),
+                          device=cuda_device) for L in (8, 64)]
+
+    def products(d):
+        return [csr_kernel.csr_mv_cuda(d, x, csr) for x in xs]
+
+    products(data)                   # built and warm, out of the capture
+    torch.cuda.synchronize()
+    n0 = csr_kernel.csr_mv_cuda.launches
+    _, run, _ = profile.profile_call(products, data, label="k3_long_rows",
+                                     logdir=str(tmp_path), warmup=False)
+    counted = csr_kernel.csr_mv_cuda.launches - n0
+    with open(os.path.join(run, profile.TRACE_FILE)) as fh:
+        traced = sum(1 for e in json.load(fh)["traceEvents"]
+                     if e.get("cat") == "kernel"
+                     and "csr_mv_" in e.get("name", ""))
+    want = sum(1 + csr_kernel.long_kernels(x.shape[0]) for x in xs)
+    assert counted == traced == want, (counted, traced, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 16, 33, 1024])
+def test_csr_long_kernel_shapes(cuda_device, dtype, L):
+    """The long-row kernel at S in {1, 2, 3, 32} on a row of exactly 257
+    distinct columns, a row over all columns, random long rows and a
+    rectangular P^T-like pattern, with and without the data's permutation:
+    the long-row product's kernels a call (``long_kernels``, counted under
+    its regime), two calls bit
+    for bit, and within chip_smoke.py's LONG_TOL (1e-14 of max |y|, f64)
+    or CSR_TOL (1e-5, f32) of the plain version."""
+    tol = 1e-14 if dtype == torch.float64 else 1e-5
+    itemsize = 8 if dtype == torch.float64 else 4
+    for csr in _long_shapes(cuda_device):
+        for S in (1, 2, 3, 32):
+            rng = np.random.default_rng(S * L + csr.n_cols)
+            data = torch.as_tensor(rng.standard_normal((S, csr.nnz)),
+                                   dtype=dtype, device=cuda_device)
+            x = torch.as_tensor(rng.standard_normal((L, csr.n_cols)),
+                                dtype=dtype, device=cuda_device)
+            by = dict(csr_kernel.csr_mv_cuda.launches_by_regime)
+            y = csr_kernel.csr_mv_cuda(data, x, csr)
+            y2 = csr_kernel.csr_mv_cuda(data, x, csr)
+            torch.cuda.synchronize()
+            assert csr_kernel.csr_mv_cuda.launches_by_regime["long"] == \
+                by["long"] + 2 * csr_kernel.long_kernels(L)
+            assert torch.equal(y, y2)
+            seg = max(1024, 2**31 // (S * L * itemsize))
+            y_ref = csr_kernel.csr_mv_reference(data, x, csr, seg)
+            assert float((y - y_ref).abs().max()) <= tol * float(
+                y_ref.abs().max()), (csr.n, csr.perm is None, S)
 
 
 @pytest.mark.cuda
