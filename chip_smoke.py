@@ -188,7 +188,7 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    (``examples/test_device_lib.py``); (g) tests/test_compat.py's script
    on the card;
 14. frequency sharding over torch.distributed (``[slice12]``), each rank a
-   process started with the ``spawn`` method (``parallel.ranks``): (a)
+   process forked from a forkserver (``parallel.ranks.spawn``): (a)
    the bench plate (n = 1466, 512 points) at one rank per card over NCCL
    — the sharded FRF against the unsharded sweep (its bits at world 1),
    the training step against ``LossFunction.value_and_grad`` (SHARD_TOL,
@@ -235,7 +235,26 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    path) and in this process (the plain run's), against the JAX
    package's CPU run of
    ``examples/multichip.py`` (MULTICHIP_JAX, MULTICHIP_TOL).  Each step
-   prints its wall, its collectives' seconds and K1 / K3 per rank.
+   prints its wall, its collectives' seconds and K1 / K3 per rank;
+15. the scale tiers (``[slice17]``), 512 points over 40-600 Hz, tier
+   "auto" (band + two-grid): (a) ``sh_i`` refine = 6 (n = 46432) and (b)
+   refine = 9 (n = 103680), isotropic steel: construction with each host
+   part's seconds, n_free and nnz against the JAX package's
+   (TIER_COUNTS), K1's shared memory a block, a first and two steady
+   sweeps (the two steady ones bit for bit, K1 > 0), the refined splu
+   (refine 6: 4 points incl. the peak to ORACLE_TOL; refine 9: a point
+   off the peak to ORACLE_TOL, the peak raw or after ``polish_peaks``),
+   one adjoint r + J with its seconds and peak memory; at refine 9 K1 on
+   the pack and K3 on the pattern at the sweep's chunk against their
+   plain versions (KERNEL_TOL, CSR_TOL), timed beside bound and library
+   call, and K3 with 24 operators at 1024 lanes (past 2^31 outputs)
+   against the plain version where the offsets are largest; (c)
+   OrthotropicD4 at refine 9: the adjoint r + J at 512 points against
+   (b)'s FRF, its peak device memory at most RJ_MEM_GB, J at half the
+   budget's block from the same sweeps with the same bits; on phase 8
+   (b)'s 21k Problem the adjoint J at RJ_ALT_BLOCK frequencies a block
+   with phase 8 (b)'s bits and within FWD_J_RTOL / FWD_J_ATOL of phase 10
+   (b)'s forward-mode J.
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -501,6 +520,12 @@ MULTICHIP_JAX = {"losses": [0.03031934638051415, 0.029388834416543528,
                             0.028150455103617637],
                  "final_rsq": 1.6832674222076234e-05}
 MULTICHIP_TOL = 1e-6
+# phase 15: the scale tiers' host counts (n_free, pattern entries) in the
+# JAX package's runs (SCALE.md), the bound on OrthotropicD4's adjoint r + J
+# at 104k (half an 80 GB card) and the second block size of its 21k check
+TIER_COUNTS = {6.0: (46432, 1146820), 9.0: (103680, 2571222)}
+RJ_MEM_GB = 40.0
+RJ_ALT_BLOCK = 64
 # phase 9 (e): the script of examples/edp_import.py
 EDP_SCRIPT = """
 // a plate with a circular hole, clamped on its RIGHT border (label 2 --
@@ -1424,7 +1449,7 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
-    """Phases 2-14 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-15 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources`` / ``ab_csr_sources``: other versions of K1 / K3 to time
     beside them (A/B only)."""
     import torch
@@ -1552,7 +1577,9 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     # phases 10 and 11 both run before a failed check of either raises
     failed = []
     try:
-        s8 = slice8(dev, p, freqs, fr, kept.pop("d4"))
+        s8 = slice8(dev, p, freqs, fr, kept["d4"])
+        # phase 15 (c) holds the blocked adjoint J against this fwd J
+        kept["d4_fwd"] = s8["fwd_d4"].pop("rj")
     except AssertionError as err:
         failed.append(str(err))
     t11 = time.perf_counter()
@@ -1582,6 +1609,11 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     s12 = slice12(dev, p21=p)
     s12_s = time.perf_counter() - t14
     print(f"[time] phase 14 in {s12_s:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    s17 = slice17(dev, kept)
+    kept.clear()
+    s17_s = time.perf_counter() - t15
+    print(f"[time] phase 15 in {s17_s:.1f} s", flush=True)
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
               "sweep_21k": k3_sweep_regimes,
               "rj_21k": inv["k3_rj_by_regime"],
@@ -1609,6 +1641,8 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                "slice11": {k: v for k, v in s11.items()
                            if k not in ("k1", "k3")},
                "slice12": {k: v for k, v in s12.items()
+                           if k not in ("k1", "k3")},
+               "slice17": {k: v for k, v in s17.items()
                            if k not in ("k1", "k3")}}
     summary["phases_s"] = time.perf_counter() - t_phases
     summary["phases_2_9_s"] = summary_s
@@ -1616,10 +1650,13 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     summary["phase_12_s"] = s10_s
     summary["phase_13_s"] = s11_s
     summary["phase_14_s"] = s12_s
-    s8_s = summary["phases_s"] - summary_s - eng_s - s10_s - s11_s - s12_s
-    print(f"[time] phases 2-14 in {summary['phases_s']:.1f} s (phase 10: "
+    summary["phase_15_s"] = s17_s
+    s8_s = (summary["phases_s"] - summary_s - eng_s - s10_s - s11_s - s12_s
+            - s17_s)
+    print(f"[time] phases 2-15 in {summary['phases_s']:.1f} s (phase 10: "
           f"{s8_s:.1f} s, phase 11: {eng_s:.1f} s, phase 12: {s10_s:.1f} s, "
-          f"phase 13: {s11_s:.1f} s, phase 14: {s12_s:.1f} s)", flush=True)
+          f"phase 13: {s11_s:.1f} s, phase 14: {s12_s:.1f} s, phase 15: "
+          f"{s17_s:.1f} s)", flush=True)
     k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
                 "grad_21k": inv["k3_grad"],
                 "dense_sweep_1466": dense["bench"]["k3"],
@@ -1633,7 +1670,7 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                 "mg_flat_sweeps_21k": s10["mg_20916"]["k3"],
                 "mg_flat_rect_21k": s10["mg_20916"]["k3_rect"],
                 "sparse_api": s10["sparse"]["k3"],
-                **s11["k3"], **s12["k3"]}
+                **s11["k3"], **s12["k3"], **s17["k3"]}
     if not all(v > 0 for v in k3_paths.values()):
         raise AssertionError(f"K3 launched no time on a path: {k3_paths}")
     print(f"[summary] {json.dumps(summary)}", flush=True)
@@ -1652,13 +1689,16 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                                  s10["lobpcg_20916"]["k1_basis"],
                              "mg_flat_sweeps_1466": s10["mg_1466"]["k1"],
                              "mg_flat_sweeps_21k": s10["mg_20916"]["k1"],
-                             **s11["k1"], **s12["k1"]},
+                             **s11["k1"], **s12["k1"], **s17["k1"]},
         "max_abs_err": slice_rec["max_abs_err"],
         "ms": slice_rec["ms"],
         "plain_ms": slice_rec["plain_ms"],
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": slice_rec["library_ms"],
+        "scale_104k": {k: s17["b"]["k1_kernel"][k] for k in (
+            "B", "max_abs_err", "ms", "flushed_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
     }, {
         "name": "csr_mv",
         "route": "cuda",
@@ -1678,6 +1718,10 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
             "rel_err", "ms", "flushed_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "long_launches")}
             for r in s11["long_rows"]["cases"]],
+        "scale_104k": [{k: r[k] for k in (
+            "label", "n", "nnz", "S", "L", "dtype", "max_abs_err", "ms",
+            "flushed_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for r in (s17["b"]["k3_kernel"],)] + [s17["b"]["k3_wide"]],
         **{k: s6["k3"]["headline"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -1793,12 +1837,15 @@ def construct(dev, refine: float, label: str, tag: str = "[dense]", **kw):
                 f"splu inverse {rec['coarse_inv_s'] or 0.0:.3f} s) and the "
                 f"K1 pack ({rec['pack_tiles']} tiles, "
                 f"{rec['pack_build_ms']:.1f} ms)")
+    rec["build_s"] = dict(p._build_s)
     print(f"{tag} {label}: n_free={p.n_free} nnz={p.op.pattern.nnz} "
           f"tier {p._tier} (layout, preconditioner, f32 Krylov basis)"
           + ("" if lay is None else f", b={lay.b} nb={lay.nb}")
           + f", m={od['W64'].shape[1]}; construction {ctor_s:.2f} s, of "
           f"which {part}, the {p._basis_resolved} basis "
-          f"{p._band_basis_s:.3f} s", flush=True)
+          f"{p._band_basis_s:.3f} s; host parts (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in p._build_s.items()),
+          flush=True)
     return p, rec
 
 
@@ -2865,16 +2912,18 @@ def slice6(dev, p21, freqs, fr21, ab_csr=()) -> dict:
 
 
 # phase 10: the rest of the inverse API
-def sync_times(fn, n: int = 2):
+def sync_times(fn, n: int = 2, reset: bool = True):
     """``n`` calls of ``fn`` on the card, each synchronised: (outputs,
     seconds each, peak device memory in GB over all of them, K1 and K3
-    launches of the last call)."""
+    launches of the last call).  ``reset``: the peak counts from these
+    calls alone (else it keeps the earlier peak)."""
     import torch
 
     from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
 
     outs, times = [], []
-    torch.cuda.reset_peak_memory_stats()
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
     for _ in range(n):
         band_kernel.band_mv_f32_cuda.launches = 0
         csr_kernel.reset_launches()
@@ -3024,7 +3073,7 @@ def fwd_d4(freqs, kept) -> dict:
     return {"n_free": p.n_free, "chunk": rf._chunk, "blocks": blocks,
             "s": times[0],
             "peak_gb": peak_gb, "k1": k1, "k3": k3, "r_vs_adjoint_rel": r_rel,
-            "J_vs_adjoint": dev}
+            "J_vs_adjoint": dev, "rj": (r, J)}
 
 
 def first_resonance(fr) -> int:
@@ -4238,7 +4287,7 @@ def shard_close(name, x, ref, tol, failed: list, rel_max=False) -> float:
 
 def slice12(dev, parts: str = "abcdfg", p21=None) -> dict:
     """Phase 14: the sharded sweep, training step and Gauss-Newton step,
-    each rank a process started with torch.multiprocessing's spawn method.
+    each rank a process forked from a forkserver (``ranks.spawn``).
     (a) the bench plate over NCCL, one rank per card, against the
     single-process port; (b) the same plate, two ranks on ``dev`` over
     gloo, as a (freq 2, dof 1) and a (freq 1, dof 2) mesh, against (a)
@@ -4372,7 +4421,7 @@ def slice12(dev, parts: str = "abcdfg", p21=None) -> dict:
     spec_e = {"plate": {"geometry": "sh_i", "refine": 3.0},
               "meshes": [(1, 2)], "freqs": (40.0, 600.0, N_FREQ),
               "theta": SHARD_THETA, "repeats": 2, "steps": (),
-              "at_theta": True}
+              "at_theta": True, "reference": "frf"}
     spec_f = {"plate": {"geometry": "sh_i", "refine": 4.0},
               "meshes": [(1, 2)], "freqs": (40.0, 600.0, DOF_TG_FREQ),
               "theta": SHARD_THETA, "repeats": 1, "steps": ("gn_adjoint",),
@@ -4703,8 +4752,9 @@ def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
     """Phase 14 (e): the n = 11910 dense-tier plate's FRF at truth x
     SHARD_THETA on the two gloo ranks' (freq 1, dof 2) mesh (``spec``,
     run in (b)'s spawn), each rank owning half the rows of ``invK64``:
-    its memory drop at placement, the ranks' bits, the FRF against the
-    unsharded sweep of the same plate and theta in this process
+    its memory drop at placement, the ranks' bits (each the unsharded
+    sweep's of its own Problem, run before placement), the FRF against
+    the unsharded sweep of the same plate and theta in this process
     (DOF_FRF_TOL) and against the refined splu at 4 points incl. the peak
     (ORACLE_TOL), K3 and the row blocks' GEMMs in each rank.  On two cards
     or more the same run over NCCL, a rank a card as (freq 1, dof world),
@@ -4756,8 +4806,11 @@ def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
     out["vs_unsharded"] = shard_close(
         "(e) FRF vs the unsharded sweep of this process", fr, fr_u,
         DOF_FRF_TOL, failed)
-    out["bits"] = dof_bits("(e)", me, fr_u, "the unsharded sweep of this "
-                           "process", failed)
+    # the bits against each rank's own unsharded sweep: a rank's host
+    # ARPACK basis runs one OpenBLAS thread (parallel.ranks), whose dot
+    # products round otherwise than this process's at 11910 DOF
+    out["bits"] = dof_bits("(e)", me, me[0]["ref_frf"][0], "the unsharded "
+                           "sweep of the same Problem", failed)
     idx = peak_points(fr)
     exact = splu_frf(p, freqs[idx], theta)
     out["vs_splu"] = shard_close(
@@ -4786,6 +4839,372 @@ def dof_dense(dev, dirs, spec, world: int, failed: list) -> dict:
           f"{out['unsharded_build_s']:.2f} s, its steady sweep "
           f"{out['unsharded_s']:.3f} s; (e)'s checks {out['s']:.1f} s after "
           "the spawn", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the scale tiers
+# ---------------------------------------------------------------------------
+
+def k1_smem_bytes(pack) -> tuple[int, int]:
+    """K1's shared memory a block at its widest lane tile (csrc/band_mv.cu:
+    a ring of 5 stages of one 16 x 8 tile and 128 lanes' x slices, f32,
+    and the row tile's list of first columns) and the 48 KB a launch may
+    take without an opt-in."""
+    return 4 * (5 * (16 * 8 + 128 * 8) + pack.list_max), 48 * 1024
+
+
+def tier_sweeps(p, freqs, tag: str) -> dict:
+    """A first and two steady sweeps, synchronised: seconds, the first's
+    peak device memory, K1 / K3 launches a sweep, and whether the two
+    steady sweeps have the same bits."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
+
+    times, frs, k1, k3 = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        band_kernel.band_mv_f32_cuda.launches = 0
+        csr_kernel.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr = p.solveForward(freqs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        frs.append(fr.cpu().numpy())
+        k1.append(band_kernel.band_mv_f32_cuda.launches)
+        k3.append(csr_kernel.csr_mv_cuda.launches)
+    fr = frs[1]
+    rec = {"sweep_first_s": times[0], "sweep_steady_s": times[1:],
+           "solves_per_s_steady": freqs.size / times[1],
+           "peak_mem_gb": peak_gb, "k1": k1, "k3": k3,
+           "chunk": p._auto_freq_chunk(),
+           "steady_bits_equal": bool(np.array_equal(frs[1], frs[2])),
+           "first_bits_equal": bool(np.array_equal(frs[0], frs[1]))}
+    print(f"{tag} {freqs.size} points over 40-600 Hz in chunks of "
+          f"{rec['chunk']}: first {times[0]:.3f} s, steady {times[1]:.3f} / "
+          f"{times[2]:.3f} s ({rec['solves_per_s_steady']:.1f} solves/s); "
+          f"peak device memory {peak_gb:.2f} GB; K1 {k1}, K3 {k3} a sweep; "
+          f"two steady sweeps bit-identical: {rec['steady_bits_equal']} (the "
+          f"first too: {rec['first_bits_equal']})", flush=True)
+    if fr.shape != freqs.shape or not np.all(np.isfinite(fr)):
+        raise AssertionError(f"{tag} bad FRF: shape {fr.shape}")
+    return rec | {"fr": fr}
+
+
+def tier_rj(p, freqs, fr, x0, tag: str, scale=None) -> tuple:
+    """One adjoint log_afc r + J at ``x0`` (``scale``: the solveInverse
+    scaling) as ``value_and_jac`` runs it, its two sweeps
+    (``_adjoint_state``) and then the tangent pass by the budget's blocks
+    (``_adjoint_jac``), timed, with the peak device memory over the call
+    (the Problem's own data included), K1 / K3 launches and the blocks;
+    returns ((r, J) in numpy, the ResidualFunction, the sweeps' state, the
+    record)."""
+    from plate_inverse_problem_tpu_torch.models.problem import _as_tensor
+
+    rf = p.getResidualFunction(freqs, fr, kind="log_afc",
+                               scaling_params=scale)
+    x = _as_tensor(x0, p.device)
+    outs, times, peak_gb, k1, k3 = sync_times(
+        lambda: rf._adjoint_state(x), 1)
+    (r, state), = outs
+    outs, t_jac, peak_jac, k1_jac, k3_jac = sync_times(
+        lambda: rf._adjoint_jac(x, state), 1, reset=False)
+    J, = outs
+    r, J = host((r, J))
+    rec = {"rj_s": times[0] + t_jac[0], "rj_jac_s": t_jac[0],
+           "rj_peak_gb": max(peak_gb, peak_jac), "k1_rj": k1 + k1_jac,
+           "k3_rj": k3 + k3_jac, "blocks": list(rf.blocks)}
+    print(f"{tag} adjoint log_afc r + J over {x0.size} parameters at "
+          f"{freqs.size} points: {rec['rj_s']:.3f} s (first call; the "
+          f"tangent pass {t_jac[0]:.3f} s in {rf.blocks[1]} block(s) of "
+          f"{rf.blocks[0]} frequencies), peak device memory "
+          f"{rec['rj_peak_gb']:.2f} GB; K1 {rec['k1_rj']}, K3 "
+          f"{rec['k3_rj']}", flush=True)
+    if J.shape != (freqs.size, x0.size) or not (
+            np.all(np.isfinite(r)) and np.all(np.isfinite(J))):
+        raise AssertionError(f"{tag} bad r {r.shape} or J {J.shape}")
+    if rec["k1_rj"] <= 0 or rec["k3_rj"] <= 0:
+        raise AssertionError(f"{tag} r + J launched K1 {rec['k1_rj']}, K3 "
+                             f"{rec['k3_rj']} times")
+    return (r, J), rf, state, rec
+
+
+def jac_at_block(rf, x, state, blk: int):
+    """J of ``rf`` from its sweeps' ``state`` with the tangent pass in
+    blocks of ``blk`` frequencies: (J in numpy, the blocks, seconds)."""
+    from plate_inverse_problem_tpu_torch.models.problem import _as_tensor
+
+    (J,), times, _, _, _ = sync_times(
+        lambda: rf._adjoint_jac(_as_tensor(x, state[0].device), state,
+                                block=blk), 1, reset=False)
+    return J.cpu().numpy(), tuple(rf.blocks), times[0]
+
+
+def tier_oracle(p, freqs, fr, idx, tag: str) -> tuple[np.ndarray, float]:
+    """The refined host splu at ``idx``, timed: (FRF there, seconds)."""
+    from plate_inverse_problem_tpu_torch.oracle import splu_frf
+
+    t0 = time.perf_counter()
+    ref = splu_frf(p, freqs[idx])
+    s = time.perf_counter() - t0
+    rel = np.abs(fr[idx] - ref) / np.abs(ref)
+    print(f"{tag} vs the refined f64 splu ({s:.1f} s on the host, "
+          f"{s / len(idx):.1f} s a point): "
+          + ", ".join(f"{freqs[i]:.3f} Hz {e:.3e}" for i, e in zip(idx, rel)),
+          flush=True)
+    return ref, s
+
+
+def scale_tier(dev, refine: float, tag: str, failed: list,
+               kernels: bool = False, keep_fr: dict | None = None) -> dict:
+    """Phase 15 (a) / (b): isotropic steel on ``sh_i`` at ``refine`` (6: n
+    = 46432, 9: n = 103680), tier "auto" (band + two-grid), 512 points:
+    construction with its parts, the host counts against the JAX
+    package's (TIER_COUNTS), three sweeps (the steady two bit-identical,
+    K1 > 0), the refined splu (refine 6: 4 points incl. the peak; 9: the
+    peak and one point off it, the peak also after ``polish_peaks``), one
+    adjoint r + J with its peak memory; with ``kernels``, K1 on the pack
+    and K3 on the pattern at the sweep's chunk against their plain
+    versions, timed beside bound and library call, and K3 on the 24
+    folded tangents of 1024 lanes (2.55e9 outputs, past 32-bit offsets)
+    against the plain version where the offsets are largest.  ``keep_fr``
+    (a dict) receives the sweep's FRF under "fr"."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.diagnostics import polish_peaks
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
+
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    t0 = time.perf_counter()
+    p, rec = construct(dev, refine, f"sh_i refine={refine:g}", tag)
+    n, nnz = TIER_COUNTS[refine]
+    pack, lay = p._band_pack, p._band_layout
+    smem, smem_max = k1_smem_bytes(pack)
+    rec |= {"b": lay.b, "nb": lay.nb, "list_max": pack.list_max,
+            "k1_smem": smem, "pack_mb": sum(
+                t.numel() * t.element_size()
+                for t in (pack.vals, pack.col0, pack.row_ptr)) / 1e6}
+    print(f"{tag} host counts n_free={p.n_free} nnz={p.op.pattern.nnz} "
+          f"(the JAX package's {n} / {nnz}); K1 pack {pack.vals.shape[0]} "
+          f"tiles ({rec['pack_mb']:.1f} MB), list_max {pack.list_max}: "
+          f"{smem} B of shared memory a block (<= {smem_max} without an "
+          f"opt-in)", flush=True)
+    if (p.n_free, p.op.pattern.nnz) != (n, nnz):
+        failed.append(f"{tag} n_free / nnz {p.n_free} / {p.op.pattern.nnz}"
+                      f" are not the JAX package's {n} / {nnz}")
+    if p._tier != ("band", "mg", False) or smem > smem_max:
+        failed.append(f"{tag} tier {p._tier}, K1 shared memory {smem} B")
+    rec |= tier_sweeps(p, freqs, f"{tag} sweep")
+    fr = rec.pop("fr")
+    if not rec["steady_bits_equal"] or min(rec["k1"]) <= 0:
+        failed.append(f"{tag} steady sweeps bit-identical "
+                      f"{rec['steady_bits_equal']}, K1 {rec['k1']}")
+    ipk = int(np.argmax(np.abs(fr)))
+    rec["f_peak"] = float(freqs[ipk])
+    if refine < 9.0:
+        idx = peak_points(fr)
+        ref, rec["oracle_s"] = tier_oracle(p, freqs, fr, idx, tag)
+        rel = np.abs(fr[idx] - ref) / np.abs(ref)
+        rec["worst_rel_err"] = float(rel.max())
+        if not rec["worst_rel_err"] <= ORACLE_TOL:
+            failed.append(f"{tag} worst rel err {rec['worst_rel_err']:.3e} "
+                          f"> {ORACLE_TOL}")
+    else:
+        idx = [ipk, N_FREQ // 2]
+        ref, rec["oracle_s"] = tier_oracle(p, freqs, fr, idx, tag)
+        rel = np.abs(fr[idx] - ref) / np.abs(ref)
+        t1 = time.perf_counter()
+        fr_pol, _ = polish_peaks(p, freqs, fr=fr, peaks=[ipk])
+        rec["polish_s"] = time.perf_counter() - t1
+        rec |= {"peak_rel_err": float(rel[0]), "off_rel_err": float(rel[1]),
+                "peak_polished_rel_err": float(
+                    abs(fr_pol[ipk] - ref[0]) / abs(ref[0]))}
+        print(f"{tag} the peak {freqs[ipk]:.3f} Hz: raw {rel[0]:.3e}, after "
+              f"polish_peaks {rec['peak_polished_rel_err']:.3e} ("
+              f"{rec['polish_s']:.1f} s); off the peak {freqs[idx[1]]:.3f} Hz"
+              f" raw {rel[1]:.3e} (tol {ORACLE_TOL}; the JAX CPU path's "
+              "1.0-1.5e-6 at this tier is against a plain f64 splu, this "
+              "oracle refines the LU solve: not the same yardstick)",
+              flush=True)
+        if not (rec["off_rel_err"] <= ORACLE_TOL and min(
+                rec["peak_rel_err"], rec["peak_polished_rel_err"])
+                <= ORACLE_TOL):
+            failed.append(f"{tag} splu: off the peak {rel[1]:.3e}, the peak "
+                          f"raw {rel[0]:.3e} / polished "
+                          f"{rec['peak_polished_rel_err']:.3e}")
+    truth = np.asarray(p.parameters, np.float64)
+    rec |= tier_rj(p, freqs, fr, truth * np.asarray(START), tag)[3]
+    if keep_fr is not None:
+        keep_fr["fr"] = fr
+    if kernels:
+        chunk = rec["chunk"] or N_FREQ
+        od = p.getFRCore()[1]
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(rng.standard_normal((2 * chunk, p.n_free)).astype(
+            np.float32), device=dev)
+        k1 = compare_kernel(pack, od["mg_band0"], x, lay,
+                            f"n={p.n_free} K_ref band, f32, the sweep's "
+                            "chunk")
+        k1["bound_ms"], k1["bound_by"] = bound_ms(pack, 2 * chunk, p.n_free)
+        print(f"[bound] n={p.n_free} B={2 * chunk}: {k1['bound_ms']:.4f} ms "
+              f"({k1['bound_by']}); kernel at "
+              f"{100 * k1['bound_ms'] / k1['ms']:.1f} % of it", flush=True)
+        del x
+        csr = ck.build_csr(od["rows"], od["cols"], p.n_free)
+        k3 = compare_csr(csr, 2, 2 * chunk, "f64",
+                         f"n={p.n_free} S=2 L={2 * chunk} (the sweep's "
+                         "chunk)", 15, tag=tag)
+        rec |= {"k1_kernel": k1, "k3_kernel": k3,
+                "k3_wide": far_offsets(csr, tag)}
+    del p
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t0
+    print(f"{tag} in {rec['s']:.1f} s", flush=True)
+    return rec
+
+
+def far_offsets(csr, tag: str, S: int = 24, L: int = 1024) -> dict:
+    """K3 with S x L x n outputs past 2^31 (the residual map's 24 folded
+    tangents at 1024 lanes): the last operator's last 8 lanes and the first
+    operator's first 8 against the plain version of those alone (CSR_TOL),
+    the kernel's time beside its bound."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel as ck
+
+    dev = csr.col.device
+    rng = np.random.default_rng(16)
+    data = torch.as_tensor(rng.standard_normal((S, csr.nnz)), device=dev)
+    x = torch.as_tensor(rng.standard_normal((L, csr.n)), device=dev)
+    y = ck.csr_mv_cuda(data, x, csr)
+    errs = []
+    for s, lanes in ((S - 1, slice(L - 8, L)), (0, slice(0, 8))):
+        y_ref = ck.csr_mv_reference(data[s:s + 1], x[lanes], csr)[0]
+        errs.append(float((y[s, lanes] - y_ref).abs().max()
+                          / y_ref.abs().max()))
+    ms = time_ms(lambda: ck.csr_mv_cuda(data, x, csr), reps=3)[0]
+    bound, by = csr_bound_ms(csr, S, L, 8)
+    out = S * L * csr.n
+    print(f"{tag} K3 f64 S={S} L={L} n={csr.n}: {out} outputs "
+          f"({out / 2**31:.2f} x 2^31); the last operator's last 8 lanes / "
+          f"the first's first 8 vs plain: rel {errs[0]:.3e} / {errs[1]:.3e} "
+          f"(tol {CSR_TOL['f64']}); kernel {ms:.3f} ms, bound {bound:.3f} ms"
+          f" ({by})", flush=True)
+    del y, data, x
+    torch.cuda.empty_cache()
+    if not max(errs) <= CSR_TOL["f64"]:
+        raise AssertionError(f"{tag} K3 past 2^31 outputs: rel {errs}")
+    return {"S": S, "L": L, "outputs": out, "rel_err": errs, "ms": ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def tier_d4(dev, kept: dict, fr_ref, tag: str, failed: list) -> dict:
+    """Phase 15 (c): OrthotropicD4 (p = 8) on ``sh_i`` refine = 9 (n =
+    103680): the adjoint log_afc r + J at 512 points from truth x D4_START
+    (phase 8 (b)'s scaling) against ``fr_ref`` ((b)'s isotropic FRF, the
+    measurement the fit is made to): its peak device memory at most
+    RJ_MEM_GB, and J at half the budget's block from the same sweeps the
+    budget's bits.  Then on phase 8 (b)'s 21k Problem (``kept["d4"]``) the
+    adjoint r + J at RJ_ALT_BLOCK frequencies a block: phase 8 (b)'s bits,
+    and within FWD_J_RTOL / FWD_J_ATOL (r: FWD_R_CHUNK_TOL) of phase 10
+    (b)'s forward-mode J (``kept["d4_fwd"]``)."""
+    import torch
+
+    import plate_inverse_problem_tpu_torch as pt
+    from plate_inverse_problem_tpu_torch.models.problem import _as_tensor
+
+    if fr_ref is None:
+        raise AssertionError(f"{tag} has no FRF of (b) to fit")
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    t0 = time.perf_counter()
+    mat = pt.get_material(7920.0, "orthotropic_d4", **D4)
+    p, rec = construct(dev, 9.0, "OrthotropicD4 sh_i refine=9", tag,
+                       mat=mat)
+    truth = np.asarray(p.parameters, np.float64)
+    scale = np.where(truth != 0.0, truth, 1e-3)
+    x0 = truth * np.asarray(D4_START) / scale
+    (r, J), rf, state, rj = tier_rj(p, freqs, fr_ref, x0, tag, scale)
+    rec |= rj
+    J2, blocks2, s2 = jac_at_block(rf, x0, state, max(1, rf.blocks[0] // 2))
+    rec |= {"alt_blocks": list(blocks2), "alt_jac_s": s2,
+            "alt_bits_equal": bool(np.array_equal(J, J2))}
+    print(f"{tag} J from the same sweeps in {blocks2[1]} blocks of "
+          f"{blocks2[0]} ({s2:.3f} s): the budget's {rj['blocks'][1]} blocks'"
+          f" bits {rec['alt_bits_equal']}; peak {rec['rj_peak_gb']:.2f} GB "
+          f"(limit {RJ_MEM_GB} GB)", flush=True)
+    if not rec["alt_bits_equal"] or not rec["rj_peak_gb"] <= RJ_MEM_GB:
+        failed.append(f"{tag} 104k: bits at two blocks "
+                      f"{rec['alt_bits_equal']}, peak {rec['rj_peak_gb']:.2f}"
+                      f" GB (limit {RJ_MEM_GB})")
+    del p, rf, state
+    torch.cuda.empty_cache()
+    # the forward mode at 21k (phase 10 (b)'s J): the adjoint J by blocks
+    p21, fr21, scale21, x21, ra, Ja = kept["d4"]
+    r_f, J_f = kept["d4_fwd"]
+    rf21 = p21.getResidualFunction(freqs, fr21, kind="log_afc",
+                                   scaling_params=scale21)
+    x = _as_tensor(x21, p21.device)
+    rb, st21 = rf21._adjoint_state(x)
+    rb = rb.cpu().numpy()
+    Jb, blocks21, s21 = jac_at_block(rf21, x21, st21, RJ_ALT_BLOCK)
+    del st21
+    rec |= {"d4_21k_blocks": list(blocks21), "d4_21k_jac_s": s21,
+            "d4_21k_bits_equal": bool(np.array_equal(rb, ra)
+                                      and np.array_equal(Jb, Ja)),
+            "d4_21k_r_vs_fwd_rel": float(np.abs(rb - r_f).max()
+                                         / np.abs(r_f).max()),
+            "d4_21k_J_vs_fwd": jac_dev(Jb, J_f)}
+    print(f"{tag} 21k OrthotropicD4 (phase 8 (b)'s Problem): the adjoint "
+          f"J in {blocks21[1]} blocks of {blocks21[0]} ({s21:.3f} s): "
+          f"phase 8 (b)'s bits {rec['d4_21k_bits_equal']}; vs phase 10 (b)'s"
+          f" forward-mode r {rec['d4_21k_r_vs_fwd_rel']:.3e} (tol "
+          f"{FWD_R_CHUNK_TOL}), J {rec['d4_21k_J_vs_fwd']:.3e} of the "
+          f"tolerance ({FWD_J_RTOL:g} rel + {FWD_J_ATOL:g} of max)",
+          flush=True)
+    if not (rec["d4_21k_bits_equal"]
+            and rec["d4_21k_r_vs_fwd_rel"] <= FWD_R_CHUNK_TOL
+            and rec["d4_21k_J_vs_fwd"] <= 1.0):
+        failed.append(f"{tag} 21k: bits {rec['d4_21k_bits_equal']}, r "
+                      f"{rec['d4_21k_r_vs_fwd_rel']:.3e}, J "
+                      f"{rec['d4_21k_J_vs_fwd']:.3e}")
+    rec["s"] = time.perf_counter() - t0
+    print(f"{tag} in {rec['s']:.1f} s", flush=True)
+    return rec
+
+
+def slice17(dev, kept: dict) -> dict:
+    """Phase 15: the scale tiers on the card.  (a) refine 6 (n = 46432),
+    (b) refine 9 (n = 103680) with K1 and K3 at their shapes, (c)
+    OrthotropicD4 at refine 9, its adjoint r + J under the memory bound.
+    Every part runs before a failed check raises; returns the numbers for
+    [summary] and the K1 / K3 launches by path."""
+    failed = []
+    out = {}
+    ref = {}
+    for key, fn in (("a", lambda: scale_tier(dev, 6.0, "[slice17] (a)",
+                                             failed)),
+                    ("b", lambda: scale_tier(dev, 9.0, "[slice17] (b)",
+                                             failed, kernels=True,
+                                             keep_fr=ref)),
+                    ("c", lambda: tier_d4(dev, kept, ref.get("fr"),
+                                          "[slice17] (c)", failed))):
+        try:
+            out[key] = fn()
+        except AssertionError as err:
+            failed.append(str(err))
+    if failed:
+        raise AssertionError("phase 15 failed: " + " | ".join(failed))
+    a, b, c = out["a"], out["b"], out["c"]
+    out["k1"] = {"sweep_46k": a["k1"][1], "rj_46k": a["k1_rj"],
+                 "sweep_104k": b["k1"][1], "rj_104k": b["k1_rj"],
+                 "rj_d4_104k": c["k1_rj"]}
+    out["k3"] = {"sweep_46k": a["k3"][1], "rj_46k": a["k3_rj"],
+                 "sweep_104k": b["k3"][1], "rj_104k": b["k3_rj"],
+                 "rj_d4_104k": c["k3_rj"]}
     return out
 
 

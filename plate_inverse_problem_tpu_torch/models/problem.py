@@ -138,13 +138,57 @@ def _dof_placed_error(n_dof: int, i_dof: int) -> ValueError:
 _FWD_HELD_VECS = 16.0
 
 
-def _fwd_budget(device: torch.device) -> float:
-    """Bytes the forward-mode r + J may hold across its sweeps: a quarter of
-    the card's memory (the rest is the operator's, the sweep's own chunk's
-    and the caller's), the JAX package's 2 GB on the CPU."""
+# what the adjoint r + J's Jacobian pass holds a frequency and parameter:
+# psi's forward tangents of the residual map (the operator stack's K3
+# products by lane chunk and their concatenation, the combinations A U - b,
+# the pairing with Y and its row sums), in f64 n-vectors, with room: at
+# most ~23 for OrthotropicD4 at n = 103680 (its whole r + J peaked at 19.3
+# GB with blocks of 100 frequencies, NVIDIA H100 80GB HBM3, 700.00 W,
+# chip_smoke.py phase 15 (c))
+_ADJ_HELD_VECS = 32.0
+
+
+def _jac_budget(device: torch.device) -> float:
+    """Bytes a Jacobian pass may hold: the forward-mode r + J across its
+    sweeps, the adjoint r + J in one block of its tangent pass.  A quarter
+    of the card's memory (the rest is the operator's, the sweep's own
+    chunk's and the caller's), the JAX package's 2 GB on the CPU."""
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).total_memory / 4.0
     return 2.0e9
+
+
+def _adjoint_block(n: int, p: int, n_freq: int, budget: float) -> int:
+    """Frequencies a block of the adjoint r + J's tangent pass takes: the
+    most whose p tangents, ``_ADJ_HELD_VECS`` f64 n-vectors each a
+    frequency, fit ``budget`` bytes; one at least, ``n_freq`` at most."""
+    held = _ADJ_HELD_VECS * n * 8.0 * p
+    return int(min(n_freq, max(1, budget // held)))
+
+
+def _sweep_chunk(n: int, nnz: int, n_refine: int) -> int | None:
+    """The mixed sweep's frequencies a chunk (JAX
+    ``Problem._auto_freq_chunk`` at one lane): None up to 300k pattern
+    entries, else the power of two from 8 to 64 that keeps the f64 FGMRES
+    state, (4 n_refine + 6) n-vectors a lane, near 2 GB."""
+    if nnz <= 300_000:
+        return None
+    per_lane = (4.0 * n_refine + 6.0) * n * 8.0
+    return int(np.clip(
+        2 ** np.floor(np.log2(max(2.0e9 / per_lane, 8.0))), 8, 64))
+
+
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis in one fixed pairwise order, whatever the
+    leading shape: the two halves are added elementwise until one column
+    is left (an odd last column carried along).  torch's own reduction on
+    the card picks its split by the number of outputs, so a row's sum
+    would move with the rows beside it."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        s = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([s, x[..., 2 * h:]], -1) if x.shape[-1] % 2 else s
+    return x[..., 0]
 
 
 class _LaneSolve(torch.autograd.Function):
@@ -398,7 +442,10 @@ class ResidualFunction:
       batched sweeps — the primal and one adjoint sweep conj(A_i) y_i =
       dr_i/dU_i — plus p forward tangents of the solve-free residual map
       psi_i(theta) = y_i . (A_i(theta) U_i - b_i(theta)), J = -dpsi/dtheta,
-      whatever the parameter count p.  Scalar kinds only.
+      whatever the parameter count p.  Scalar kinds only.  The tangents
+      run over blocks of frequencies sized to ``_jac_budget``
+      (``_adjoint_block``; ``blocks`` records the last call's block and
+      count), each block's rows the bits the one block would give.
     * 'fwd' — the fused value-and-``jacfwd``: the primal sweep and ONE
       tangent sweep over p x F lanes (``_ImplicitSweep``'s forward rule),
       every kind.  ``freq_chunk`` runs it over blocks of that many
@@ -461,6 +508,7 @@ class ResidualFunction:
         self._chunk = freq_chunk
         self.kind = kind
         self.jac_mode = jac_mode
+        self.blocks = None
 
     def _full(self, params, freqs, ref):
         fr = self._core(freqs, params * self._scaling, self._opdata)
@@ -499,6 +547,12 @@ class ResidualFunction:
         return r.detach(), J.detach()
 
     def _rj_adjoint(self, params):
+        r, state = self._adjoint_state(params)
+        return r, self._adjoint_jac(params, state)
+
+    def _adjoint_state(self, params):
+        """r and what J's tangent pass reads: the primal U and the adjoint
+        Y = conj(A)^-1 dr/dU, each (F, n) pairs (two sweeps)."""
         core, od, freqs, ref = self._core, self._opdata, self._freqs, \
             self._ref
         th = params * self._scaling
@@ -515,16 +569,34 @@ class ResidualFunction:
             G_re, G_im = torch.autograd.grad(r, (Ur, Ui),
                                              torch.ones_like(r))
         Y_re, Y_im = core.sweep_adj(freqs, th, od, G_re, G_im)
+        return r.detach(), (U_re, U_im, Y_re, Y_im)
 
-        def psi(p):
-            R_re, R_im = core.apply_res(freqs, p * self._scaling, od,
-                                        U_re, U_im)
-            return (Y_re * R_re + Y_im * R_im).sum(-1)
+    def _adjoint_jac(self, params, state, block: int | None = None):
+        """J from ``_adjoint_state``'s U and Y: its rows by blocks of
+        ``block`` frequencies (None: the most ``_jac_budget`` holds,
+        ``_adjoint_block``).  Row i reads only frequency i's U, Y and
+        residual map, K3 sums each lane in one order whatever the lane
+        count and ``_row_sums`` each row in one order whatever the row
+        count, so any blocks give the one block's bits."""
+        core, od, freqs = self._core, self._opdata, self._freqs
+        U_re, U_im, Y_re, Y_im = state
+        F, n = U_re.shape
+        blk = block or _adjoint_block(n, params.shape[0], F,
+                                      _jac_budget(self._device))
+        self.blocks = (blk, -(-F // blk))
 
-        # dr_i = -y_i . d(A_i U_i - b_i): p forward tangents through the
-        # scatter passes and the coefficient chain, no solve
-        J = -torch.func.jacfwd(psi)(params)
-        return r.detach(), J
+        def rows(sl):
+            def psi(p):
+                R_re, R_im = core.apply_res(freqs[sl], p * self._scaling, od,
+                                            U_re[sl], U_im[sl])
+                return _row_sums(Y_re[sl] * R_re + Y_im[sl] * R_im)
+
+            # dr_i = -y_i . d(A_i U_i - b_i): p forward tangents through
+            # the scatter passes and the coefficient chain, no solve
+            return -torch.func.jacfwd(psi)(params)
+
+        return torch.cat([rows(slice(lo, lo + blk))
+                          for lo in range(0, F, blk)])
 
 
 class Problem:
@@ -639,6 +711,11 @@ class Problem:
             self.reference_fr = ref_fr
         rho = self.material.density
         h = self.geometry.height
+        # host seconds of each construction part (the mesh and assembly
+        # here; the layout, coarse level, coarse inverse, K1 pack, K3 plan
+        # and band basis in getFRCore)
+        self._build_s = {}
+        t0 = time.perf_counter()
         mesh = self.geometry.get_mesh()
         self.mesh = mesh
         acc = self.accelerometer
@@ -701,6 +778,7 @@ class Problem:
             )
         self.op = op
         self.n_free = op.n_free
+        self._build_s["assembly"] = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
 
@@ -1026,6 +1104,7 @@ class Problem:
             precond = "dense"
         basis_f32 = bool(self.basis_f32)
         self._tier = ("band" if use_band else "flat", precond, basis_f32)
+        t0 = time.perf_counter()
         if use_band:
             layout = build_band_layout(op.pattern.rows, op.pattern.cols, n)
             rows_h, cols_h = permute_pattern(layout, op.pattern.rows,
@@ -1041,6 +1120,7 @@ class Problem:
                 return v
 
         self._band_layout = layout
+        self._build_s["layout"] = time.perf_counter() - t0
         K_ref_eq = K_ref * ss
         M_eq = self.MInertia * ss
 
@@ -1056,6 +1136,7 @@ class Problem:
         elif precond == "mg":
             # ---- band tier two-grid: one coarse level, aimed directly at
             # the dense-invertible size (n scales ~ factor^-2)
+            t0 = time.perf_counter()
             factor = max(2.0, float(np.sqrt(n / (0.62 * self.mg_coarse_max))))
             c_mesh, c_free, c_constrained = self._coarse_level(factor)
             if c_free.size >= n or c_free.size < 60:
@@ -1077,6 +1158,8 @@ class Problem:
             self._mg_lmax = lmax
             self._mg_rl = rl
             self._mg_Kc = Kc
+            # the coarse mesh, P, the Galerkin Kc, the smoother's diagonal
+            self._build_s["coarse_level"] = time.perf_counter() - t0
 
         def t64(a):
             return torch.as_tensor(np.asarray(a, np.float64), device=dev)
@@ -1093,13 +1176,20 @@ class Problem:
                 opdata["Kref64"] = t64(K_ref_eq)
             elif precond == "mg":
                 # the coarse Galerkin operator is too ill-conditioned for
-                # any f32 factorization: invert it with a host f64 splu
+                # any f32 factorization: invert it with a host f64 splu,
+                # and keep the inverse in f64 (the cycle's coarse GEMM is
+                # a DGEMM): its f32 copy is O(1) off in the stiffest
+                # coarse directions (|Kc Kc_inv - I| = 1.3 at n = 46432,
+                # 2.7 at 103680), where the cycle then stalls and the
+                # 103680-DOF sweep missed its target in every lane (1e-4
+                # off the refined splu)
                 t0 = time.perf_counter()
                 # row-major: a block of its rows is contiguous, as a dof
                 # rank's owned copy of it (ops/dense.py)
                 Kc_inv = np.ascontiguousarray(
                     spla.splu(Kc).solve(np.eye(Kc.shape[0])))
                 self._coarse_inv_s = time.perf_counter() - t0
+                self._build_s["coarse_inverse"] = self._coarse_inv_s
                 opdata |= {
                     "Kref64": t64(K_ref_eq),
                     "mg_band0": flat_to_band(
@@ -1109,8 +1199,7 @@ class Problem:
                     "mg_Pt": rect_band_tensor(rl, dev),
                     "mg_slots": torch.as_tensor(rl.slots, dtype=torch.int64,
                                                 device=dev),
-                    "mg_Kcinv": torch.as_tensor(Kc_inv, dtype=F32,
-                                                device=dev),
+                    "mg_Kcinv": t64(Kc_inv),
                 }
             else:
                 # the dense f64 inverse of the equilibrated reference
@@ -1123,6 +1212,7 @@ class Problem:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 self._inv_build_s = time.perf_counter() - t0
+                self._build_s["dense_inverse"] = self._inv_build_s
 
         if flat_mg:
             # the hierarchy on the device with a K3 plan per level operator
@@ -1146,10 +1236,13 @@ class Problem:
                 torch.cuda.synchronize(pack.vals.device)
             self._band_pack = pack
             self._pack_build_s = time.perf_counter() - t0
+            self._build_s["k1_pack"] = self._pack_build_s
 
         # the CSR copy of the flat pattern, built once: K3 runs the flat
         # operator, the residual map and the panels' row sums on it
+        t0 = time.perf_counter()
         csr = build_csr(opdata["rows"], opdata["cols"], n)
+        self._build_s["k3_plan"] = time.perf_counter() - t0
 
         if not given:
             # ---- band basis (theta-independent), after the preconditioner:
@@ -1187,6 +1280,7 @@ class Problem:
                 torch.cuda.synchronize(dev)
             # the basis's build seconds and its reference eigenvalues
             self._band_basis_s = time.perf_counter() - t0
+            self._build_s["basis"] = self._band_basis_s
             self._band_lam = lam
             opdata["W64"] = W64
 
@@ -1546,19 +1640,17 @@ class Problem:
         r + J (1 + p lanes: the primal and one tangent per parameter) runs
         its sweeps in those chunks, so its own chunk bounds only the state
         it holds across them, ``_FWD_HELD_VECS`` f64 n-vectors a lane, to
-        ``_fwd_budget``: the largest multiple of the sweep's chunk that
+        ``_jac_budget``: the largest multiple of the sweep's chunk that
         fits, one at least."""
         if self.freq_chunk is not None:
             return self.freq_chunk
-        if self.op.pattern.nnz <= 300_000:
+        sweep = _sweep_chunk(self.n_free, self.op.pattern.nnz, self.n_refine)
+        if sweep is None:
             return None
-        per_lane = (4.0 * self.n_refine + 6.0) * self.n_free * 8.0
-        sweep = int(np.clip(
-            2 ** np.floor(np.log2(max(2.0e9 / per_lane, 8.0))), 8, 64))
         if lanes == 1:
             return sweep
         held = _FWD_HELD_VECS * self.n_free * 8.0 * lanes * sweep
-        return sweep * max(1, int(_fwd_budget(self.device) // held))
+        return sweep * max(1, int(_jac_budget(self.device) // held))
 
     def getFRFunction(self) -> Callable:
         """(freqs, params) -> FRF on the Problem's device: the f64

@@ -251,8 +251,9 @@ def twogrid_apply(pack, dinv, lmax, Pt, Kc_inv, r32, layout, rl,
     pre-smooth on the f32 band operator (``pack``: its nonzero tiles,
     ops/band_kernel.pack_band_tiles), exact coarse correction through
     the rectangular block-band prolongation and the dense coarse inverse
-    (an IEEE f32 GEMM: TF32 is off, see config.py), Chebyshev
-    post-smooth."""
+    (one GEMM in the inverse's dtype: f64 as ``Problem`` builds it, f32
+    from the JAX package's operator data, IEEE with TF32 off, see
+    config.py; the correction goes back in f32), Chebyshev post-smooth."""
 
     def K_mv(x):
         return band_mv_f32(pack, x, layout)
@@ -261,7 +262,7 @@ def twogrid_apply(pack, dinv, lmax, Pt, Kc_inv, r32, layout, rl,
     e = _chebyshev_smooth(sm, K_mv, r32, steps=smooth_steps)
     res = r32 - K_mv(e)
     rc = rect_band_tmv(Pt, res, rl, slots)
-    ec = dense_apply(Kc_inv, rc)
+    ec = dense_apply(Kc_inv, rc).to(rc.dtype)
     e = e + rect_band_mv(Pt, ec, rl, slots)
     return _chebyshev_smooth(sm, K_mv, r32, e0=e, steps=smooth_steps)
 
@@ -430,7 +431,8 @@ def twogrid_apply_rows(part: TwoGridRows, lmax, Kc_inv, r_rows, layout, rl,
     sm = {"dinv": part.dinv, "lmax": lmax}
     e = _chebyshev_smooth(sm, K_mv, r_rows, steps=smooth_steps)
     res = r_rows - K_mv(e)
-    ec = dense_apply(Kc_inv, part.restrict(res, rl, slots))
+    rc = part.restrict(res, rl, slots)
+    ec = dense_apply(Kc_inv, rc).to(rc.dtype)
     e = e + part.prolong(ec, rl, slots)
     return part.whole(_chebyshev_smooth(sm, K_mv, r_rows, e0=e,
                                         steps=smooth_steps))

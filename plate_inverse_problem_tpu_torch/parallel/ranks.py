@@ -1,7 +1,8 @@
 """Start ranks on one host and run the sharded path's checks in them.
 
 ``spawn`` starts ``world`` processes with ``torch.multiprocessing``'s
-``spawn`` start method (CUDA cannot fork), joins them in a process group
+``forkserver`` start method (CUDA cannot fork; the server has imported
+torch and its lazily imported modules once), joins them in a process group
 through a ``file://`` store in a temporary directory and raises in the
 caller if any rank raised.  ``sharded_checks`` is the rank body the CPU
 tests and ``chip_smoke.py`` run: on a plate, for each mesh asked for, the
@@ -14,6 +15,8 @@ directory.
 from __future__ import annotations
 
 import gc
+import multiprocessing
+import multiprocessing.forkserver
 import os
 import sys
 import tempfile
@@ -35,6 +38,23 @@ from .freq_shard import (
 # right-hand sides of the GEMM that holds a dof rank's owned rows against
 # the view of the whole matrix (``row_products``)
 VIEW_LANES = 1024
+# what a rank would import on its own: torch, the package, and what torch
+# imports lazily at a process's first forward-mode AD op and its first
+# ``autograd.grad`` (torch._dynamo and its tree, ~800 modules: 2-3 s in one
+# process, 20-27 s a rank with eight ranks starting at once on one H100
+# host).  The forkserver imports them once; every rank is a fork of it.
+PRELOAD = ("numpy", "scipy.sparse.linalg", "torch", "torch._dynamo",
+           "torch.fx.experimental.symbolic_shapes",
+           "plate_inverse_problem_tpu_torch",
+           "plate_inverse_problem_tpu_torch.parallel.ranks")
+# the forkserver's thread pools: one thread each, so that no OpenMP or
+# OpenBLAS pool runs in the process the ranks are forked from (a fork does
+# not copy the pool's threads: forked from a server whose OpenBLAS ran 8
+# threads, ranks on one card hung).  A rank's host BLAS is then
+# single-threaded: OpenBLAS's threaded dot products round otherwise, so a
+# rank's host ARPACK basis can differ in its last bits from a
+# multi-threaded process's (at 11910 DOF its FRF by 9.6e-8)
+ONE_THREAD = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
 def _rank_main(rank, world, fn, args, backend, device, store):
@@ -49,18 +69,41 @@ def _rank_main(rank, world, fn, args, backend, device, store):
         dist.destroy_process_group()
 
 
+def _forkserver() -> None:
+    """Start multiprocessing's forkserver, once a process: PRELOAD
+    imported, the ONE_THREAD variables set to 1 in its environment alone
+    (the caller's is restored)."""
+    saved = {k: os.environ.get(k) for k in ONE_THREAD}
+    os.environ.update(dict.fromkeys(ONE_THREAD, "1"))
+    try:
+        multiprocessing.set_forkserver_preload(list(PRELOAD))
+        multiprocessing.forkserver.ensure_running()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def spawn(fn, world: int, *args, backend: str | None = None,
           device="cpu") -> None:
     """Run ``fn(rank, device, *args)`` on ``world`` new processes in one
     process group (``init``'s backend choice for ``device``; "cuda" is
     each rank's card, cuda:LOCAL_RANK, or name one card for every rank).
-    ``fn`` must be importable (it is pickled by name); a rank's exception
-    raises here (``torch.multiprocessing.ProcessRaisedException``)."""
+    The processes are forks of multiprocessing's forkserver
+    (``_forkserver``), which has imported ``PRELOAD``, runs one OpenMP and
+    BLAS thread and never touches the card (CUDA cannot fork: each rank
+    initialises it after its fork); it starts at a process's first spawn,
+    with that moment's environment, and serves its later spawns.  ``fn``
+    must be importable (it is pickled by name); a rank's exception raises
+    here (``torch.multiprocessing.ProcessRaisedException``)."""
+    _forkserver()
     with tempfile.TemporaryDirectory() as tmp:
         store = "file://" + os.path.join(tmp, "store")
         mp.start_processes(_rank_main, args=(world, fn, args, backend, device,
                                              store),
-                           nprocs=world, join=True, start_method="spawn")
+                           nprocs=world, join=True, start_method="forkserver")
 
 
 def plate_problem(plate: dict, device):
