@@ -254,7 +254,22 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
    budget's block from the same sweeps with the same bits; on phase 8
    (b)'s 21k Problem the adjoint J at RJ_ALT_BLOCK frequencies a block
    with phase 8 (b)'s bits and within FWD_J_RTOL / FWD_J_ATOL of phase 10
-   (b)'s forward-mode J.
+   (b)'s forward-mode J;
+16. the FGMRES cycle's Givens least squares (``[slice18]``), K7a
+   ``givens_step`` and K7b ``backsub`` (``csrc/fgmres_lsq.cu``, built
+   in phase 2): (a) every call of one steady bench (n = 1466) and one
+   steady 21k sweep recorded (``k7_recorded``) and replayed through the kernel and the plain version on the card, and
+   a seeded set (512 lanes, k = 8 and 16, every step; a = 0, b = 0, both
+   zero, inactive and underflowing lanes): identical bits; (b) each
+   kernel's time at the 21k and bench sweeps' first call by CUDA events,
+   the plain version's and the bound (bytes at 3.35 TB/s; the launch
+   dominates), and for K7b one ``torch.linalg.solve_triangular`` on the
+   same inputs (no library call computes K7a's batched Givens update); (c) the two steady sweeps'
+   seconds, K7a / K7b launches > 0 and no plain call on the card in them,
+   in phase 4's sweep, in phases 6 and 7 (b)'s r + J and Gauss-Newton and
+   in phase 13 (e)'s traced bench sweep, whose Chrome trace names both
+   kernels as often as their counters count them; its kernel count and
+   busy share printed.
 
 Any failed phase raises and the script exits non-zero.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -270,6 +285,7 @@ be the kernel's on every row but the long ones.)
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -1449,24 +1465,26 @@ def main() -> int:
 
 
 def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
-    """Phases 2-15 on ``dev``; prints the kernels' JSON record last.
+    """Phases 2-16 on ``dev``; prints the kernels' JSON record last.
     ``ab_sources`` / ``ab_csr_sources``: other versions of K1 / K3 to time
     beside them (A/B only)."""
     import torch
 
-    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
+    from plate_inverse_problem_tpu_torch.ops import (band_kernel, csr_kernel,
+                                                     fgmres_kernel)
     from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
-    # ---- 2. build the kernels, one nvcc each, both at once ----------------
+    # ---- 2. build the kernels, one nvcc each, all at once -----------------
     t_phases = t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 + len(ab_csr_sources)) as pool:
+    with ThreadPoolExecutor(3 + len(ab_csr_sources)) as pool:
         builds = {name: pool.submit(fn) for name, fn in
                   (("band_mv.cu", band_kernel.build),
-                   ("csr_mv.cu", csr_kernel.build))}
+                   ("csr_mv.cu", csr_kernel.build),
+                   ("fgmres_lsq.cu", fgmres_kernel.build))}
         ab_csr = [pool.submit(load_ab_csr, src) for src in ab_csr_sources]
         reports = {name: f.result() for name, f in builds.items()}
         ab_csr = [f.result() for f in ab_csr]
-    print(f"[build] band_mv.cu and csr_mv.cu -> sm_90a in "
+    print(f"[build] band_mv.cu, csr_mv.cu and fgmres_lsq.cu -> sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, report in reports.items():
         for line in ptxas_summary(report):
@@ -1526,12 +1544,14 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     torch.cuda.reset_peak_memory_stats()
     band_kernel.band_mv_f32_cuda.launches = 0
     csr_kernel.reset_launches()
+    fgmres_kernel.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fr = p.solveForward(freqs)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     launches = band_kernel.band_mv_f32_cuda.launches
+    k7_sweep = k7_counts()
     k3_sweep = csr_kernel.csr_mv_cuda.launches
     k3_sweep_regimes = dict(csr_kernel.csr_mv_cuda.launches_by_regime)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1544,10 +1564,13 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     print(f"[sweep] {N_FREQ} points over 40-600 Hz: first {sweep_s:.3f} s "
           f"({N_FREQ / sweep_s:.1f} solves/s), steady {steady_s:.3f} s "
           f"({N_FREQ / steady_s:.1f} solves/s); freq_chunk={chunk}, "
-          f"band kernel launches={launches}, K3 {k3_sweep}, peak device memory "
-          f"{peak_gb:.2f} GB", flush=True)
+          f"band kernel launches={launches}, K3 {k3_sweep}, K7a / K7b "
+          f"{k7_sweep['givens_step']} / {k7_sweep['backsub']}, peak device "
+          f"memory {peak_gb:.2f} GB", flush=True)
     if launches <= 0:
         raise AssertionError("the sweep never launched the band kernel")
+    if fault := k7_fault(k7_sweep, "the 21k sweep"):
+        raise AssertionError(fault)
     if fr.shape != (N_FREQ,) or not np.all(np.isfinite(fr)):
         raise AssertionError(f"bad FRF: shape {fr.shape}, "
                              f"finite={np.all(np.isfinite(fr))}")
@@ -1614,6 +1637,10 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     kept.clear()
     s17_s = time.perf_counter() - t15
     print(f"[time] phase 15 in {s17_s:.1f} s", flush=True)
+    t16 = time.perf_counter()
+    s18 = slice18(dev, p, s11["trace"], inv, dense["bench_inverse"])
+    s18_s = time.perf_counter() - t16
+    print(f"[time] phase 16 in {s18_s:.1f} s", flush=True)
     census = {"bench_sweep": dense["bench"]["k3_by_regime"],
               "sweep_21k": k3_sweep_regimes,
               "rj_21k": inv["k3_rj_by_regime"],
@@ -1643,7 +1670,8 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
                "slice12": {k: v for k, v in s12.items()
                            if k not in ("k1", "k3")},
                "slice17": {k: v for k, v in s17.items()
-                           if k not in ("k1", "k3")}}
+                           if k not in ("k1", "k3")},
+               "slice18": s18}
     summary["phases_s"] = time.perf_counter() - t_phases
     summary["phases_2_9_s"] = summary_s
     summary["phase_11_s"] = eng_s
@@ -1651,12 +1679,13 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
     summary["phase_13_s"] = s11_s
     summary["phase_14_s"] = s12_s
     summary["phase_15_s"] = s17_s
+    summary["phase_16_s"] = s18_s
     s8_s = (summary["phases_s"] - summary_s - eng_s - s10_s - s11_s - s12_s
-            - s17_s)
-    print(f"[time] phases 2-15 in {summary['phases_s']:.1f} s (phase 10: "
+            - s17_s - s18_s)
+    print(f"[time] phases 2-16 in {summary['phases_s']:.1f} s (phase 10: "
           f"{s8_s:.1f} s, phase 11: {eng_s:.1f} s, phase 12: {s10_s:.1f} s, "
           f"phase 13: {s11_s:.1f} s, phase 14: {s12_s:.1f} s, phase 15: "
-          f"{s17_s:.1f} s)", flush=True)
+          f"{s17_s:.1f} s, phase 16: {s18_s:.1f} s)", flush=True)
     k3_paths = {"sweep_21k": k3_sweep, "rj_21k": inv["k3_rj"],
                 "grad_21k": inv["k3_grad"],
                 "dense_sweep_1466": dense["bench"]["k3"],
@@ -1725,7 +1754,22 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
         **{k: s6["k3"]["headline"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": K7_SOURCE,
+        "replaces": K7_REPLACES[name],
+        "launches": k7_sweep[name],
+        "launches_by_path": {k: v[name] for k, v in s18["paths"].items()},
+        "max_abs_err": max(b["max_abs_err"] for b in s18["bits"].values()),
+        "calls_replayed": {k: b[name] for k, b in s18["bits"].items()},
+        **{k: s18["kernels"][f"{name}_21k"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "L",
+            "k")},
+        "bench": {k: s18["kernels"][f"{name}_bench"][k] for k in (
+            "L", "k", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name in ("givens_step", "backsub")]}), flush=True)
 
 
 def sh_i_problem(dev, refine: float, mat=None, accel: bool = True, **kw):
@@ -1929,6 +1973,27 @@ def dense_tier(dev, keep=None) -> dict:
     return out
 
 
+def k7_counts() -> dict:
+    """K7a's and K7b's launches since their counters were last reset, and
+    their plain versions' calls on CUDA tensors (the main path makes
+    none)."""
+    from plate_inverse_problem_tpu_torch.ops import fgmres_kernel as fk
+
+    return {"givens_step": fk.givens_step_cuda.launches,
+            "backsub": fk.backsub_cuda.launches,
+            "plain_on_cuda": (fk.givens_step_reference.cuda_calls
+                              + fk.backsub_reference.cuda_calls)}
+
+
+def k7_fault(counts: dict, what: str) -> str | None:
+    """Why ``counts`` (``k7_counts``) fails the path ``what``: K7a or K7b
+    never launched, or a plain version ran on the card; None if it holds."""
+    if (counts["givens_step"] <= 0 or counts["backsub"] <= 0
+            or counts["plain_on_cuda"] != 0):
+        return f"{what}: K7a / K7b launches and plain calls {counts}"
+    return None
+
+
 def launch_counter(fn, counts, key):
     """``fn`` with K1's launches inside each call added to counts[key]."""
     from plate_inverse_problem_tpu_torch.ops import band_kernel
@@ -1952,7 +2017,8 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
     Returns the numbers for [summary]."""
     import torch
 
-    from plate_inverse_problem_tpu_torch.ops import band_kernel, csr_kernel
+    from plate_inverse_problem_tpu_torch.ops import (band_kernel, csr_kernel,
+                                                     fgmres_kernel)
 
     truth = np.asarray(p.parameters, np.float64)
     th0 = truth * np.asarray(START)
@@ -1971,6 +2037,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
             counts.update(primal=0, adjoint=0)
             band_kernel.band_mv_f32_cuda.launches = 0
             csr_kernel.reset_launches()
+            fgmres_kernel.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r, J = rf.value_and_jac(th0)
@@ -1979,6 +2046,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
             total = band_kernel.band_mv_f32_cuda.launches
             k3_rj = csr_kernel.csr_mv_cuda.launches
             k3_rj_regimes = dict(csr_kernel.csr_mv_cuda.launches_by_regime)
+            k7_rj = k7_counts()
     finally:
         core.sweep_u, core.sweep_adj = hooks
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1987,9 +2055,13 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
           f"{freqs.size} points: first {times[0]:.3f} s, steady "
           f"{times[1]:.3f} s; K1 launches {counts['primal']} in the primal "
           f"sweep, {counts['adjoint']} in the adjoint sweep ({total} in "
-          f"all), K3 {k3_rj}; peak device memory {peak_gb:.2f} GB", flush=True)
+          f"all), K3 {k3_rj}, K7a / K7b {k7_rj['givens_step']} / "
+          f"{k7_rj['backsub']}; peak device memory {peak_gb:.2f} GB",
+          flush=True)
     # every check of the phase runs after all of its measurements
     failed = []
+    if fault := k7_fault(k7_rj, "r + J"):
+        failed.append(fault)
     if k1 and (counts["primal"] <= 0 or counts["adjoint"] <= 0):
         failed.append(f"K1 not launched in both sweeps: {counts}")
     if not k1 and total != 0:
@@ -2056,6 +2128,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
 
     p.getResidualFunction = timed_residuals
     band_kernel.band_mv_f32_cuda.launches = 0
+    fgmres_kernel.reset_launches()
     try:
         res = p.solveInverse(th0, "MSE_LOG_AFC", "gn",
                              ref_fr=(freqs, fr_truth), use_scaling=True,
@@ -2065,6 +2138,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
     finally:
         del p.getResidualFunction
     k1_gn = band_kernel.band_mv_f32_cuda.launches
+    k7_gn = k7_counts()
     iter_s = list(np.diff(stamps))
     for k, (f, x, s) in enumerate(zip(res.f_history, res.x_history, iter_s)):
         x = np.asarray(x) * th0
@@ -2074,10 +2148,13 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
     err = (np.abs(res.x) - truth) / truth
     print(f"{tag}[gn] {len(res.f_history)} iterations in {sum(iter_s):.3f} s "
           f"({np.mean(iter_s):.3f} s/iter), status {res.status}, K1 "
-          f"launches {k1_gn}; result rel err (|beta|) "
+          f"launches {k1_gn}, K7a / K7b {k7_gn['givens_step']} / "
+          f"{k7_gn['backsub']}; result rel err (|beta|) "
           f"{', '.join(f'{v:+.3e}' for v in err)} (tol {GN_TOL})", flush=True)
     if k1 and k1_gn <= 0:
         failed.append("Gauss-Newton never launched the band kernel")
+    if fault := k7_fault(k7_gn, "Gauss-Newton"):
+        failed.append(fault)
     if not k1 and k1_gn != 0:
         failed.append(f"Gauss-Newton launched K1 {k1_gn} times on a tier "
                       "without it")
@@ -2101,7 +2178,7 @@ def inverse_half(p, freqs, fr_truth, k1: bool = True, tag: str = "",
             "gn_f_history": [float(f) for f in res.f_history],
             "gn_iter_s": iter_s, "gn_s_per_iter": float(np.mean(iter_s)),
             "gn_status": res.status, "gn_rel_err": [float(v) for v in err],
-            "k1_gn": k1_gn}
+            "k1_gn": k1_gn, "k7_rj": k7_rj, "k7_gn": k7_gn}
 
 
 def families(dev, keep=None) -> dict:
@@ -4014,13 +4091,14 @@ def expansion(p, freqs, fr) -> dict:
 
 def traced_sweep(p, freqs) -> dict:
     """Phase 13 (e): ``diagnostics.profile_call`` of one steady bench
-    sweep through the core: its Chrome trace names K3's kernels exactly as
-    often as the launch counter counts them, and the device's busy share
-    of the call from the trace's kernel times."""
+    sweep through the core: its Chrome trace names K3's, K7a's and K7b's
+    kernels exactly as often as their launch counters count them, and the
+    device's busy share of the call from the trace's kernel times (phase
+    16 (c) reads it)."""
     import torch
 
     from plate_inverse_problem_tpu_torch.diagnostics import profile
-    from plate_inverse_problem_tpu_torch.ops import csr_kernel
+    from plate_inverse_problem_tpu_torch.ops import csr_kernel, fgmres_kernel
 
     core, od = p.getFRCore()
     f_t = torch.as_tensor(freqs, device=p.device)
@@ -4028,27 +4106,36 @@ def traced_sweep(p, freqs) -> dict:
                          device=p.device)
     core(f_t, th, od)                      # steady: warm caches
     csr_kernel.reset_launches()
+    fgmres_kernel.reset_launches()
     logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "traces")
     _, run, wall = profile.profile_call(core, f_t, th, od,
                                         label="bench_sweep", logdir=logdir,
                                         warmup=False)
     counted = csr_kernel.csr_mv_cuda.launches
+    k7 = k7_counts()
     with open(os.path.join(run, profile.TRACE_FILE)) as fh:
         events = json.load(fh)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     k3 = [e for e in kernels if "csr_mv_" in e.get("name", "")]
+    k7_trace = {k: sum(f"{k}_kernel" in e.get("name", "") for e in kernels)
+                for k in ("givens_step", "backsub")}
     busy_ms = sum(e.get("dur", 0.0) for e in kernels) / 1e3
     rec = {"trace": os.path.relpath(run), "wall_s": wall,
            "k3_counted": counted, "k3_in_trace": len(k3),
            "kernels_in_trace": len(kernels), "device_busy_ms": busy_ms,
-           "k3_ms": sum(e.get("dur", 0.0) for e in k3) / 1e3}
+           "busy_share": busy_ms / (1e3 * wall),
+           "k3_ms": sum(e.get("dur", 0.0) for e in k3) / 1e3,
+           "k7_counted": k7, "k7_in_trace": k7_trace}
     print(f"[slice11] (e) profile_call bench sweep: {wall:.4f} s wall, "
           f"{len(kernels)} kernels in the Chrome trace, device busy "
-          f"{busy_ms:.2f} ms ({100 * busy_ms / (1e3 * wall):.1f} %), K3 "
+          f"{busy_ms:.2f} ms ({100 * rec['busy_share']:.1f} %), K3 "
           f"{len(k3)} in the trace ({rec['k3_ms']:.2f} ms) against "
-          f"{counted} counted; trace {rec['trace']}", flush=True)
-    if counted <= 0 or len(k3) != counted:
+          f"{counted} counted, K7a / K7b {k7_trace['givens_step']} / "
+          f"{k7_trace['backsub']} against {k7['givens_step']} / "
+          f"{k7['backsub']}; trace {rec['trace']}", flush=True)
+    if (counted <= 0 or len(k3) != counted or k7_fault(k7, "traced sweep")
+            or k7_trace != {k: k7[k] for k in k7_trace}):
         raise AssertionError(f"trace vs counter: {rec}")
     return rec
 
@@ -5205,6 +5292,233 @@ def slice17(dev, kept: dict) -> dict:
     out["k3"] = {"sweep_46k": a["k3"][1], "rj_46k": a["k3_rj"],
                  "sweep_104k": b["k3"][1], "rj_104k": b["k3_rj"],
                  "rj_d4_104k": c["k3_rj"]}
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the FGMRES cycle's Givens least squares (K7a, K7b)
+# ---------------------------------------------------------------------------
+
+K7_SOURCE = "plate_inverse_problem_tpu_torch/csrc/fgmres_lsq.cu"
+K7_REPLACES = {
+    "givens_step": "plate_inverse_problem_tpu/ops/mixed.py:393-463 (not "
+                   "Pallas: the rotations, g and target in the while_loop "
+                   "body of _pgmres_cycle_body l.349, fused by XLA)",
+    "backsub": "plate_inverse_problem_tpu/ops/mixed.py:479-496 (not Pallas: "
+               "the back-substitution fori_loop of _pgmres_cycle_body)"}
+# the H100's f64 rate outside the tensor cores (NVIDIA's data sheet, SXM)
+FP64_FLOPS = 34e12
+
+
+def k7_work(name: str, args) -> tuple[int, int]:
+    """(bytes, f64 operations) that one K7a / K7b call on ``args`` must
+    move and do: each input read once, each output written once, on the
+    lanes that work (K7a: the active ones)."""
+    if name == "givens_step":
+        hre, cs, active, anchor = args[0], args[3], args[11], args[13]
+        k = cs.shape[1]
+        la = int(active.sum())
+        # reads: h (k+1 complex), hlast, cs, sn, g[j] (+ beta0, tol_rel);
+        # writes: R's column j, cs[j], sn[j], g[j], g[j+1], rn2 (+ tol2)
+        per_lane = 8 * (2 * (k + 1) + 1 + k + 2 * k + 2 + 2 * anchor
+                        + 2 * k + 1 + 2 + 4 + 1 + anchor)
+        return la * per_lane + active.numel(), la * (20 * k + 40)
+    R = args[0]
+    L, k = R.shape[:2]
+    # reads R and g's first k rows and j_fin; writes y
+    return L * 8 * (2 * k * k + 2 * k + 1 + 2 * k), L * k * (8 * k + 12)
+
+
+def k7_time(name: str, args, reps: int = 100) -> dict:
+    """One recorded call's kernel time on the device and the wrapper's on
+    the host (``time_ms`` over ``reps`` launches on a copy of its
+    arguments), the plain version's on the card (CUDA events around its
+    calls: its launches are host-bound), the bound from ``k7_work``, and
+    for K7b the library's time (``time_ms``): one
+    ``torch.linalg.solve_triangular`` of the complex R against the masked
+    g.  No PyTorch call computes K7a's batched Givens update."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import fgmres_kernel as fk
+
+    a = [x.clone() if hasattr(x, "clone") else x for x in args]
+    kernel, plain = ((fk.givens_step_cuda, fk.givens_step_reference)
+                     if name == "givens_step"
+                     else (fk.backsub_cuda, fk.backsub_reference))
+    nbytes, ops = k7_work(name, args)
+    bound_bytes, bound_ops = 1e3 * nbytes / HBM_BPS, 1e3 * ops / FP64_FLOPS
+    k = (args[3] if name == "givens_step" else args[0]).shape[1]
+    ms, host_ms = time_ms(lambda: kernel(*a), reps)
+    rec = {"L": int(args[0].shape[0]), "k": int(k), "ms": ms,
+           "host_ms": host_ms,
+           "plain_ms": cuda_event_ms(lambda: plain(*a), 10),
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "bytes": nbytes, "ops": ops, "library_ms": None}
+    if name == "givens_step":
+        rec["active"] = int(args[11].sum())
+    else:
+        R, g, j_fin = args
+        rows_on = torch.arange(k, device=R.device)[None, :] < j_fin[:, None]
+        g_c = torch.view_as_complex(
+            torch.where(rows_on[..., None], g[:, :k], 0.0).contiguous())
+        R_c = torch.view_as_complex(R)
+        rec["library_ms"] = time_ms(lambda: torch.linalg.solve_triangular(
+            R_c, g_c[..., None], upper=True), reps)[0]
+    return rec
+
+
+@contextlib.contextmanager
+def k7_recorded():
+    """Yields a list that records every K7a / K7b call made through the
+    names ``ops/mixed.py`` calls (``mixed.givens_step``, ``mixed.backsub``)
+    inside the block: (name, its arguments cloned before the call), for
+    ``fgmres_kernel.compare``."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import mixed
+
+    calls, saved = [], (mixed.givens_step, mixed.backsub)
+
+    def recorder(name, fn):
+        def call(*args):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a
+                                      for a in args)))
+            return fn(*args)
+        return call
+
+    mixed.givens_step = recorder("givens_step", saved[0])
+    mixed.backsub = recorder("backsub", saved[1])
+    try:
+        yield calls
+    finally:
+        mixed.givens_step, mixed.backsub = saved
+
+
+def recorded_sweep(p, freqs) -> tuple[float, dict, list]:
+    """One steady sweep of ``p`` timed with K7's counters reset before it
+    (seconds, ``k7_counts``), then the same sweep again with every K7a /
+    K7b call recorded (``k7_recorded``)."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import fgmres_kernel as fk
+
+    fk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.solveForward(freqs)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = k7_counts()
+    with k7_recorded() as calls:
+        p.solveForward(freqs)
+    torch.cuda.synchronize()
+    return sweep_s, counts, calls
+
+
+def synthetic_calls(dev, k: int) -> list:
+    """The K7a / K7b calls of ``fgmres_kernel.synthetic_cycle`` at L = 512
+    lanes and ``k`` steps, recorded (``k7_recorded``) as the kernels run
+    it through the names ``_pgmres_cycle`` calls."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import fgmres_kernel as fk
+    from plate_inverse_problem_tpu_torch.ops import mixed
+
+    state, steps, _, _, j_fin = fk.synthetic_cycle(512, k, seed=k,
+                                                   device=dev)
+    with k7_recorded() as calls:
+        for j, st in enumerate(steps):
+            mixed.givens_step(st["hre"], st["him"], st["hlast"],
+                              *(state[key] for key in fk.STATE_KEYS),
+                              st["active"], j, j == 0)
+        mixed.backsub(state["R"], state["g"],
+                      torch.as_tensor(j_fin, device=dev))
+    return calls
+
+
+def slice18(dev, p21, trace: dict, inv21: dict, inv_bench: dict) -> dict:
+    """Phase 16: K7a (``givens_step``) and K7b (``backsub``), the FGMRES
+    cycle's Givens least squares, on the card.  (a) every call of one
+    steady bench (n = 1466) and one steady 21k sweep (``p21``), recorded,
+    and a seeded synthetic set (L = 512, k = 8 and 16, every step; a = 0,
+    b = 0, both zero, inactive and underflowing lanes) replayed through
+    the kernel and the plain version: identical bits; (b) each kernel's
+    time at the 21k and bench sweeps' first call, its plain version's,
+    its bound; (c) the two steady sweeps' seconds and launches, the r + J
+    and Gauss-Newton launches of phases 6 and 7 (b) (``inv21``,
+    ``inv_bench``), and phase 13 (e)'s trace of a steady bench sweep
+    (``trace``).  Every part runs before a failed check raises."""
+    import torch
+
+    from plate_inverse_problem_tpu_torch.ops import fgmres_kernel as fk
+
+    failed = []
+    freqs = np.linspace(40.0, 600.0, N_FREQ)
+    bench = sh_i_problem(dev, 1.0)
+    bench.solveForward(freqs)                          # first: warm
+    out = {"sweeps": {}, "bits": {}}
+    calls = {}
+    for label, p in (("bench", bench), ("21k", p21)):
+        sweep_s, counts, calls[label] = recorded_sweep(p, freqs)
+        out["sweeps"][label] = {"steady_s": sweep_s, "k7": counts}
+        print(f"[slice18] (c) {label} steady sweep {sweep_s:.4f} s: K7a / "
+              f"K7b {counts['givens_step']} / {counts['backsub']} launches, "
+              f"plain versions on the card {counts['plain_on_cuda']}",
+              flush=True)
+    for k in (8, 16):
+        calls[f"synthetic k={k}"] = synthetic_calls(dev, k)
+    for label, cl in calls.items():
+        differ, worst = fk.compare(cl)
+        n_g = sum(name == "givens_step" for name, _ in cl)
+        out["bits"][label] = {"givens_step": n_g, "backsub": len(cl) - n_g,
+                              "differ": differ, "max_abs_err": worst}
+        print(f"[slice18] (a) {label}: {n_g} K7a and {len(cl) - n_g} K7b "
+              f"calls replayed, {differ} differ from the plain version in a "
+              f"bit (max abs {worst:.3e})", flush=True)
+        if differ or not cl:
+            failed.append(f"{label}: {differ} of {len(cl)} K7 calls differ "
+                          f"from the plain version (max abs {worst:.3e})")
+    out["kernels"] = {}
+    for name in ("givens_step", "backsub"):
+        for label in ("21k", "bench"):
+            first = next(a for n, a in calls[label] if n == name)
+            rec = k7_time(name, first)
+            out["kernels"][f"{name}_{label}"] = rec
+            print(f"[slice18] (b) {name} at the {label} sweep's first call "
+                  f"(L = {rec['L']}, k = {rec['k']}"
+                  + (f", {rec['active']} active" if "active" in rec else "")
+                  + f"): {rec['ms']:.4f} ms on the device, "
+                  f"{rec['host_ms']:.4f} ms a call on the host (the "
+                  f"wrapper's checks and launch), plain "
+                  f"{rec['plain_ms']:.4f} ms, bound "
+                  f"{1e3 * rec['bound_ms']:.4f} us ({rec['bound_by']}: "
+                  f"{rec['bytes']} B at 3.35 TB/s, {rec['ops']} f64 "
+                  "operations at 34 TFLOP/s); the launch dominates; "
+                  + ("library: none (no PyTorch call computes a batched "
+                     "Givens update)" if rec["library_ms"] is None else
+                     f"library (torch.linalg.solve_triangular) "
+                     f"{rec['library_ms']:.4f} ms"), flush=True)
+    paths = {"sweep_1466": out["sweeps"]["bench"]["k7"],
+             "sweep_21k": out["sweeps"]["21k"]["k7"],
+             "rj_1466": inv_bench["k7_rj"], "gn_1466": inv_bench["k7_gn"],
+             "rj_21k": inv21["k7_rj"], "gn_21k": inv21["k7_gn"],
+             "traced_sweep_1466": trace["k7_counted"]}
+    for label, counts in paths.items():
+        if fault := k7_fault(counts, label):
+            failed.append(fault)
+    out["paths"] = paths
+    print(f"[slice18] (c) phase 13 (e)'s traced steady bench sweep: "
+          f"{trace['kernels_in_trace']} kernels, device busy "
+          f"{100 * trace['busy_share']:.1f} % of {trace['wall_s']:.4f} s "
+          f"(PR 7's trace: idle 79.0 %); K7a / K7b launches by path: "
+          + "; ".join(f"{k} {v['givens_step']} / {v['backsub']}"
+                      for k, v in paths.items()), flush=True)
+    del bench
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 16 failed: " + " | ".join(failed))
     return out
 
 

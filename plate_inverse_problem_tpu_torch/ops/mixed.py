@@ -52,9 +52,10 @@ The JAX side vmaps the per-frequency solve; here the frequency lanes are a
 written-out leading axis of every (lanes, 2, n) re/im stack.  Its batched
 ``while_loop``s freeze each lane once the lane's own condition fails; the
 port keeps one step counter and a per-lane ``active`` mask, applies every
-state update through ``torch.where`` and ends a loop when no lane is active
-(one host sync per step).  Each lane therefore follows exactly the
-iteration it would follow alone.
+state update through ``torch.where`` (the Givens least squares in place on
+the active lanes, by the CUDA kernels K7a / K7b of ops/fgmres_kernel.py on
+the card) and ends a loop when no lane is active (one host sync per step).
+Each lane therefore follows exactly the iteration it would follow alone.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ from .band import band_mv, flat_to_band
 from .band_kernel import BandTiles, band_mv_f32
 from .csr_kernel import build_csr, csr_apply, csr_mv
 from .dense import dense_apply as _dense_apply
+from .fgmres_kernel import backsub, givens_step
 from .mg import multilevel_apply, twogrid_apply, twogrid_apply_rows
 
 # f32 refinement rounds around the two-grid / multilevel cycle (each round
@@ -159,10 +161,6 @@ def static_preconditioner_host(K_flat_ref: np.ndarray, rows: np.ndarray,
 # ---------------------------------------------------------------------------
 # batched split-complex flexible GMRES
 # ---------------------------------------------------------------------------
-
-def _cmul(a, b):
-    return (a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0])
-
 
 def _sel(mask, new, old):
     """Per-lane select: ``mask`` (L,) broadcast over the trailing dims."""
@@ -316,92 +314,15 @@ def _pgmres_cycle(A_apply, P_apply, bb, x_in, r0, tol2_in, tol_rel,
         V[:, j + 1] = _sel(active, w / torch.clamp(hl, min=tinyb)[:, None, None],
                            V[:, j + 1])
 
-        # apply the accumulated rotations to the new column (rotations
-        # beyond the current step are the identity)
-        zero = torch.zeros(L, 1, dtype=f64, device=dev)
-        hre = torch.cat([hre, zero], dim=1)
-        him = torch.cat([him, zero], dim=1)
-        hre[:, j + 1] = hlast
-        for i in range(k_max):
-            a = (hre[:, i], him[:, i])
-            b = (hre[:, i + 1], him[:, i + 1])
-            s = (sn[:, i, 0], sn[:, i, 1])
-            c_ = cs[:, i]
-            top = _cmul((c_, 0.0 * c_), a)
-            top = (top[0] + s[0] * b[0] - s[1] * b[1],
-                   top[1] + s[0] * b[1] + s[1] * b[0])
-            bot = _cmul((c_, 0.0 * c_), b)
-            bot = (bot[0] - s[0] * a[0] - s[1] * a[1],
-                   bot[1] - s[0] * a[1] + s[1] * a[0])
-            hre[:, i], hre[:, i + 1] = top[0], bot[0]
-            him[:, i], him[:, i + 1] = top[1], bot[1]
-
-        # new rotation [[c, s], [-conj(s), c]] (c real) annihilating slot
-        # j+1; degenerate a -> c = 0, s = phase of conj(b); both zero ->
-        # identity
-        a = (hre[:, j], him[:, j])
-        b = (hre[:, j + 1], him[:, j + 1])
-        amag = torch.sqrt(a[0] * a[0] + a[1] * a[1])
-        bmag = torch.sqrt(b[0] * b[0] + b[1] * b[1])
-        rho = torch.sqrt(amag * amag + bmag * bmag)
-        a_ok = amag > tiny
-        b_ok = bmag > tiny
-        one = torch.ones_like(amag)
-        zr = torch.zeros_like(amag)
-        c = torch.where(a_ok, amag / torch.clamp(rho, min=tiny),
-                        torch.where(b_ok, zr, one))
-        phase = (torch.where(a_ok, a[0] / torch.clamp(amag, min=tiny), one),
-                 torch.where(a_ok, a[1] / torch.clamp(amag, min=tiny), zr))
-        denom = torch.where(a_ok, torch.clamp(rho, min=tiny),
-                            torch.clamp(bmag, min=tiny))
-        s = _cmul(phase, (b[0] / denom, -b[1] / denom))
-        s = (torch.where(b_ok, s[0], zr), torch.where(b_ok, s[1], zr))
-        cs[:, j] = torch.where(active, c, cs[:, j])
-        sn[:, j] = _sel(active, torch.stack([s[0], s[1]], dim=1), sn[:, j])
-
-        top = _cmul((c, 0.0 * c), a)
-        top = (top[0] + s[0] * b[0] - s[1] * b[1],
-               top[1] + s[0] * b[1] + s[1] * b[0])
-        hre[:, j] = top[0]
-        him[:, j] = top[1]
-        R[:, :, j] = _sel(active, torch.stack([hre[:, :k_max],
-                                               him[:, :k_max]], dim=2),
-                          R[:, :, j])
-
-        gj = (g[:, j, 0], g[:, j, 1])
-        g_top = _cmul((c, 0.0 * c), gj)
-        g_bot = (-(s[0] * gj[0] + s[1] * gj[1]),
-                 -(s[0] * gj[1] - s[1] * gj[0]))
-        g_new = g.clone()
-        g_new[:, j, 0], g_new[:, j, 1] = g_top
-        g_new[:, j + 1, 0], g_new[:, j + 1, 1] = g_bot
-        g = _sel(active, g_new, g)
-        rn2_new = g_bot[0] ** 2 + g_bot[1] ** 2
-        rn2 = torch.where(active, rn2_new, rn2)
-        # the first step resolves the stiffness-lift components of the
-        # residual; the target is re-anchored at what is left after it
-        if anchor and j == 0:
-            anc = torch.maximum(torch.sqrt(rn2), 1e-13 * beta0)
-            tol2 = torch.where(active, (tol_rel * anc) ** 2, tol2)
+        # the column's rotations, the new rotation, R, g, rn2 and (first
+        # step of an anchored cycle) tol2, on the active lanes: K7a
+        givens_step(hre, him, hlast, cs, sn, R, g, rn2, tol2, beta0, tol_rel,
+                    active, j, anchor and j == 0)
         j += 1
 
     # rows past a lane's last step: R is the identity there, g is masked to
-    # zero so the back-substitution returns y = 0
-    rows_on = torch.arange(k_max, device=dev)[None, :] < j_fin[:, None]
-    g = torch.where(rows_on[..., None], g[:, :k_max], 0.0)
-    y = torch.zeros(L, k_max, 2, dtype=f64, device=dev)
-    for t in range(k_max):
-        l = k_max - 1 - t
-        acc_re = (R[:, l, :, 0] * y[..., 0]).sum(1) \
-            - (R[:, l, :, 1] * y[..., 1]).sum(1)
-        acc_im = (R[:, l, :, 0] * y[..., 1]).sum(1) \
-            + (R[:, l, :, 1] * y[..., 0]).sum(1)
-        num = (g[:, l, 0] - acc_re, g[:, l, 1] - acc_im)
-        den = R[:, l, l, 0] ** 2 + R[:, l, l, 1] ** 2
-        yl = _cmul(num, (R[:, l, l, 0] / torch.clamp(den, min=tiny),
-                         -R[:, l, l, 1] / torch.clamp(den, min=tiny)))
-        y[:, l, 0] = yl[0]
-        y[:, l, 1] = yl[1]
+    # zero so the back-substitution returns y = 0 (K7b)
+    y = backsub(R, g, j_fin)
 
     yb = y.to(bd)
     xc0 = torch.einsum("lk,lkn->ln", yb[..., 0], Z[:, :, 0]) \

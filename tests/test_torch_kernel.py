@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels on the card: K1, the f32 band
-matvec (``csrc/band_mv.cu``), and K3, the stacked CSR matvec of the flat
-pattern (``csrc/csr_mv.cu``).
+matvec (``csrc/band_mv.cu``), K3, the stacked CSR matvec of the flat
+pattern (``csrc/csr_mv.cu``), and K7a / K7b, the FGMRES cycle's Givens
+least squares (``csrc/fgmres_lsq.cu``).
 
 These tests need an NVIDIA GPU and nvcc; without one they skip.  They import
 no jax, so they run on a machine that has only the port's dependencies:
@@ -28,7 +29,8 @@ adjoint Gauss-Newton residual and Jacobian on the card against the same
 call on the CPU (plain K1), on one set of operator data: r to 3e-6, J to
 1e-5 of max |J| (the f32 preconditioner rounds differently, as against
 the JAX package); ``polish_peaks`` on the card against the refined splu to
-1e-8.
+1e-8; K7a and K7b against their plain versions bit for bit, on a seeded
+cycle's degenerate and inactive lanes and on every call of a bench sweep.
 """
 import functools
 
@@ -40,6 +42,8 @@ import plate_inverse_problem_tpu_torch as pt
 from plate_inverse_problem_tpu_torch.ops import band as tband
 from plate_inverse_problem_tpu_torch.ops import band_kernel
 from plate_inverse_problem_tpu_torch.ops import csr_kernel
+from plate_inverse_problem_tpu_torch.ops import fgmres_kernel
+from plate_inverse_problem_tpu_torch.ops import mixed
 from plate_inverse_problem_tpu_torch.ops.band_kernel import pack_band_tiles
 from plate_inverse_problem_tpu_torch.oracle import splu_frf
 
@@ -584,3 +588,68 @@ def test_polish_peaks_on_card_meets_refined_splu(cuda_device):
     assert fr_sf.is_cuda
     np.testing.assert_allclose(fr_sf.cpu().numpy(), fr_pol, rtol=1e-12,
                                atol=0.0)
+
+
+def _recorded(fn):
+    """The calls of K7a / K7b that ``fn()`` makes through the names
+    ``ops/mixed.py`` calls: (name, their arguments cloned before the
+    call)."""
+    calls, saved = [], (mixed.givens_step, mixed.backsub)
+
+    def recorder(name, kernel):
+        def call(*args):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a
+                                      for a in args)))
+            return kernel(*args)
+        return call
+
+    mixed.givens_step = recorder("givens_step", saved[0])
+    mixed.backsub = recorder("backsub", saved[1])
+    try:
+        fn()
+    finally:
+        mixed.givens_step, mixed.backsub = saved
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 16])
+def test_fgmres_kernels_match_plain_bits(cuda_device, k):
+    """K7a ``givens_step`` at every step of a seeded cycle of 512 lanes
+    (``synthetic_cycle``: a = 0, b = 0, both zero, inactive and
+    underflowing lanes) and K7b ``backsub`` after it: the kernels' outputs
+    are the plain versions' bits on the same inputs."""
+    state, steps, _, _, j_fin = fgmres_kernel.synthetic_cycle(
+        512, k, seed=k, device=cuda_device)
+
+    def cycle():
+        for j, s in enumerate(steps):
+            mixed.givens_step(
+                s["hre"], s["him"], s["hlast"],
+                *(state[key] for key in fgmres_kernel.STATE_KEYS),
+                s["active"], j, j == 0)
+        mixed.backsub(state["R"], state["g"],
+                      torch.as_tensor(j_fin, device=cuda_device))
+
+    calls = _recorded(cycle)
+    torch.cuda.synchronize()
+    differ, worst = fgmres_kernel.compare(calls)
+    assert len(calls) == k + 1 and differ == 0, (differ, worst)
+
+
+@pytest.mark.cuda
+def test_fgmres_kernels_on_sweep(cuda_device):
+    """A steady 64-point sweep of the bench plate (n = 1466) goes through
+    K7a and K7b and through neither plain version; every call it made,
+    replayed, gives the plain versions' bits."""
+    p = pt.Problem(*_parts(), device=cuda_device)
+    freqs = np.linspace(40.0, 600.0, 64)
+    p.solveForward(freqs)
+    fgmres_kernel.reset_launches()
+    calls = _recorded(lambda: p.solveForward(freqs))
+    assert fgmres_kernel.givens_step_cuda.launches > 0
+    assert fgmres_kernel.backsub_cuda.launches > 0
+    assert fgmres_kernel.givens_step_reference.cuda_calls == 0
+    assert fgmres_kernel.backsub_reference.cuda_calls == 0
+    differ, worst = fgmres_kernel.compare(calls)
+    assert differ == 0, (differ, worst)
