@@ -258,13 +258,18 @@ Drives the port's main path once at a real size — the 21k-DOF band tier
 16. the FGMRES cycle's Givens least squares (``[slice18]``), K7a
    ``givens_step`` and K7b ``backsub`` (``csrc/fgmres_lsq.cu``, built
    in phase 2): (a) every call of one steady bench (n = 1466) and one
-   steady 21k sweep recorded (``k7_recorded``) and replayed through the kernel and the plain version on the card, and
-   a seeded set (512 lanes, k = 8 and 16, every step; a = 0, b = 0, both
-   zero, inactive and underflowing lanes): identical bits; (b) each
-   kernel's time at the 21k and bench sweeps' first call by CUDA events,
-   the plain version's and the bound (bytes at 3.35 TB/s; the launch
-   dominates), and for K7b one ``torch.linalg.solve_triangular`` on the
-   same inputs (no library call computes K7a's batched Givens update); (c) the two steady sweeps'
+   steady 21k sweep recorded (``k7_recorded``) and replayed through the
+   kernel and the plain version on the card, and seeded sets (64 and 512
+   lanes, k = 1, 3, 8, 16, 24 and 64: every width bucket of the kernels;
+   every step; a = 0, b = 0, both zero, inactive and underflowing lanes):
+   identical bits; each bucket's build report, no stack frame and no
+   spills at k <= 16 (h, y and the rotations in registers); (b) each
+   kernel's time at the 21k and bench sweeps' first call by CUDA events
+   on the device and by the host clock on the host, with k and its
+   bucket, the plain version's and the bound (bytes at 3.35 TB/s; the
+   launch dominates), and for K7b one ``torch.linalg.solve_triangular``
+   on the same inputs (no library call computes K7a's batched Givens
+   update); (c) the two steady sweeps'
    seconds, K7a / K7b launches > 0 and no plain call on the card in them,
    in phase 4's sweep, in phases 6 and 7 (b)'s r + J and Gauss-Newton and
    in phase 13 (e)'s traced bench sweep, whose Chrome trace names both
@@ -579,9 +584,12 @@ def ptxas_summary(report: str) -> list[str]:
             m = re.search(r"ILi(\d+)ELb(\d)E", line)
             k = re.search(r"(csr_mv_\w+?_kernel)I(\w)(?:Li(\d+)E)?"
                           r"(?:Li(\d+)E)?", line)
+            k7 = re.search(r"(givens_step_kernel|backsub_kernel)ILi(\d+)E",
+                           line)
             name = (f"<S={m[1]}, vec={m[2]}>" if m else
                     f"{k[1]}<" + ", ".join(a for a in k.groups()[1:] if a)
-                    + ">" if k else "kernel")
+                    + ">" if k else f"{k7[1]}<{k7[2]}>" if k7 else
+                    "kernel")
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -1765,10 +1773,12 @@ def smoke(dev, card: str, ab_sources=(), ab_csr_sources=()):
         "calls_replayed": {k: b[name] for k, b in s18["bits"].items()},
         **{k: s18["kernels"][f"{name}_21k"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "L",
-            "k")},
+            "k", "bucket", "host_ms")},
         "bench": {k: s18["kernels"][f"{name}_bench"][k] for k in (
-            "L", "k", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+            "L", "k", "bucket", "ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "build": {kp: s18["build"].get(f"{name}_kernel<{kp}>")
+                  for kp in (8, 16, 32, 64)},
     } for name in ("givens_step", "backsub")]}), flush=True)
 
 
@@ -5309,6 +5319,50 @@ K7_REPLACES = {
                "the back-substitution fori_loop of _pgmres_cycle_body)"}
 # the H100's f64 rate outside the tensor cores (NVIDIA's data sheet, SXM)
 FP64_FLOPS = 34e12
+# phase 16 (a)'s synthetic cycles: a k in and between each of the kernels'
+# width buckets (8, 16, 32, 64), at a two-grid chunk's lanes and a sweep's
+K7_SYNTH_K = (1, 3, 8, 16, 24, 64)
+K7_SYNTH_L = (64, 512)
+# the instantiations whose build must show no stack frame and no spills
+# (h, y and the rotations in registers)
+K7_REGISTER_BUCKETS = (8, 16)
+
+
+def k7_build(report: str) -> dict:
+    """Each K7a / K7b instantiation's registers, stack frame and spills,
+    by name (``givens_step_kernel<8>``, ...), from ``fgmres_lsq.cu``'s
+    ``nvcc -Xptxas -v`` report."""
+    out, name, entry, props = {}, None, None, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"'(_Z\w*?(givens_step_kernel|backsub_kernel)"
+                          r"ILi(\d+)E\w*)'", line)
+            name, entry = (f"{m[2]}<{m[3]}>", m[1]) if m else (None, None)
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[-1].strip()
+        elif name and props == entry and "bytes stack frame" in line:
+            n = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            out[name] = {"stack": n[0], "spill_stores": n[1],
+                         "spill_loads": n[2]}
+        elif name in out and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
+def k7_build_fault(build: dict) -> str | None:
+    """Why ``k7_build``'s record fails: an instantiation missing, or a
+    register bucket's (``K7_REGISTER_BUCKETS``) stack frame or spills."""
+    want = [f"{n}<{kp}>" for n in ("givens_step_kernel", "backsub_kernel")
+            for kp in (8, 16, 32, 64)]
+    if missing := [w for w in want if w not in build]:
+        return f"no build report for {missing}"
+    bad = [f"{n}<{kp}>: {build[f'{n}<{kp}>']}"
+           for n in ("givens_step_kernel", "backsub_kernel")
+           for kp in K7_REGISTER_BUCKETS
+           if any(build[f"{n}<{kp}>"][key] for key in (
+               "stack", "spill_stores", "spill_loads"))]
+    return f"stack or spills in {bad}" if bad else None
 
 
 def k7_work(name: str, args) -> tuple[int, int]:
@@ -5350,7 +5404,8 @@ def k7_time(name: str, args, reps: int = 100) -> dict:
     bound_bytes, bound_ops = 1e3 * nbytes / HBM_BPS, 1e3 * ops / FP64_FLOPS
     k = (args[3] if name == "givens_step" else args[0]).shape[1]
     ms, host_ms = time_ms(lambda: kernel(*a), reps)
-    rec = {"L": int(args[0].shape[0]), "k": int(k), "ms": ms,
+    rec = {"L": int(args[0].shape[0]), "k": int(k), "bucket": fk.bucket(k),
+           "ms": ms,
            "host_ms": host_ms,
            "plain_ms": cuda_event_ms(lambda: plain(*a), 10),
            "bound_ms": max(bound_bytes, bound_ops),
@@ -5417,8 +5472,8 @@ def recorded_sweep(p, freqs) -> tuple[float, dict, list]:
     return sweep_s, counts, calls
 
 
-def synthetic_calls(dev, k: int) -> list:
-    """The K7a / K7b calls of ``fgmres_kernel.synthetic_cycle`` at L = 512
+def synthetic_calls(dev, k: int, L: int = 512) -> list:
+    """The K7a / K7b calls of ``fgmres_kernel.synthetic_cycle`` at ``L``
     lanes and ``k`` steps, recorded (``k7_recorded``) as the kernels run
     it through the names ``_pgmres_cycle`` calls."""
     import torch
@@ -5426,7 +5481,7 @@ def synthetic_calls(dev, k: int) -> list:
     from plate_inverse_problem_tpu_torch.ops import fgmres_kernel as fk
     from plate_inverse_problem_tpu_torch.ops import mixed
 
-    state, steps, _, _, j_fin = fk.synthetic_cycle(512, k, seed=k,
+    state, steps, _, _, j_fin = fk.synthetic_cycle(L, k, seed=k,
                                                    device=dev)
     with k7_recorded() as calls:
         for j, st in enumerate(steps):
@@ -5442,10 +5497,13 @@ def slice18(dev, p21, trace: dict, inv21: dict, inv_bench: dict) -> dict:
     """Phase 16: K7a (``givens_step``) and K7b (``backsub``), the FGMRES
     cycle's Givens least squares, on the card.  (a) every call of one
     steady bench (n = 1466) and one steady 21k sweep (``p21``), recorded,
-    and a seeded synthetic set (L = 512, k = 8 and 16, every step; a = 0,
-    b = 0, both zero, inactive and underflowing lanes) replayed through
-    the kernel and the plain version: identical bits; (b) each kernel's
-    time at the 21k and bench sweeps' first call, its plain version's,
+    and seeded synthetic sets (L in ``K7_SYNTH_L``, k in ``K7_SYNTH_K``:
+    every width bucket; every step; a = 0, b = 0, both zero, inactive and
+    underflowing lanes) replayed through the kernel and the plain
+    version: identical bits; the build report of each bucket's
+    instantiation, no stack frame and no spills at 8 and 16 (``k7_build``);
+    (b) each kernel's time at the 21k and bench sweeps' first call, on the
+    device and on the host, with k and its bucket, its plain version's,
     its bound; (c) the two steady sweeps' seconds and launches, the r + J
     and Gauss-Newton launches of phases 6 and 7 (b) (``inv21``,
     ``inv_bench``), and phase 13 (e)'s trace of a steady bench sweep
@@ -5455,10 +5513,16 @@ def slice18(dev, p21, trace: dict, inv21: dict, inv_bench: dict) -> dict:
     from plate_inverse_problem_tpu_torch.ops import fgmres_kernel as fk
 
     failed = []
+    out = {"sweeps": {}, "bits": {}, "build": k7_build(fk.build())}
+    for name, b in out["build"].items():
+        print(f"[slice18] (a) build {name}: {b.get('registers')} registers, "
+              f"{b['stack']} B stack, {b['spill_stores']} / "
+              f"{b['spill_loads']} B spill stores / loads", flush=True)
+    if fault := k7_build_fault(out["build"]):
+        failed.append(f"build: {fault}")
     freqs = np.linspace(40.0, 600.0, N_FREQ)
     bench = sh_i_problem(dev, 1.0)
     bench.solveForward(freqs)                          # first: warm
-    out = {"sweeps": {}, "bits": {}}
     calls = {}
     for label, p in (("bench", bench), ("21k", p21)):
         sweep_s, counts, calls[label] = recorded_sweep(p, freqs)
@@ -5467,9 +5531,8 @@ def slice18(dev, p21, trace: dict, inv21: dict, inv_bench: dict) -> dict:
               f"K7b {counts['givens_step']} / {counts['backsub']} launches, "
               f"plain versions on the card {counts['plain_on_cuda']}",
               flush=True)
-    for k in (8, 16):
-        calls[f"synthetic k={k}"] = synthetic_calls(dev, k)
-    for label, cl in calls.items():
+
+    def replay(label, cl):
         differ, worst = fk.compare(cl)
         n_g = sum(name == "givens_step" for name, _ in cl)
         out["bits"][label] = {"givens_step": n_g, "backsub": len(cl) - n_g,
@@ -5480,6 +5543,12 @@ def slice18(dev, p21, trace: dict, inv21: dict, inv_bench: dict) -> dict:
         if differ or not cl:
             failed.append(f"{label}: {differ} of {len(cl)} K7 calls differ "
                           f"from the plain version (max abs {worst:.3e})")
+
+    for label, cl in calls.items():
+        replay(label, cl)
+    for k in K7_SYNTH_K:             # each set recorded, replayed, let go
+        for L in K7_SYNTH_L:
+            replay(f"synthetic k={k} L={L}", synthetic_calls(dev, k, L))
     out["kernels"] = {}
     for name in ("givens_step", "backsub"):
         for label in ("21k", "bench"):
@@ -5487,7 +5556,7 @@ def slice18(dev, p21, trace: dict, inv21: dict, inv_bench: dict) -> dict:
             rec = k7_time(name, first)
             out["kernels"][f"{name}_{label}"] = rec
             print(f"[slice18] (b) {name} at the {label} sweep's first call "
-                  f"(L = {rec['L']}, k = {rec['k']}"
+                  f"(L = {rec['L']}, k = {rec['k']}, bucket {rec['bucket']}"
                   + (f", {rec['active']} active" if "active" in rec else "")
                   + f"): {rec['ms']:.4f} ms on the device, "
                   f"{rec['host_ms']:.4f} ms a call on the host (the "

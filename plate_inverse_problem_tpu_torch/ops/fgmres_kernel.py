@@ -15,11 +15,16 @@ JAX package leaves it to an einsum.  Pieces:
   tensors (the main path makes none);
 * ``givens_step_cuda`` / ``backsub_cuda`` — check their tensors, launch the
   kernel on the current stream and raise if the launch fails;
-  ``.launches`` counts their launches;
+  ``.launches`` counts their launches.  A cycle's state (``STATE_KEYS``)
+  is checked at its first step and kept (``_Cycle``, weakly) with its
+  pointers: a later step checks only its own four tensors, and the
+  cycle's back-substitution only ``j_fin``;
 * ``givens_step`` / ``backsub`` — what ``_pgmres_cycle`` calls: the kernel
   for a CUDA tensor, the plain version for a CPU tensor;
 * ``build`` — compiles the source with nvcc for ``sm_90a`` into
-  ``build/kernels/`` at first use and loads it with ``ctypes``.
+  ``build/kernels/`` at first use and loads it with ``ctypes``;
+  ``bucket(k)`` is the kernels' compile-time width for k (8, 16, 32 or
+  64; 0 past 64, which the wrappers refuse).
 
 The kernels repeat the plain versions operation for operation, in the same
 order, each product and sum a rounding intrinsic that is never fused into a
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import weakref
 
 import torch
 
@@ -40,9 +46,16 @@ _LIB_PATH = os.path.join(BUILD_DIR, "libfgmres_lsq.so")
 _TINY = 1e-300
 
 _lib = None
-# the most Krylov steps a cycle the kernels take (their local arrays), as
-# the library reports it
+# the most Krylov steps a cycle the kernels take, as the library reports it
 _kmax = None
+
+
+class _State(ctypes.Structure):
+    """``fgmres_state`` of ``csrc/fgmres_lsq.cu``: a cycle's state
+    pointers (``STATE_KEYS``' order), L and k."""
+    _fields_ = [(key, ctypes.c_void_p) for key in (
+        "cs", "sn", "R", "g", "rn2", "tol2", "beta0", "tol_rel")] + [
+        ("L", ctypes.c_int), ("k", ctypes.c_int)]
 
 
 def build() -> str:
@@ -53,14 +66,25 @@ def build() -> str:
     if _lib is None:
         lib = ctypes.CDLL(_LIB_PATH)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.givens_step_launch.argtypes = [p] * 12 + [i] * 4 + [p]
+        lib.givens_step_launch.argtypes = [ctypes.POINTER(_State)] \
+            + [p] * 4 + [i] * 2 + [p]
         lib.givens_step_launch.restype = i
         lib.backsub_launch.argtypes = [p] * 4 + [i] * 2 + [p]
         lib.backsub_launch.restype = i
         lib.fgmres_lsq_kmax.restype = i
+        lib.fgmres_lsq_bucket.argtypes = [i]
+        lib.fgmres_lsq_bucket.restype = i
         _kmax = lib.fgmres_lsq_kmax()
         _lib = lib
     return report
+
+
+def bucket(k: int) -> int:
+    """The kernels' compile-time width for k steps a cycle: the smallest of
+    8, 16, 32, 64 that holds k, as the library picks it; 0 for none."""
+    if _lib is None:
+        build()
+    return _lib.fgmres_lsq_bucket(int(k))
 
 
 def reset_launches() -> None:
@@ -177,7 +201,9 @@ givens_step_reference.cuda_calls = 0
 
 def _check(name, tensors, shapes, dev) -> None:
     """Raise unless every tensor lies on ``dev`` with its shape in
-    ``shapes``, contiguous, f64 (``active`` bool, ``j_fin`` int64)."""
+    ``shapes``, contiguous, f64 (``active`` bool, ``j_fin`` int64), and
+    those the kernels move in 16-byte units (``_ALIGNED``) 16-byte
+    aligned."""
     for key, t in tensors.items():
         want = shapes[key]
         if t.device != dev:
@@ -190,36 +216,111 @@ def _check(name, tensors, shapes, dev) -> None:
             key, torch.float64)
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} is {t.dtype}, not {dtype}.")
+        if key in _ALIGNED and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned.")
+
+
+# what the kernels stage or store in 16-byte units
+_ALIGNED = ("hre", "him", "cs", "sn", "R", "g")
+
+
+class _Cycle:
+    """A cycle's state tensors (``STATE_KEYS``) as checked at its first
+    step: their ids, weak references whose callback forgets the cycle when
+    one of them is freed (so that the ids stay theirs), the ``_State`` the
+    launcher reads, their device and its index.  A step whose state is the
+    same eight tensors skips their checks: none of them changes shape,
+    type or place in a cycle."""
+
+    __slots__ = ("ids", "refs", "L", "k", "dev", "index", "state", "ref")
+
+    def __init__(self, tensors):
+        self.ids = tuple(map(id, tensors))
+        self.refs = tuple(weakref.ref(t, _forget) for t in tensors)
+        self.L, self.k = tensors[0].shape
+        self.dev = tensors[0].device
+        self.index = self.dev.index
+        self.state = _State(*(t.data_ptr() for t in tensors), self.L,
+                            self.k)
+        self.ref = ctypes.byref(self.state)
+
+    def holds(self, tensors) -> bool:
+        """Whether ``tensors`` are this cycle's state, object for object."""
+        return tuple(map(id, tensors)) == self.ids
+
+
+_cycle = None       # the last cycle checked, while its tensors live
+
+
+def _forget(ref) -> None:
+    global _cycle
+    if _cycle is not None and any(ref is r for r in _cycle.refs):
+        _cycle = None
+
+
+def _cycle_of(state, dev) -> _Cycle:
+    """The ``_Cycle`` of the state tensors ``state``: the last one if they
+    are its tensors, else a new one, checked to lie on ``dev``."""
+    global _cycle
+    if _cycle is not None and _cycle.holds(state):
+        return _cycle
+    cs = state[0]
+    L, k = cs.shape
+    if not 0 < k <= _kmax:
+        raise ValueError(f"givens_step_cuda: k = {k} (1 <= k <= {_kmax}: "
+                         "the kernels' widest bucket).")
+    _check("givens_step_cuda", dict(zip(STATE_KEYS, state)),
+           {"cs": (L, k), "sn": (L, k, 2), "R": (L, k, k, 2),
+            "g": (L, k + 1, 2), "rn2": (L,), "tol2": (L,), "beta0": (L,),
+            "tol_rel": (L,)}, dev)
+    _cycle = _Cycle(state)
+    return _cycle
+
+
+def _fits(t, shape, dtype, index) -> bool:
+    return (t.dtype is dtype and t.get_device() == index and t.shape == shape
+            and t.is_contiguous())
+
+
+def _launch(fn, index, *args) -> int:
+    """``fn(*args, stream)`` on the card ``index`` and its current stream
+    (a handle read through the binding torch's own generated code uses)."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if torch.cuda.current_device() == index:
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def givens_step_cuda(hre, him, hlast, cs, sn, R, g, rn2, tol2, beta0,
                      tol_rel, active, j: int, anchor: bool) -> None:
     """``givens_step_reference`` through the CUDA kernel: every tensor f64
-    (``active`` bool), contiguous and on one CUDA device, k no more than
-    the library's ``fgmres_lsq_kmax()``."""
-    L, k = cs.shape
+    (``active`` bool), contiguous and on one CUDA device, hre, him, cs, sn,
+    R and g 16-byte aligned, k no more than the library's
+    ``fgmres_lsq_kmax()``."""
     if not hre.is_cuda:
         raise ValueError("givens_step_cuda needs CUDA tensors.")
     if _lib is None:
         build()
-    if not (0 < k <= _kmax and 0 <= j < k):
-        raise ValueError(f"givens_step_cuda: step {j} of k = {k} (k <= "
-                         f"{_kmax}).")
-    t = {"hre": hre, "him": him, "hlast": hlast, "cs": cs, "sn": sn, "R": R,
-         "g": g, "rn2": rn2, "tol2": tol2, "beta0": beta0,
-         "tol_rel": tol_rel, "active": active}
-    _check("givens_step_cuda", t,
-           {"hre": (L, k + 1), "him": (L, k + 1), "hlast": (L,),
-            "cs": (L, k), "sn": (L, k, 2), "R": (L, k, k, 2),
-            "g": (L, k + 1, 2), "rn2": (L,), "tol2": (L,), "beta0": (L,),
-            "tol_rel": (L,), "active": (L,)}, hre.device)
+    c = _cycle_of((cs, sn, R, g, rn2, tol2, beta0, tol_rel), hre.device)
+    L, k, index = c.L, c.k, c.index
+    if not 0 <= j < k:
+        raise ValueError(f"givens_step_cuda: step {j} of k = {k}.")
+    f64 = torch.float64
+    p_re, p_im = hre.data_ptr(), him.data_ptr()
+    if not (_fits(hre, (L, k + 1), f64, index)
+            and _fits(him, (L, k + 1), f64, index)
+            and _fits(hlast, (L,), f64, index)
+            and _fits(active, (L,), torch.bool, index)
+            and not (p_re | p_im) % 16):
+        _check("givens_step_cuda",
+               {"hre": hre, "him": him, "hlast": hlast, "active": active},
+               {"hre": (L, k + 1), "him": (L, k + 1), "hlast": (L,),
+                "active": (L,)}, c.dev)
     if L == 0:   # nothing to launch
         return
-    with torch.cuda.device(hre.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib.givens_step_launch(
-            *(x.data_ptr() for x in t.values()), L, k, int(j), int(anchor),
-            stream)
+    rc = _launch(_lib.givens_step_launch, index, c.ref, p_re, p_im,
+                 hlast.data_ptr(), active.data_ptr(), int(j), int(anchor))
     if rc != 0:
         raise RuntimeError(f"givens_step kernel launch failed: cudaError "
                            f"{rc}.")
@@ -273,26 +374,37 @@ backsub_reference.cuda_calls = 0
 
 
 def backsub_cuda(R, g, j_fin):
-    """``backsub_reference`` through the CUDA kernel: R and g f64, j_fin
-    int64, contiguous and on one CUDA device, k no more than the
-    library's ``fgmres_lsq_kmax()``."""
-    L, k = R.shape[:2]
+    """``backsub_reference`` through the CUDA kernel: R and g f64 and
+    16-byte aligned, j_fin int64, contiguous and on one CUDA device, k no
+    more than the library's ``fgmres_lsq_kmax()``.  R and g of the cycle
+    whose steps ran last are not checked again."""
     if not R.is_cuda:
         raise ValueError("backsub_cuda needs CUDA tensors.")
     if _lib is None:
         build()
-    if not 0 < k <= _kmax:
-        raise ValueError(f"backsub_cuda: k = {k} (k <= {_kmax}).")
-    _check("backsub_cuda", {"R": R, "g": g, "j_fin": j_fin},
-           {"R": (L, k, k, 2), "g": (L, k + 1, 2), "j_fin": (L,)}, R.device)
+    c = _cycle
+    p_R, p_g = R.data_ptr(), g.data_ptr()
+    if c is not None and c.ids[2] == id(R) and c.ids[3] == id(g):
+        L, k, index = c.L, c.k, c.index
+    else:
+        L, k = R.shape[:2]
+        index = R.get_device()
+        if not 0 < k <= _kmax:
+            raise ValueError(f"backsub_cuda: k = {k} (1 <= k <= {_kmax}: "
+                             "the kernels' widest bucket).")
+        f64 = torch.float64
+        if not (_fits(R, (L, k, k, 2), f64, index)
+                and _fits(g, (L, k + 1, 2), f64, index)
+                and not (p_R | p_g) % 16):
+            _check("backsub_cuda", {"R": R, "g": g},
+                   {"R": (L, k, k, 2), "g": (L, k + 1, 2)}, R.device)
+    if not _fits(j_fin, (L,), torch.int64, index):
+        _check("backsub_cuda", {"j_fin": j_fin}, {"j_fin": (L,)}, R.device)
     y = torch.empty(L, k, 2, dtype=R.dtype, device=R.device)
     if L == 0:   # nothing to launch
         return y
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib.backsub_launch(R.data_ptr(), g.data_ptr(),
-                                 j_fin.data_ptr(), y.data_ptr(), L, k,
-                                 stream)
+    rc = _launch(_lib.backsub_launch, index, p_R, p_g, j_fin.data_ptr(),
+                 y.data_ptr(), L, k)
     if rc != 0:
         raise RuntimeError(f"backsub kernel launch failed: cudaError {rc}.")
     backsub_cuda.launches += 1

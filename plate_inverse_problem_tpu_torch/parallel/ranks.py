@@ -87,10 +87,12 @@ def _forkserver() -> None:
 
 
 def spawn(fn, world: int, *args, backend: str | None = None,
-          device="cpu") -> None:
+          device="cuda") -> None:
     """Run ``fn(rank, device, *args)`` on ``world`` new processes in one
-    process group (``init``'s backend choice for ``device``; "cuda" is
-    each rank's card, cuda:LOCAL_RANK, or name one card for every rank).
+    process group (``init``'s backend choice for ``device``).  The ranks
+    run on the card unless the caller asks for the CPU (``device="cpu"``,
+    gloo): "cuda", the default, is each rank's card, cuda:LOCAL_RANK, or
+    name one card for every rank.
     The processes are forks of multiprocessing's forkserver
     (``_forkserver``), which has imported ``PRELOAD``, runs one OpenMP and
     BLAS thread and never touches the card (CUDA cannot fork: each rank

@@ -188,3 +188,33 @@ def test_dispatch_takes_plain_version_on_cpu():
         fk.givens_step_cuda(steps[0]["hre"], steps[0]["him"],
                             steps[0]["hlast"], *(s0[key] for key in keys),
                             steps[0]["active"], 0, True)
+
+
+def test_cuda_launch_state_on_cpu():
+    """What the kernels' launch path keeps a cycle, on CPU tensors: the
+    ``fgmres_state`` struct the launcher reads (eight pointers in
+    ``STATE_KEYS``' order, then L and k), the cycle held by identity (a
+    clone of one state tensor is another cycle, and a freed one ends it)
+    and the per-step check."""
+    import ctypes
+
+    assert ctypes.sizeof(fk._State) == 8 * 8 + 2 * 4
+    assert (fk._State.L.offset, fk._State.k.offset) == (64, 68)
+    s0, steps, _, _, _ = fk.synthetic_cycle(16, 8, seed=3)
+    state = tuple(s0[key] for key in fk.STATE_KEYS)
+    c = fk._Cycle(state)
+    assert (c.L, c.k, c.index) == (16, 8, None)
+    assert [getattr(c.state, key) for key in fk.STATE_KEYS] == [
+        t.data_ptr() for t in state]
+    assert c.holds(state)
+    assert not c.holds(tuple(t.clone() if key == "R" else t
+                             for key, t in zip(fk.STATE_KEYS, state)))
+    fk._cycle = c                  # forgotten once a state tensor is freed
+    del s0, state
+    assert fk._cycle is None
+    hre, active = steps[0]["hre"], steps[0]["active"]
+    assert fk._fits(hre, (16, 9), torch.float64, -1)
+    assert not fk._fits(hre, (16, 8), torch.float64, -1)
+    assert not fk._fits(hre.t(), (9, 16), torch.float64, -1)
+    assert fk._fits(active, (16,), torch.bool, -1)
+    assert not fk._fits(active, (16,), torch.float64, -1)

@@ -613,14 +613,17 @@ def _recorded(fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [8, 16])
-def test_fgmres_kernels_match_plain_bits(cuda_device, k):
-    """K7a ``givens_step`` at every step of a seeded cycle of 512 lanes
+@pytest.mark.parametrize("L", [64, 512])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 24, 64])
+def test_fgmres_kernels_match_plain_bits(cuda_device, k, L):
+    """K7a ``givens_step`` at every step of a seeded cycle of L lanes
     (``synthetic_cycle``: a = 0, b = 0, both zero, inactive and
-    underflowing lanes) and K7b ``backsub`` after it: the kernels' outputs
-    are the plain versions' bits on the same inputs."""
+    underflowing lanes) and K7b ``backsub`` after it, at a k in each of
+    the kernels' width buckets (8, 16, 32, 64; k below, at and between
+    them): the kernels' outputs are the plain versions' bits on the same
+    inputs."""
     state, steps, _, _, j_fin = fgmres_kernel.synthetic_cycle(
-        512, k, seed=k, device=cuda_device)
+        L, k, seed=k, device=cuda_device)
 
     def cycle():
         for j, s in enumerate(steps):
@@ -631,10 +634,47 @@ def test_fgmres_kernels_match_plain_bits(cuda_device, k):
         mixed.backsub(state["R"], state["g"],
                       torch.as_tensor(j_fin, device=cuda_device))
 
+    n0 = fgmres_kernel.givens_step_cuda.launches
     calls = _recorded(cycle)
     torch.cuda.synchronize()
+    assert fgmres_kernel.givens_step_cuda.launches == n0 + k
+    assert fgmres_kernel.bucket(k) == min(b for b in (8, 16, 32, 64)
+                                          if b >= k)
     differ, worst = fgmres_kernel.compare(calls)
     assert len(calls) == k + 1 and differ == 0, (differ, worst)
+
+
+@pytest.mark.cuda
+def test_fgmres_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A k past the widest bucket (64) and a state tensor off its 16-byte
+    alignment raise; nothing falls back to the plain version."""
+    fgmres_kernel.reset_launches()
+    assert fgmres_kernel.bucket(65) == 0
+    state, steps, _, _, j_fin = fgmres_kernel.synthetic_cycle(
+        4, 65, device=cuda_device)
+    s = steps[0]
+    with pytest.raises(ValueError):
+        fgmres_kernel.givens_step_cuda(
+            s["hre"], s["him"], s["hlast"],
+            *(state[key] for key in fgmres_kernel.STATE_KEYS), s["active"],
+            0, True)
+    with pytest.raises(ValueError):
+        fgmres_kernel.backsub_cuda(state["R"], state["g"],
+                                   torch.as_tensor(j_fin, device=cuda_device))
+    state, steps, _, _, _ = fgmres_kernel.synthetic_cycle(
+        4, 8, device=cuda_device)
+    s = steps[0]
+    buf = torch.zeros(4 * 9 + 1, dtype=torch.float64, device=cuda_device)
+    hre = buf[1:].view(4, 9)              # contiguous, 8 bytes off
+    with pytest.raises(ValueError):
+        fgmres_kernel.givens_step_cuda(
+            hre, s["him"], s["hlast"],
+            *(state[key] for key in fgmres_kernel.STATE_KEYS), s["active"],
+            0, True)
+    assert fgmres_kernel.givens_step_cuda.launches == 0
+    assert fgmres_kernel.backsub_cuda.launches == 0
+    assert fgmres_kernel.givens_step_reference.cuda_calls == 0
+    assert fgmres_kernel.backsub_reference.cuda_calls == 0
 
 
 @pytest.mark.cuda
